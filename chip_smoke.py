@@ -1,0 +1,454 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
+
+    python3 chip_smoke.py [--seed N]
+
+Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and the
+repository's ``src/`` beside this file; imports nothing of JAX or of the
+JAX package.  Phases, each of which fails the run if it fails:
+
+  1. card      name and power limit (nvidia-smi); TF32 off for matmul/cuDNN
+  2. build     every kernel under src/repro_torch/kernels/csrc, one nvcc each,
+               all started together
+  3. kernel    paged_decode against its plain version at the Qwen2.5-14B
+               shapes (B=8, Hkv=8, G=5, dh=128, bs=16; ragged lens with 0, 1,
+               bs, bs+1 and 2048; a windowed case) and Gemma's (Hkv=1, G=8,
+               dh=256), f32 and bf16, with CUDA-event timings
+  4. f32/2     qwen2.5-14b at full width, 2 layers, f32: ContinuousEngine and
+               generate_static give identical greedy tokens
+  5. bf16/48   qwen2.5-14b as configured (48 layers, bf16, random weights
+               made on the card): ContinuousEngine serves 16 requests; checks
+               token counts, the drained pool, 48 kernel launches per decode
+               micro-step, and one decode step's logits kernel vs plain;
+               then one chunk with every lane busy under torch.profiler:
+               wall and device ms per micro-step, idle share, kernel times
+  6. kernels   one JSON line per the port's kernel contract
+  7. ok        {"ok": true, "device": {...}} as the last line
+
+Tolerances: f32 kernel vs plain at rtol = atol = 1e-5 (only the order of
+summation differs).  bf16 per (request, query head) row: the row's max
+|kernel - plain| is at most 1.6e-2 of its max |plain|, four bf16 ulps at
+that value.  The plain version rounds the scaled query and its
+probabilities to bf16 before P·V (as the reference's decode_attention
+does), the kernel keeps both in f32, and both round the output once.  A
+long row averages many values down to a small output, so the bound
+follows each row's own scale: one tile of a 2048-token row left out
+moves the row by several percent of it.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12                      # H100 SXM, data sheet
+PEAK_FLOPS = {torch.float32: 67e12,            # f32 outside the tensor cores
+              torch.bfloat16: 989e12}          # bf16 tensor cores, dense
+PAGED_DECODE_TPU = "src/repro/kernels/flash_attention/kernel.py:226"
+F32_TOL = 1e-5                                 # rtol = atol, elementwise
+BF16_ROW_TOL = 1.6e-2                          # of each row's max |plain|
+DEV = "cuda"
+
+
+def check(ok: bool, msg: str) -> None:
+    if not ok:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def phase(name: str) -> None:
+    print(f"\n== {name}", flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int = 25) -> float:
+    """Median CUDA-event time of ``fn`` over ``reps`` runs, each after a
+    write of 256 MB that evicts the 50 MB L2, as a decode step's attention
+    finds it after the layer's weight reads."""
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=DEV)
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+# ---------------------------------------------------------------- phase 3
+def paged_case(gen, *, B, Hkv, G, dh, bs, lens, dtype, nbmax=None):
+    """A shuffled pool holding ``lens[b]`` tokens for request b."""
+    nbmax = nbmax or max(1, math.ceil(max(lens) / bs))
+    need = [math.ceil(n / bs) for n in lens]
+    nb = 1 + sum(need)
+    ids = (1 + torch.randperm(nb - 1, generator=gen, device=DEV)).to(torch.int32)
+    bt = torch.zeros((B, nbmax), dtype=torch.int32, device=DEV)
+    at = 0
+    for b, n in enumerate(need):
+        bt[b, :n] = ids[at:at + n]
+        at += n
+    pool = lambda: torch.randn((nb, bs, Hkv, dh), generator=gen, device=DEV).to(dtype)  # noqa: E731
+    q = torch.randn((B, 1, Hkv * G, dh), generator=gen, device=DEV).to(dtype)
+    sl = torch.tensor(lens, dtype=torch.int32, device=DEV)
+    return q, pool(), pool(), bt, sl
+
+
+def paged_bound(q, k_pool, bt, sl, window: int):
+    """(bound_ms, bound_by): live K/V rows read once, q/tables read once,
+    the output written once, over HBM bandwidth vs 4·G·dh flops per live
+    row and KV head over the dtype's peak rate."""
+    B, _, H, dh = q.shape
+    _, _, Hkv, _ = k_pool.shape
+    live = sl.clamp(max=window) if window > 0 else sl
+    rows = int(live.sum())
+    elt = q.element_size()
+    nbytes = (rows * Hkv * dh * 2 * elt + 2 * q.numel() * elt
+              + bt.numel() * 4 + sl.numel() * 4)
+    flops = 4 * rows * H * dh
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def library_call(q, k_pool, v_pool, bt, sl):
+    """Yardstick only, never called by the port: gather the table, then
+    torch's scaled_dot_product_attention with a length mask."""
+    B, _, H, dh = q.shape
+    _, bs, Hkv, _ = k_pool.shape
+    S = bt.shape[1] * bs
+    kg = k_pool[bt.long()].reshape(B, S, Hkv, dh).transpose(1, 2)
+    vg = v_pool[bt.long()].reshape(B, S, Hkv, dh).transpose(1, 2)
+    mask = (torch.arange(S, device=q.device)[None, :] < sl[:, None])[:, None, None]
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), kg, vg, attn_mask=mask, enable_gqa=True)
+
+
+def compare_kernel(ops, args, window: int, label: str, timed: bool):
+    q = args[0]
+    out = ops.paged_decode(*args, window=window).float()
+    ref = ops.paged_decode_ref(*args, window=window).float()
+    torch.cuda.synchronize()
+    err = (out - ref).abs()
+    max_err = float(err.max())
+    if q.dtype == torch.float32:
+        tol = F32_TOL
+        ok = bool((err <= tol + tol * ref.abs()).all())
+        row_rel = None
+    else:                                   # per (b, h) row, against its scale
+        tol = BF16_ROW_TOL
+        row_err, row_scale = err.amax(-1), ref.abs().amax(-1)
+        ok = bool((row_err <= tol * row_scale).all())
+        row_rel = float((row_err / row_scale.clamp(min=1e-30)).max())
+    ok = ok and bool(out.isfinite().all())
+    empty = (args[4] == 0)
+    if empty.any():
+        ok = ok and not bool(out[empty].any())   # seq_len 0 rows are zeros
+    row = {"case": label, "max_abs_err": max_err, "max_row_rel_err": row_rel, "tol": tol}
+    if timed:
+        bound, by = paged_bound(q, args[1], args[3], args[4], window)
+        row.update(ms=time_ms(lambda: ops.paged_decode(*args, window=window)),
+                   plain_ms=time_ms(lambda: ops.paged_decode_ref(*args, window=window)),
+                   library_ms=time_ms(lambda: library_call(*args)) if window == 0 else None,
+                   bound_ms=bound, bound_by=by)
+    print(json.dumps(row), flush=True)
+    check(ok, f"paged_decode disagrees with its plain version ({label}): "
+              f"max_abs_err {max_err}, max_row_rel_err {row_rel}, tol {tol}")
+    return row
+
+
+def kernel_phase(ops, seed: int):
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    lens = [0, 1, 16, 17, 2048, 300, 777, 1500]
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        qwen = paged_case(gen, B=8, Hkv=8, G=5, dh=128, bs=16, lens=lens, dtype=dtype)
+        compare_kernel(ops, qwen, 0, f"qwen {name}", timed=True)
+        compare_kernel(ops, qwen, 256, f"qwen {name} window=256", timed=False)
+        gemma = paged_case(gen, B=8, Hkv=1, G=8, dh=256, bs=16, lens=lens, dtype=dtype)
+        compare_kernel(ops, gemma, 0, f"gemma {name}", timed=True)
+
+
+# ------------------------------------------------------------- phases 4-5
+def make_requests(Request, vocab: int, n: int, rng, len_range, new_range):
+    lens = rng.integers(len_range[0], len_range[1] + 1, n)
+    news = rng.integers(new_range[0], new_range[1] + 1, n)
+    return [Request(rid=i, tokens=rng.integers(0, vocab, int(lens[i])).astype(np.int32),
+                    max_new_tokens=int(news[i])) for i in range(n)]
+
+
+def drive(engine, requests):
+    """``engine.run`` step by step: returns the results and the host tables
+    at the busiest chunk boundary (the main path's decode inputs)."""
+    for r in requests:
+        engine.submit(r)
+    out, busiest = [], None
+    while not engine.idle:
+        out.extend(engine.step())
+        if engine.num_active and (busiest is None
+                                  or engine.num_active >= busiest[0]):
+            busiest = (engine.num_active, engine.block_tables.copy(),
+                       engine.seq_lens.copy())
+    return out, busiest
+
+
+def f32_depth2_phase(serve, zoo, get_config, seed: int):
+    import dataclasses
+    cfg = dataclasses.replace(get_config("qwen2.5-14b"), num_layers=2,
+                              param_dtype="float32", compute_dtype="float32")
+    model = zoo.build_model(cfg)
+    params = model.init(seed, device=DEV)
+    rng = np.random.default_rng(seed)
+    reqs = make_requests(serve.Request, cfg.vocab_size, 8, rng, (16, 200), (4, 24))
+    engine = serve.ContinuousEngine(model, params, max_batch=4, num_blocks=128,
+                                    block_size=16, max_seq_len=224, chunk_steps=4)
+    from repro_torch import kernels
+    kernels.launches.clear()
+    results, _ = drive(engine, reqs)
+    launches = kernels.launches["paged_decode"]
+    got = {r.rid: r.tokens for r in results}
+    for r in reqs:
+        ref = serve.generate_static(model, params, r.tokens[None], r.max_new_tokens)
+        ref = ref[0].cpu().tolist()
+        check(got[r.rid] == ref, f"f32 depth-2: request {r.rid} engine {got[r.rid]} "
+                                 f"!= static {ref}")
+    check(launches == cfg.num_layers * engine.steps,
+          f"f32 depth-2: {launches} launches for {engine.steps} micro-steps")
+    print(json.dumps({"phase": "f32 depth 2, full width", "requests": len(reqs),
+                      "tokens": sum(len(v) for v in got.values()),
+                      "identical_tokens": True, "paged_decode_launches": launches,
+                      "micro_steps": engine.steps}), flush=True)
+    del engine, params, model
+    torch.cuda.empty_cache()
+
+
+def _kernel_group(name: str) -> str:
+    low = name.lower()
+    if "paged_decode" in low:
+        return "paged_decode"
+    if any(s in low for s in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
+        return "matmul"
+    return "other"
+
+
+def profile_chunk(engine, serve, vocab: int, rng) -> dict:
+    """Where a decode micro-step's time goes, with every lane busy: one
+    chunk timed on the host clock, then the next chunk under torch.profiler
+    for the device time by kernel (the profiler's own host cost would
+    inflate that chunk's wall).  The idle share is 1 - device / wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    k = engine.chunk_steps
+    reqs = make_requests(serve.Request, vocab, engine.max_batch, rng, (32, 512),
+                         (1 + 3 * k, 1 + 3 * k))
+    for r in reqs:
+        engine.submit(r)
+    engine.step()                           # prefills and the first chunk
+    check(engine.num_active == engine.max_batch, "profile: not every lane is busy")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / k
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.step()                       # the last chunk, then eviction
+        torch.cuda.synchronize()
+    check(engine.idle, "profile: requests left after their last chunk")
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / k
+    groups = dict.fromkeys(("matmul", "paged_decode", "other"), 0.0)
+    for e in kern:
+        groups[_kernel_group(e.key)] += e.self_device_time_total / 1e3 / k
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    return {"phase": "decode micro-step profile", "lanes": engine.max_batch,
+            "wall_ms_per_micro_step": wall_ms,
+            "device_ms_per_micro_step": busy_ms if kern else None,
+            "idle_share": 1 - busy_ms / wall_ms if kern else None,
+            "device_ms_by_group": groups,
+            "kernel_launches_per_micro_step": sum(e.count for e in kern) / k,
+            "top_kernels": [{"name": e.key[:80], "per_micro_step": e.count / k,
+                             "ms_per_micro_step": e.self_device_time_total / 1e3 / k}
+                            for e in top]}
+
+
+def serve_phase(serve, zoo, ops, get_config, seed: int, card: str):
+    from unittest import mock
+
+    from repro_torch import kernels
+    cfg = get_config("qwen2.5-14b")
+    model = zoo.build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed, device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    print(f"init: {serve.pool_bytes(params) / 1e9:.2f} GB of {cfg.param_dtype} "
+          f"weights in {init_s:.2f} s", flush=True)
+
+    rng = np.random.default_rng(seed)
+    engine = serve.ContinuousEngine(model, params, max_batch=8, num_blocks=512,
+                                    block_size=16, max_seq_len=576, chunk_steps=8)
+    warm = make_requests(serve.Request, cfg.vocab_size, 2, rng, (32, 64), (8, 8))
+    drive(engine, warm)                       # cuBLAS handles, allocator
+    reqs = make_requests(serve.Request, cfg.vocab_size, 16, rng, (32, 512), (8, 64))
+    steps0 = engine.steps
+    torch.cuda.synchronize()
+    kernels.launches.clear()
+    t0 = time.perf_counter()
+    results, busiest = drive(engine, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launches["paged_decode"]
+    micro = engine.steps - steps0
+
+    check(len(results) == len(reqs), f"{len(results)} results for {len(reqs)} requests")
+    by_rid = {r.rid: r for r in results}
+    for r in reqs:
+        res = by_rid[r.rid]
+        check(not res.cancelled and len(res.tokens) == r.max_new_tokens,
+              f"request {r.rid}: {len(res.tokens)} tokens for {r.max_new_tokens}")
+    check(engine.alloc.used_blocks == 0 and engine.reserved_tokens == 0,
+          "pool not free after the drain")
+    check(launches > 0 and launches == cfg.num_layers * micro,
+          f"{launches} paged_decode launches for {micro} micro-steps x {cfg.num_layers}")
+    ntok = sum(len(r.tokens) for r in results)
+    ttft = sorted(r.ttft for r in results)
+    lat = sorted(r.latency for r in results)
+    summary = {"phase": "bf16 full depth, full width", "card": card,
+               "requests": len(results), "generated_tokens": ntok,
+               "prompt_tokens": int(sum(len(r.tokens) for r in reqs)),
+               "wall_s": wall, "tokens_per_s": ntok / wall,
+               "ttft_p50_ms": ttft[len(ttft) // 2] * 1e3,
+               "latency_p50_ms": lat[len(lat) // 2] * 1e3,
+               "micro_steps": micro, "paged_decode_launches": launches,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(json.dumps(summary), flush=True)
+    print(json.dumps(profile_chunk(engine, serve, cfg.vocab_size, rng)), flush=True)
+
+    # one decode step's logits through the kernel vs the plain version, on
+    # four fresh requests scattered into a small pool
+    probe = make_requests(serve.Request, cfg.vocab_size, 4, rng, (40, 300), (2, 2))
+    pool = model.init_paged_cache(1 + 4 * 20, 16, device=DEV)
+    bt = np.zeros((4, 20), np.int32)
+    first = []
+    with torch.inference_mode():
+        at = 1
+        for b, r in enumerate(probe):
+            L = len(r.tokens)
+            lpad = math.ceil(L / 16) * 16
+            toks = np.zeros((1, lpad), np.int32)
+            toks[0, :L] = r.tokens
+            logits, ctg = model.prefill(params, {"tokens": torch.from_numpy(toks).to(DEV)},
+                                        last=[L - 1])
+            serve.scatter_prefill(pool, ctg, list(range(at, at + lpad // 16)))
+            bt[b, :math.ceil((L + 1) / 16)] = range(at, at + math.ceil((L + 1) / 16))
+            at += math.ceil((L + 1) / 16)
+            first.append(int(logits.argmax(-1)[0]))
+        tok = torch.tensor(first, dtype=torch.int32, device=DEV)[:, None]
+        btd = torch.from_numpy(bt).to(DEV)
+        sl = torch.tensor([len(r.tokens) for r in probe], dtype=torch.int32, device=DEV)
+        lk, _ = model.paged_decode_step(params, tok, pool, btd, sl)
+        with mock.patch.object(ops, "paged_decode", ops.paged_decode_ref):
+            lp, _ = model.paged_decode_step(params, tok, pool, btd, sl)
+    rel = float((lk.float() - lp.float()).norm() / lp.float().norm())
+    agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+    print(json.dumps({"phase": "bf16 decode-step logits, kernel vs plain",
+                      "rel_l2_err": rel, "max_abs_err": float((lk.float() - lp.float()).abs().max()),
+                      "argmax_agreement": agree, "tol_rel_l2": 5e-2}), flush=True)
+    check(bool(lk.isfinite().all()), "non-finite logits")
+    check(rel <= 5e-2, f"bf16 decode-step logits: kernel vs plain rel L2 {rel} > 5e-2")
+
+    # the kernel's line: its wrapper at the main path's busiest decode
+    # inputs (the pool as it stands, the host tables of that chunk boundary)
+    _, bt_host, sl_host = busiest
+    gen = torch.Generator(device=DEV).manual_seed(seed + 1)
+    q = torch.randn((8, 1, cfg.num_heads, cfg.head_dim), generator=gen,
+                    device=DEV).to(cfg.cdtype)
+    kp, vp = engine.pool["blocks"]["b0"]["k"][0], engine.pool["blocks"]["b0"]["v"][0]
+    sl_attn = np.where(sl_host > 0, sl_host + 1, 0).astype(np.int32)
+    args = (q, kp, vp, torch.from_numpy(bt_host).to(DEV), torch.from_numpy(sl_attn).to(DEV))
+    print(f"kernel at the main path's inputs: seq_lens {sl_attn.tolist()}", flush=True)
+    row = compare_kernel(ops, args, 0, "qwen bf16, serve-run inputs", timed=True)
+    return {"name": "paged_decode", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
+            "replaces": PAGED_DECODE_TPU, "launches": launches,
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    src = Path(__file__).resolve().parent / "src"
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke: {src}/repro_torch not found: run from a checkout "
+              f"of the repository", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(src))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch import serve
+
+    t_start = time.perf_counter()
+    phase("1. card")
+    card = card_line()
+    print(card, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+
+    phase("2. build")
+    secs = build.build_all()
+    for name, s in secs.items():
+        print(f"built {name} in {s:.1f} s", flush=True)
+        for line in build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line or "error" in line.lower():
+                print("  " + line.strip(), flush=True)
+
+    phase("3. paged_decode vs plain")
+    kernel_phase(ops, args.seed)
+
+    phase("4. qwen2.5-14b full width, f32, 2 layers: engine == static")
+    f32_depth2_phase(serve, zoo, get_config, args.seed)
+
+    phase("5. qwen2.5-14b full width, bf16, 48 layers: serve 16 requests")
+    entry = serve_phase(serve, zoo, ops, get_config, args.seed, card)
+
+    phase("6. kernels")
+    print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(card, flush=True)
+    print(json.dumps({"kernels": [entry]}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

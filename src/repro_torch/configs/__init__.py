@@ -1,0 +1,10 @@
+from repro_torch.configs.base import (  # noqa: F401
+    ASSIGNED_ARCHS,
+    MLAConfig,
+    MoEConfig,
+    ModelConfig,
+    SSMConfig,
+    get_config,
+    list_configs,
+    register,
+)

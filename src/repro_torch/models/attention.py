@@ -1,0 +1,236 @@
+"""GQA attention and KV caches (port of ``repro/models/attention.py``).
+
+Prefill attention is plain PyTorch (matmul + softmax), as the reference
+leaves it to XLA.  The one kernel on this path is the paged decode
+attention of the serving engine, reached through
+``kernels.flash_attention.ops.paged_decode``.
+
+Scores are formed in f32 from the inputs upcast (the reference's
+``preferred_element_type=f32``); probabilities go back to the input dtype
+before P·V where the reference does so.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.models.layers import apply_rope, dense_init
+
+NEG_INF = -1e30
+
+
+# =====================================================================
+# parameter init
+# =====================================================================
+def init_gqa(gen, cfg, *, stack: tuple = ()):
+    D, H, Hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    p = {
+        "wq": dense_init(gen, D, H * dh, cfg.pdtype, stack=stack),
+        "wk": dense_init(gen, D, Hkv * dh, cfg.pdtype, stack=stack),
+        "wv": dense_init(gen, D, Hkv * dh, cfg.pdtype, stack=stack),
+        "wo": dense_init(gen, H * dh, D, cfg.pdtype,
+                         scale=1.0 / math.sqrt(H * dh), stack=stack),
+    }
+    if cfg.qkv_bias:
+        for name, n in (("bq", H * dh), ("bk", Hkv * dh), ("bv", Hkv * dh)):
+            p[name] = torch.zeros((*stack, n), dtype=cfg.pdtype, device=gen.device)
+    return p
+
+
+# =====================================================================
+# core softmax-attention primitives
+# =====================================================================
+def _scale(q):
+    # the reference multiplies by a weakly typed Python scalar, which
+    # JAX rounds to q's dtype first
+    return q * torch.tensor(q.shape[-1] ** -0.5, dtype=q.dtype, device=q.device)
+
+
+def _band_mask(q_pos, k_pos, *, causal: bool, window: int):
+    """True where attention is allowed. q_pos (Sq,), k_pos (Skv,)."""
+    rel = q_pos[:, None] - k_pos[None, :]
+    ok = torch.ones(rel.shape, dtype=torch.bool, device=rel.device)
+    if causal:
+        ok &= rel >= 0
+    if window > 0:
+        ok &= rel < window
+    return ok
+
+
+def attention(q, k, v, *, causal: bool = True, window: int = 0,
+              kv_block: int = 1024):
+    """Chunked online-softmax attention.
+
+    q: (B, Sq, H, dh); k, v: (B, Skv, Hkv, dh); GQA via H = Hkv * G.
+    ``window``>0: sliding window (queries see the last `window` keys).
+    Returns (B, Sq, H, dh) in q.dtype.
+    """
+    B, Sq, H, dh = q.shape
+    _, Skv, Hkv, _ = k.shape
+    dv = v.shape[-1]
+    G = H // Hkv
+    dev = q.device
+    qg = _scale(q.reshape(B, Sq, Hkv, G, dh)).float()
+    q_pos = torch.arange(Sq, device=dev)
+
+    nblk = max(1, math.ceil(Skv / kv_block))
+    if nblk == 1:
+        k_pos = torch.arange(Skv, device=dev)
+        scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
+        mask = _band_mask(q_pos, k_pos, causal=causal, window=window)
+        scores = torch.where(mask, scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(q.dtype), v)
+        return out.reshape(B, Sq, H, dv)
+
+    m = torch.full((B, Hkv, G, Sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, Hkv, G, Sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Hkv, G, Sq, dv), dtype=torch.float32, device=dev)
+    for i in range(nblk):
+        k_pos = i * kv_block + torch.arange(kv_block, device=dev)
+        kblk = k[:, i * kv_block:(i + 1) * kv_block].float()
+        vblk = v[:, i * kv_block:(i + 1) * kv_block].float()
+        pad = kv_block - kblk.shape[1]          # ragged last block: pad with
+        if pad:                                 # zeros, masked below
+            kblk = torch.nn.functional.pad(kblk, (0, 0, 0, 0, 0, pad))
+            vblk = torch.nn.functional.pad(vblk, (0, 0, 0, 0, 0, pad))
+        scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, kblk)
+        mask = _band_mask(q_pos, k_pos, causal=causal, window=window)
+        mask &= (k_pos < Skv)[None, :]
+        scores = torch.where(mask, scores, NEG_INF)
+        m_new = torch.maximum(m, scores.amax(-1))
+        p = torch.exp(scores - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, vblk)
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, dv).to(q.dtype)
+
+
+def decode_attention(q1, k_cache, v_cache, cache_len=None, *, window: int = 0):
+    """One-token attention.  q1 (B,1,H,dh); caches (B,S,Hkv,dh).
+
+    ``cache_len``: number of valid cache entries — an int, or a (B,)
+    tensor for ragged batches (the paged serving path); None = all.
+    ``window``>0 additionally masks keys older than the last ``window``
+    positions.
+    """
+    B, _, H, dh = q1.shape
+    _, S, Hkv, _ = k_cache.shape
+    G = H // Hkv
+    qg = _scale(q1.reshape(B, Hkv, G, dh))
+    scores = torch.einsum("bhgd,bkhd->bhgk", qg.float(), k_cache.float())
+    if cache_len is not None:
+        cl = torch.as_tensor(cache_len, device=q1.device)
+        cl = cl[:, None] if cl.ndim == 1 else cl.reshape(1, 1)
+        pos = torch.arange(S, device=q1.device)[None, :]
+        valid = pos < cl
+        if window > 0:
+            valid &= pos >= cl - window
+        scores = torch.where(valid[:, None, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", probs.to(q1.dtype), v_cache)
+    return out.reshape(B, 1, H, dh)
+
+
+# =====================================================================
+# GQA block forward (prefill / decode)
+# =====================================================================
+def _project_qkv(p, x, cfg):
+    B, S, _ = x.shape
+    H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = x @ p["wq"].to(x.dtype)
+    k = x @ p["wk"].to(x.dtype)
+    v = x @ p["wv"].to(x.dtype)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    return (q.reshape(B, S, H, dh), k.reshape(B, S, Hkv, dh),
+            v.reshape(B, S, Hkv, dh))
+
+
+def gqa_forward(p, x, cfg):
+    """Full-sequence self-attention (prefill compute).  Returns
+    (out (B,S,D), (k, v)) with k/v after RoPE, for the caches."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg)
+    positions = torch.arange(S, device=x.device)[None, :]
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    window = cfg.sliding_window if cfg.attn_variant == "sliding" else 0
+    if window and cfg.causal and S > 4 * window:
+        raise NotImplementedError(
+            "block-local sliding_attention (S > 4·window) arrives with the "
+            "slice that ports the sliding-window configs")
+    out = attention(q, k, v, causal=cfg.causal, window=window)
+    return out.reshape(B, S, -1) @ p["wo"].to(x.dtype), (k, v)
+
+
+def gqa_decode(p, x1, cache, cfg, pos: int):
+    """x1 (B,1,D); cache {'k','v'} (B,S,Hkv,dh); pos: int write index.
+
+    Writes the new token's K/V into ``cache`` IN PLACE (the reference
+    returns an updated copy; its jitted callers donate the buffer, so no
+    caller ever reads the old cache) and returns (out (B,1,D), cache).
+    For sliding-window configs the cache is a ring buffer and pos wraps.
+    """
+    B = x1.shape[0]
+    q, k, v = _project_qkv(p, x1, cfg)
+    S = cache["k"].shape[1]
+    abs_pos = torch.full((B, 1), pos, device=x1.device)
+    q = apply_rope(q, abs_pos, cfg.rope_theta)
+    k = apply_rope(k, abs_pos, cfg.rope_theta)
+    slot = pos % S if cfg.attn_variant == "sliding" else pos
+    cache["k"][:, slot] = k[:, 0]
+    cache["v"][:, slot] = v[:, 0]
+    out = decode_attention(q, cache["k"], cache["v"], cache_len=min(pos + 1, S))
+    return out.reshape(B, 1, -1) @ p["wo"].to(x1.dtype), cache
+
+
+def gqa_paged_decode(p, x1, cache, cfg, pos_info):
+    """Paged-pool GQA decode.  x1 (B,1,D); cache {'k','v'} leaves are
+    (nb, bs, Hkv, dh) block POOLS shared by every in-flight request —
+    token t of request b lives at pool slot ``[bt[b, t//bs], t % bs]``.
+
+    ``pos_info = (block_tables (B, nbmax) int32, seq_lens (B,) int32)``.
+    The new token's K/V is scattered at position ``seq_lens[b]`` IN PLACE
+    with ``index_put_`` — the reference's engine donates the pool to its
+    jitted step, so the pool it replaces is never read again; the port
+    writes where it would have copied.  Inactive slots (seq_len 0, all-null
+    block table) scatter into the reserved null block 0.  Attention then
+    covers ``seq_lens + 1`` tokens, the new one included.
+    """
+    bt, sl = pos_info
+    B = x1.shape[0]
+    q, k, v = _project_qkv(p, x1, cfg)
+    abs_pos = sl[:, None]                                  # (B, 1)
+    q = apply_rope(q, abs_pos, cfg.rope_theta)
+    k = apply_rope(k, abs_pos, cfg.rope_theta)
+    bs = cache["k"].shape[1]
+    blk = torch.gather(bt, 1, (sl // bs)[:, None].to(bt.dtype))[:, 0].long()
+    off = (sl % bs).long()
+    cache["k"].index_put_((blk, off), k[:, 0])
+    cache["v"].index_put_((blk, off), v[:, 0])
+    window = cfg.sliding_window if cfg.attn_variant == "sliding" else 0
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    out = flash_ops.paged_decode(q, cache["k"], cache["v"], bt, sl + 1,
+                                 window=window)
+    return out.reshape(B, 1, -1) @ p["wo"].to(x1.dtype), cache
+
+
+def gqa_paged_cache_shape(cfg, num_blocks: int, block_size: int):
+    return {
+        "k": (num_blocks, block_size, cfg.num_kv_heads, cfg.head_dim),
+        "v": (num_blocks, block_size, cfg.num_kv_heads, cfg.head_dim),
+    }
+
+
+def gqa_cache_shape(cfg, batch: int, seq_len: int):
+    S = min(seq_len, cfg.sliding_window) if cfg.attn_variant == "sliding" else seq_len
+    return {
+        "k": (batch, S, cfg.num_kv_heads, cfg.head_dim),
+        "v": (batch, S, cfg.num_kv_heads, cfg.head_dim),
+    }

@@ -1,0 +1,295 @@
+"""Model zoo for dense all-GQA decoders (port of ``repro/models/model_zoo.py``).
+
+The parameter tree is the reference's: ``embed``, ``final_norm``,
+``lm_head`` (unless tied), an optional unrolled ``prefix`` list and
+``blocks``, whose leaves are stacked on a leading ``n_super`` axis (48 for
+Qwen2.5-14B).  The reference scans that axis; the port loops over it in
+Python and indexes layer ``i``, so one layer's paged pool ``pool[i]`` is a
+contiguous ``(nb, bs, Hkv, dh)`` tensor the decode kernel reads directly.
+
+Decode caches and paged pools are updated in place (the reference's
+jitted callers donate them); prefill returns fresh caches.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import cached_property
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch import device as device_lib
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init,
+                                       embed_init, init_mlp, init_norm)
+
+
+# ======================================================================
+# layer schedule
+# ======================================================================
+@dataclass(frozen=True)
+class BlockKind:
+    mixer: str   # gqa (mla | mamba | mlstm | slstm: later slices)
+    ffn: str     # dense | none (moe: later slice)
+
+
+def layer_schedule(cfg: ModelConfig) -> list[BlockKind]:
+    """Per-layer (mixer, ffn) kinds of a dense all-GQA config."""
+    _check_supported(cfg)
+    ffn = "none" if cfg.d_ff == 0 else "dense"
+    return [BlockKind("gqa", ffn) for _ in range(cfg.num_layers)]
+
+
+def split_schedule(kinds: list[BlockKind]) -> tuple[int, int]:
+    """Return (prefix_len, period): repeating superblock period covering
+    everything after a small unrolled prefix.  SMALLEST PERIOD wins, then
+    smallest prefix (the reference's rule, kept so the trees match)."""
+    L = len(kinds)
+    for p in range(1, L + 1):
+        for q in range(0, min(4, L - p) + 1):
+            rest = kinds[q:]
+            n = len(rest)
+            if n % p == 0 and all(rest[i] == rest[i % p] for i in range(n)):
+                return q, p
+    return 0, L
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    later = []
+    if cfg.moe is not None:
+        later.append("MoE FFNs (models/moe.py)")
+    if cfg.mla is not None:
+        later.append("MLA attention (models/attention.py MLA half)")
+    if cfg.ssm is not None or cfg.family in ("ssm", "hybrid"):
+        later.append("SSM mixers (models/ssm.py)")
+    if cfg.frontend_dim or cfg.family in ("audio", "vlm"):
+        later.append("audio/VLM frontends")
+    if later:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(later)} arrive with the later slice of the "
+            f"port that ports the model families beyond dense GQA")
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _stack(trees: list):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+# ======================================================================
+# single block
+# ======================================================================
+def init_block(gen, cfg: ModelConfig, kind: BlockKind, *, stack: tuple = ()):
+    p: dict[str, Any] = {"norm1": init_norm(cfg, gen.device, stack=stack),
+                         "attn": attn.init_gqa(gen, cfg, stack=stack)}
+    if kind.ffn != "none":
+        p["norm2"] = init_norm(cfg, gen.device, stack=stack)
+        p["mlp"] = init_mlp(gen, cfg, stack=stack)
+    return p
+
+
+def apply_block(p, x, cfg: ModelConfig, kind: BlockKind, *, mode: str,
+                cache=None, pos=None):
+    """Returns (x, cache): the new prefill cache, the (in-place updated)
+    decode cache, or None in ``train`` mode."""
+    h = apply_norm(p["norm1"], x, cfg)
+    if mode == "paged":
+        a, new_cache = attn.gqa_paged_decode(p["attn"], h, cache, cfg, pos)
+    elif mode == "decode":
+        a, new_cache = attn.gqa_decode(p["attn"], h, cache, cfg, pos)
+    else:
+        a, (k, v) = attn.gqa_forward(p["attn"], h, cfg)
+        new_cache = {"k": k, "v": v} if mode == "prefill" else None
+    x = x + a
+    if kind.ffn != "none":
+        x = x + apply_mlp(p["mlp"], apply_norm(p["norm2"], x, cfg), cfg)
+    return x, new_cache
+
+
+# ======================================================================
+# Model
+# ======================================================================
+class Model:
+    def __init__(self, cfg: ModelConfig):
+        _check_supported(cfg)
+        self.cfg = cfg
+
+    # ---- structure ---------------------------------------------------
+    @cached_property
+    def schedule(self) -> list[BlockKind]:
+        return layer_schedule(self.cfg)
+
+    @cached_property
+    def prefix_period(self) -> tuple[int, int]:
+        return split_schedule(self.schedule)
+
+    @property
+    def superblock(self) -> list[BlockKind]:
+        q, p = self.prefix_period
+        return self.schedule[q:q + p]
+
+    @property
+    def n_super(self) -> int:
+        q, p = self.prefix_period
+        return (len(self.schedule) - q) // p if p else 0
+
+    # ---- init ---------------------------------------------------------
+    def init(self, seed: int, device=None) -> dict:
+        """Random weights from a ``torch.Generator`` seeded with ``seed`` on
+        the device itself (no host init + copy).  The numbers differ from
+        ``jax.random``'s; tests carry the reference's weights across with
+        ``interop.params_from_numpy`` instead."""
+        cfg = self.cfg
+        dev = device_lib.resolve(device)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        q, _ = self.prefix_period
+        params: dict[str, Any] = {
+            "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, cfg.pdtype),
+            "final_norm": init_norm(cfg, dev),
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
+                                           cfg.pdtype, scale=0.02)
+        if q:
+            params["prefix"] = [init_block(gen, cfg, self.schedule[i])
+                                for i in range(q)]
+        if self.n_super:
+            params["blocks"] = {
+                f"b{j}": init_block(gen, cfg, kind, stack=(self.n_super,))
+                for j, kind in enumerate(self.superblock)}
+        return params
+
+    # ---- embedding in / logits out ------------------------------------
+    def _embed_in(self, params, batch):
+        cfg = self.cfg
+        x = params["embed"][batch["tokens"].long()].to(cfg.cdtype)
+        if cfg.tie_embeddings:
+            x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=cfg.cdtype,
+                                 device=x.device)
+        return x
+
+    def head(self, params):
+        """(D, V) LM-head matrix: the tied-embedding transpose or ``lm_head``."""
+        return (params["embed"].T if self.cfg.tie_embeddings
+                else params["lm_head"])
+
+    def _logits_out(self, params, x):
+        x = apply_norm(params["final_norm"], x, self.cfg)
+        return x @ self.head(params).to(x.dtype)
+
+    # ---- the layer stack ----------------------------------------------
+    def _stack_forward(self, params, x, *, mode: str, caches=None, pos=None):
+        cfg = self.cfg
+        q, _ = self.prefix_period
+        new_prefix = []
+        for i in range(q):
+            c = caches["prefix"][i] if caches else None
+            x, nc = apply_block(params["prefix"][i], x, cfg, self.schedule[i],
+                                mode=mode, cache=c, pos=pos)
+            new_prefix.append(nc)
+        new_blocks = None
+        if self.n_super:
+            per_layer = []
+            for i in range(self.n_super):
+                bp = _layer(params["blocks"], i)
+                bc = _layer(caches["blocks"], i) if caches else None
+                ncs = {}
+                for j, kind in enumerate(self.superblock):
+                    x, ncs[f"b{j}"] = apply_block(
+                        bp[f"b{j}"], x, cfg, kind, mode=mode,
+                        cache=bc[f"b{j}"] if bc else None, pos=pos)
+                per_layer.append(ncs)
+            if mode == "prefill":
+                new_blocks = _stack(per_layer)
+            elif caches:
+                new_blocks = caches["blocks"]       # updated in place
+        out_caches = None
+        if mode in ("prefill", "decode", "paged"):
+            out_caches = {"prefix": new_prefix, "blocks": new_blocks}
+        return x, out_caches
+
+    # ---- public API ------------------------------------------------------
+    def logits(self, params, batch):
+        """Full-sequence forward: (logits (B,S,V), aux loss 0 — dense FFNs
+        carry no router loss)."""
+        x = self._embed_in(params, batch)
+        x, _ = self._stack_forward(params, x, mode="train")
+        return self._logits_out(params, x), torch.zeros((), device=x.device)
+
+    def prefill(self, params, batch, *, last=None):
+        """Returns (last-token logits (B,V), caches).
+
+        ``last`` (B,) — per-request index of the true final prompt token,
+        for right-padded ragged batches.  Default reads position S-1.
+        """
+        x = self._embed_in(params, batch)
+        x, caches = self._stack_forward(params, x, mode="prefill")
+        if last is None:
+            x_last = x[:, -1:]
+        else:
+            last = torch.as_tensor(last, device=x.device).long()
+            x_last = x[torch.arange(x.shape[0], device=x.device), last][:, None]
+        return self._logits_out(params, x_last)[:, 0], caches
+
+    def paged_decode_step(self, params, tokens, caches, block_tables,
+                          seq_lens):
+        """ONE token against a paged pool shared across requests.
+
+        tokens (B,1) int; block_tables (B,nbmax) int32; seq_lens (B,) int32
+        tokens already in the cache (0 = inactive slot).  The new token's
+        K/V is written into ``caches`` in place at
+        ``[block_tables[b, seq_lens[b]//bs], seq_lens[b]%bs]``.
+        -> (logits (B,V), caches).
+        """
+        x = self._embed_in(params, {"tokens": tokens})
+        x, caches = self._stack_forward(params, x, mode="paged", caches=caches,
+                                        pos=(block_tables, seq_lens))
+        return self._logits_out(params, x)[:, 0], caches
+
+    def decode_step(self, params, tokens, caches, pos: int):
+        """tokens (B,1) int, pos int.  -> (logits (B,V), caches), the
+        caches written in place at ``pos``."""
+        x = self._embed_in(params, {"tokens": tokens})
+        x, caches = self._stack_forward(params, x, mode="decode",
+                                        caches=caches, pos=pos)
+        return self._logits_out(params, x)[:, 0], caches
+
+    # ---- caches ----------------------------------------------------------
+    def _cache_tree(self, shape: dict, device):
+        dev = device_lib.resolve(device)
+        dt = self.cfg.cdtype
+        q, _ = self.prefix_period
+        prefix = [{k: torch.zeros(s, dtype=dt, device=dev) for k, s in shape.items()}
+                  for _ in range(q)]
+        blocks = None
+        if self.n_super:
+            blocks = {f"b{j}": {k: torch.zeros((self.n_super, *s), dtype=dt, device=dev)
+                                for k, s in shape.items()}
+                      for j in range(len(self.superblock))}
+        return {"prefix": prefix, "blocks": blocks}
+
+    def init_cache(self, batch: int, seq_len: int, device=None):
+        """Contiguous caches: leaves (B, S, Hkv, dh), stacked (n_super, ...)."""
+        return self._cache_tree(attn.gqa_cache_shape(self.cfg, batch, seq_len),
+                                device)
+
+    def init_paged_cache(self, num_blocks: int, block_size: int, device=None):
+        """ONE paged pool shared by all in-flight requests: every layer's k/v
+        lives in ``(num_blocks, block_size, Hkv, dh)`` blocks addressed
+        through per-request block tables."""
+        return self._cache_tree(
+            attn.gqa_paged_cache_shape(self.cfg, num_blocks, block_size), device)
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    return Model(cfg)

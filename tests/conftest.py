@@ -16,6 +16,12 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 SLOW_FILES = {"test_kd_pipeline.py", "test_engine_parity.py"}
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (a CUDA kernel has no CPU mode); "
+        "the test skips itself where torch.cuda.is_available() is false")
+
+
 def pytest_collection_modifyitems(config, items):
     for item in items:
         if item.fspath.basename in SLOW_FILES:
