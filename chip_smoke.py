@@ -22,11 +22,29 @@ JAX package.  Phases, each of which fails the run if it fails:
                micro-step, and one decode step's logits kernel vs plain;
                then one chunk with every lane busy under torch.profiler:
                wall and device ms per micro-step, idle share, kernel times
-  6. kernels   one JSON line per the port's kernel contract
-  7. ok        {"ok": true, "device": {...}} as the last line
+  6. KD       ensemble_softmax, kd_loss_fwd and kd_loss_bwd against their
+               plain versions, f32 and bf16: at the FedSDD round's own shapes
+               (M = K·R = 8 teachers over 8 server batches of 256, V = 10),
+               at the reference's sweep, and at V = 152,064 (Qwen2.5's
+               vocabulary) with M = 4, B = 256; CUDA-event timings beside
+               the HBM bound and a library composition
+  7. f32 round ResNet-20 (classification_task, 8 clients), fedsdd K=4 R=2,
+               2 rounds, twice from the same weights made on the card: with
+               the kernels and with the three wrappers patched to their plain
+               versions; cuDNN deterministic.  Main model within 2e-4, models
+               k>0 bit-identical (KD never touches them)
+  8. ResNet-56 the paper's model at full depth and width: fedsdd K=4 R=2 over
+               20 clients (participation 0.4, CIFAR-10's 50,000 training
+               images as the data scale), local_epochs=1, distill_steps=200,
+               2 rounds through make_runner(...).run; checks the history, 8
+               teachers, the kernels' launch counts (2 / 400 / 400) and that
+               models k>0 differ from the main one; then 10 client steps and 10
+               KD steps under torch.profiler
+  9. kernels   one JSON line per the port's kernel contract
+ 10. ok        {"ok": true, "device": {...}} as the last line
 
-Tolerances: f32 kernel vs plain at rtol = atol = 1e-5 (only the order of
-summation differs).  bf16 per (request, query head) row: the row's max
+Tolerances, paged_decode: f32 kernel vs plain at rtol = atol = 1e-5 (only
+the order of summation differs).  bf16 per (request, query head) row: the row's max
 |kernel - plain| is at most 1.6e-2 of its max |plain|, four bf16 ulps at
 that value.  The plain version rounds the scaled query and its
 probabilities to bf16 before P·V (as the reference's decode_attention
@@ -34,6 +52,16 @@ does), the kernel keeps both in f32, and both round the output once.  A
 long row averages many values down to a small output, so the bound
 follows each row's own scale: one tile of a 2048-token row left out
 moves the row by several percent of it.
+
+Tolerances, the KD kernels (both sides compute in f32 from the same
+inputs): f32 per row, max |kernel - plain| at most 1e-5 of the row's max
+|plain|; probabilities from bf16 teacher logits at atol 2e-3 (the
+reference's own); the loss at rtol 1e-4; a bf16 gradient per row at 8e-3
+of its max |plain| (two bf16 ulps: both sides round once).  A gradient
+row also gets 1e-6·|g|·τ/B absolute: it is (p − t)·g·τ/B with p, t ≤ 1,
+so f32 leaves about 1e-7 of that scale as noise, and a row the student
+already matches (the distilled model's, at the round's own inputs) has a
+max |plain| near that noise.
 """
 from __future__ import annotations
 
@@ -55,6 +83,16 @@ PEAK_FLOPS = {torch.float32: 67e12,            # f32 outside the tensor cores
 PAGED_DECODE_TPU = "src/repro/kernels/flash_attention/kernel.py:226"
 F32_TOL = 1e-5                                 # rtol = atol, elementwise
 BF16_ROW_TOL = 1.6e-2                          # of each row's max |plain|
+KD_TPU = {"ensemble_softmax": "src/repro/kernels/kd_loss/kernel.py:57",
+          "kd_loss_fwd": "src/repro/kernels/kd_loss/kernel.py:88",
+          "kd_loss_bwd": "src/repro/kernels/kd_loss/kernel.py:120"}
+KD_SOURCE = "src/repro_torch/kernels/csrc/kd_loss.cu"
+KD_F32_ROW_TOL = 1e-5                          # of each row's max |plain|
+KD_BF16_PROB_ATOL = 2e-3
+KD_LOSS_RTOL = 1e-4
+KD_BF16_GRAD_ROW_TOL = 8e-3                    # of each row's max |plain|
+KD_GRAD_ATOL = 1e-6                            # × |g|·τ/B, the gradient's own scale
+ROUND_TOL = 2e-4                               # main model, kernels vs plain
 DEV = "cuda"
 
 
@@ -394,6 +432,317 @@ def serve_phase(serve, zoo, ops, get_config, seed: int, card: str):
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
 
 
+# ---------------------------------------------------------------- phase 6
+def rows_within(out, ref, rel: float, atol: float = 0.0) -> bool:
+    """Every row's max |out - ref| at most ``rel`` of its max |ref| plus ``atol``."""
+    out, ref = out.float().flatten(0, -2), ref.float().flatten(0, -2)
+    return bool(((out - ref).abs().amax(-1) <= rel * ref.abs().amax(-1) + atol).all())
+
+
+def kd_bound(name: str, M: int, B: int, V: int, elt: int):
+    """(bound_ms, bound_by): each input read once and each output written
+    once over HBM bandwidth, vs the f32 operations over the f32 peak."""
+    if name == "ensemble_softmax":              # x (M,B,V) -> probs (B,V) f32
+        nbytes, ops = M * B * V * elt + B * V * 4, 2 * M * B * V + 4 * B * V
+    elif name == "kd_loss_fwd":                 # s, t -> kl (B,)
+        nbytes, ops = B * V * (elt + 4) + B * 4, 8 * B * V
+    else:                                       # s, t, g -> grad (B,V) in s's type
+        nbytes, ops = B * V * (2 * elt + 4) + 4, 6 * B * V
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS[torch.float32] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kd_plain(kd_ref) -> dict:
+    """The KD kernels' plain versions by name; each takes its kernel
+    wrapper's arguments, tau last."""
+    return {"ensemble_softmax": kd_ref.ensemble_softmax_ref,
+            "kd_loss_fwd": kd_ref.kd_loss_ref,
+            "kd_loss_bwd": lambda s, t, g, tau: (kd_ref.kd_loss_grad_ref(s, t, tau) * g)
+            .to(s.dtype)}
+
+
+LIBRARY = {   # yardsticks only, never called by the port: the shortest compositions
+    "ensemble_softmax": ("softmax(x.float().mean(0) / tau)",
+                         lambda x, tau: torch.softmax(x.float().mean(0) / tau, -1)),
+    "kd_loss_fwd": ("kl_div(log_softmax(s / tau), t, 'sum') / B * tau^2",
+                    lambda s, t, tau: torch.nn.functional.kl_div(
+                        torch.log_softmax(s.float() / tau, -1), t, reduction="sum")
+                    / s.shape[0] * tau ** 2),
+    "kd_loss_bwd": ("(softmax(s / tau) - t) * g * tau / B",
+                    lambda s, t, g, tau: ((torch.softmax(s.float() / tau, -1) - t)
+                                          * (g * tau / s.shape[0])).to(s.dtype)),
+}
+
+
+def kd_check(kd_ops, kd_ref, label: str, x, s, t, g, tau: float, timed: bool) -> dict:
+    """The three KD kernels against their plain versions on (x, s, t, g);
+    returns one row per kernel (and checks each)."""
+    plain = kd_plain(kd_ref)
+    args = {"ensemble_softmax": (x, tau), "kd_loss_fwd": (s, t, tau),
+            "kd_loss_bwd": (s, t, g, tau)}
+    rows = {}
+    for name, a in args.items():
+        kern = getattr(kd_ops, name)
+        out, ref = kern(*a), plain[name](*a)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        bf16 = a[0].dtype == torch.bfloat16
+        if name == "kd_loss_fwd":
+            tol, ok = KD_LOSS_RTOL, err <= KD_LOSS_RTOL * abs(float(ref))
+        elif name == "ensemble_softmax" and bf16:
+            tol, ok = KD_BF16_PROB_ATOL, err <= KD_BF16_PROB_ATOL
+        elif name == "ensemble_softmax":
+            tol, ok = KD_F32_ROW_TOL, rows_within(out, ref, KD_F32_ROW_TOL)
+        else:
+            tol = KD_BF16_GRAD_ROW_TOL if bf16 else KD_F32_ROW_TOL
+            ok = rows_within(out, ref, tol, KD_GRAD_ATOL * abs(float(g)) * tau / s.shape[0])
+        ok = ok and bool(out.isfinite().all()) and out.dtype == ref.dtype
+        M, B, V = x.shape if name == "ensemble_softmax" else (1, *s.shape)
+        row = {"case": label, "kernel": name, "shape": [M, B, V] if name == "ensemble_softmax"
+               else [B, V], "dtype": str(a[0].dtype).removeprefix("torch."), "tau": tau,
+               "max_abs_err": err, "tol": tol}
+        if timed:
+            bound, by = kd_bound(name, M, B, V, a[0].element_size())
+            library, library_fn = LIBRARY[name]
+            row.update(ms=time_ms(lambda: kern(*a)), plain_ms=time_ms(lambda: plain[name](*a)),
+                       library_ms=time_ms(lambda: library_fn(*a)), library=library,
+                       bound_ms=bound, bound_by=by)
+        print(json.dumps(row), flush=True)
+        check(ok, f"{name} disagrees with its plain version ({label}): {row}")
+        rows[name] = row
+    return rows
+
+
+def kd_phase(kd_ops, kd_ref, seed: int) -> None:
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    cases = [("FedSDD round (K=4, R=2, 8x256 server rows)", 8, 2048, 256, 10, 4.0, True),
+             ("sweep", 1, 4, 4, 128, 1.0, False), ("sweep", 4, 8, 8, 1000, 4.0, False),
+             ("sweep", 8, 4, 4, 257, 2.0, False), ("sweep", 2, 16, 16, 4096, 4.0, False),
+             ("Qwen2.5 vocabulary", 4, 256, 256, 152064, 4.0, True)]
+    g = torch.tensor(1.5, device=DEV)
+    for label, M, N, B, V, tau, timed in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn((M, N, V), generator=gen, device=DEV) * 3).to(dtype)
+            s = (torch.randn((B, V), generator=gen, device=DEV) * 3).to(dtype)
+            t = torch.softmax(torch.randn((B, V), generator=gen, device=DEV) * 2, -1)
+            kd_check(kd_ops, kd_ref, label, x, s, t, g, tau, timed)
+            del x, s, t
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- phase 7
+def plain_kd(kd_ops, kd_ref):
+    """The three KD wrappers patched to their plain versions."""
+    from contextlib import ExitStack
+    from unittest import mock
+    stack = ExitStack()
+    for name, fn in kd_plain(kd_ref).items():
+        stack.enter_context(mock.patch.object(kd_ops, name, fn))
+    return stack
+
+
+def f32_round_phase(fed, kd_ops, kd_ref, seed: int) -> None:
+    from contextlib import nullcontext
+
+    from repro_torch import kernels
+    from repro_torch.core.tasks import classification_task
+    from repro_torch.utils.pytree import tree_map
+    torch.backends.cudnn.deterministic = True
+    task = classification_task(model="resnet20", num_clients=8, num_train=2000,
+                               num_server=512, server_batch=256, seed=seed, device=DEV)
+    kw = dict(K=4, R=2, num_clients=8, participation=1.0, local_epochs=1, distill_steps=20,
+              client_lr=0.05, server_lr=0.05, seed=seed)
+    init = fed.make_runner("fedsdd", task, device=DEV, **kw).init_state().global_models
+    runs = {}
+    for mode in ("kernels", "plain"):
+        runner = fed.make_runner("fedsdd", task, device=DEV, **kw)
+        state = fed.FedState(round=0, global_models=[tree_map(torch.clone, m) for m in init],
+                             ensemble=fed.TeacherBank(4, 2))
+        kernels.launches.clear()
+        with plain_kd(kd_ops, kd_ref) if mode == "plain" else nullcontext():
+            state = runner.run(2, state=state)
+        torch.cuda.synchronize()
+        runs[mode] = (state, dict(kernels.launches))
+    torch.backends.cudnn.deterministic = False
+    (st_k, launches), (st_p, plain_launches) = runs["kernels"], runs["plain"]
+    main_ok = all(torch.allclose(a, b, rtol=ROUND_TOL, atol=ROUND_TOL) for a, b in
+                  zip(_leaves(st_k.global_models[0]), _leaves(st_p.global_models[0])))
+    rest_same = all(torch.equal(a, b) for k in range(1, 4) for a, b in
+                    zip(_leaves(st_k.global_models[k]), _leaves(st_p.global_models[k])))
+    print(json.dumps({"phase": "f32 ResNet-20 round, kernels vs plain",
+                      "main_max_abs_err": _tree_err(st_k.global_models[0], st_p.global_models[0]),
+                      "tol": ROUND_TOL, "models_k>0_bit_identical": rest_same,
+                      "kd_loss_last": [r["kd_loss_last"] for r in st_k.history],
+                      "kd_loss_last_plain": [r["kd_loss_last"] for r in st_p.history],
+                      "launches": launches, "launches_plain": plain_launches}), flush=True)
+    check(main_ok, "f32 round: main model, kernels vs plain, beyond 2e-4")
+    check(rest_same, "f32 round: models k>0 differ between the kernel and plain runs")
+    check(launches == {"ensemble_softmax": 2, "kd_loss_fwd": 40, "kd_loss_bwd": 40},
+          f"f32 round: launches {launches}")
+    check(not any(plain_launches.values()), f"plain run launched kernels: {plain_launches}")
+
+
+def _leaves(tree):
+    from repro_torch.utils.pytree import tree_leaves
+    return tree_leaves(tree)
+
+
+def _tree_err(a, b) -> float:
+    return max(float((x - y).abs().max()) for x, y in zip(_leaves(a), _leaves(b)))
+
+
+# ---------------------------------------------------------------- phase 8
+def _train_group(name: str) -> str:
+    low = name.lower()
+    for key, group in (("ensemble_softmax", "ensemble_softmax"), ("kd_fwd", "kd_loss_fwd"),
+                       ("kd_bwd", "kd_loss_bwd")):
+        if key in low:
+            return group
+    if "multi_tensor" in low or "foreach" in low:
+        return "optimiser"
+    if any(k in low for k in ("norm", "moments", "fusedparams", "gammabeta",
+                              "internalgradients")):
+        return "norm"
+    if any(k in low for k in ("conv", "xmma", "implicit", "cudnn", "wgrad", "dgrad", "fprop",
+                              "gemm", "gemv", "cutlass", "nvjet")):
+        return "conv"
+    if "elementwise" in low or "reduce" in low:
+        return "elementwise"
+    return "other"
+
+
+def profile_window(label: str, fn, steps: int) -> dict:
+    """``fn`` (``steps`` training steps) once to warm, once on the host clock,
+    once under torch.profiler for device time by kernel group; the idle
+    share is 1 - device / wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / steps
+    groups = dict.fromkeys(("conv", "norm", "elementwise", "optimiser", "ensemble_softmax",
+                            "kd_loss_fwd", "kd_loss_bwd", "other"), 0.0)
+    for e in kern:
+        groups[_train_group(e.key)] += e.self_device_time_total / 1e3 / steps
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    return {"phase": f"profile: {label}", "steps": steps,
+            "wall_ms_per_step": wall_ms,
+            "device_ms_per_step": busy_ms if kern else None,
+            "idle_share": 1 - busy_ms / wall_ms if kern else None,
+            "device_ms_by_group": groups,
+            "kernel_launches_per_step": sum(e.count for e in kern) / steps,
+            "top_kernels": [{"name": e.key[:80], "per_step": e.count / steps,
+                             "ms_per_step": e.self_device_time_total / 1e3 / steps}
+                            for e in top]}
+
+
+def resnet56_phase(fed, kd_ops, kd_ref, seed: int, card: str) -> list[dict]:
+    from repro_torch import kernels
+    from repro_torch.core.tasks import classification_task
+    from repro_torch.distill import KDPipeline
+    from repro_torch.utils.pytree import tree_map
+    t0 = time.perf_counter()
+    task = classification_task(model="resnet56", num_clients=20, alpha=0.1, num_train=50000,
+                               num_server=2048, server_batch=256, seed=seed, device=DEV)
+    tau, steps_kd = 4.0, 200
+    runner = fed.make_runner("fedsdd", task, device=DEV, K=4, R=2, num_clients=20, participation=0.4,
+                             client_batch=64, client_lr=0.05, server_lr=0.05,
+                             temperature=tau, local_epochs=1, distill_steps=steps_kd,
+                             seed=seed)
+    state = runner.init_state()
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(state.global_models[0]))
+    print(f"task and init: {time.perf_counter() - t0:.1f} s; {n_params:,} parameters "
+          f"per model", flush=True)
+    client_steps = [0]
+    make_batch = task.make_batch
+
+    def counted(ds, idx):
+        client_steps[0] += 1
+        return make_batch(ds, idx)
+
+    task.make_batch = counted
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    kernels.launches.clear()
+    rounds = []
+    for _ in range(2):
+        before, t0 = client_steps[0], time.perf_counter()
+        state = runner.run(1, state=state)
+        torch.cuda.synchronize()
+        rec = state.history[-1]
+        n = client_steps[0] - before
+        rounds.append({"round": rec["round"], "active": rec["active"], "client_steps": n,
+                       "t_round_s": time.perf_counter() - t0, "t_local_s": rec["t_local"],
+                       "t_kd_s": rec["t_kd"], "acc_main": rec["acc_main"],
+                       "client_steps_per_s": n / rec["t_local"],
+                       "kd_steps_per_s": steps_kd / rec["t_kd"],
+                       "kd_loss_first": rec["kd_loss_first"],
+                       "kd_loss_last": rec["kd_loss_last"]})
+    launches = dict(kernels.launches)
+    task.make_batch = make_batch
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for r in rounds:
+        print(json.dumps({"phase": "ResNet-56 FedSDD round", "card": card, **r}), flush=True)
+    print(json.dumps({"phase": "ResNet-56 FedSDD run", "card": card, "rounds": 2,
+                      "launches": launches, "teachers": state.ensemble.num_members,
+                      "rounds_held": state.ensemble.rounds_held(),
+                      "peak_mem_gb": peak}), flush=True)
+    check(len(state.history) == 2, "ResNet-56: two history records")
+    check(all(math.isfinite(r["kd_loss_first"]) and math.isfinite(r["kd_loss_last"])
+              for r in rounds), f"ResNet-56: non-finite KD losses {rounds}")
+    check(state.ensemble.num_members == 8, "ResNet-56: the ring does not hold 8 teachers")
+    check(launches.get("ensemble_softmax") == 2 and launches.get("kd_loss_fwd") == 2 * steps_kd
+          and launches.get("kd_loss_bwd") == 2 * steps_kd, f"ResNet-56: launches {launches}")
+    check(all(_tree_err(state.global_models[k], state.global_models[0]) > 0
+              for k in range(1, 4)), "ResNet-56: a model k>0 equals the main model")
+    check(all(bool(x.isfinite().all()) for m in state.global_models for x in _leaves(m)),
+          "ResNet-56: non-finite weights")
+
+    # where a step's time goes: 10 client steps (the largest client's first
+    # 640 examples, ~2,500 at full size) and 10 KD steps over round 2's teacher cache
+    sizes = [len(y) for _, y in task.client_data]
+    cid = int(np.argmax(sizes))
+    rows = (np.arange(640) % sizes[cid]).reshape(10, 64)
+    pipe = runner._kd_pipeline()
+    batches = pipe.batches_for(task.server_batches)
+    teachers = state.ensemble.members_stacked()
+    cache = pipe.precompute_cache(teachers, batches)
+    pipe10 = KDPipeline(task.logits_fn, steps=10, lr=0.05, temperature=tau, device=DEV)
+    for label, fn in (
+            ("10 client steps, ResNet-56, batch 64",
+             lambda: runner._local_train_scheduled(state.global_models[1], cid, state, rows)),
+            ("10 KD steps, ResNet-56, batch 256, 8 teachers",
+             lambda: pipe10._run(state.global_models[0], batches, cache))):
+        print(json.dumps(profile_window(label, fn, 10)), flush=True)
+
+    # the kernels at the round's own inputs: round 2's teacher logits over
+    # the 8 server batches, and the distilled main model on batch 0
+    with torch.no_grad():
+        M, nB = teachers["stem"].shape[0], batches["x"].shape[0]
+        x = torch.stack([torch.stack([task.logits_fn(tree_map(lambda w: w[m], teachers),
+                                                     {"x": batches["x"][b]})
+                                      for b in range(nB)]) for m in range(M)])
+        x = x.reshape(M, -1, x.shape[-1])
+        s = task.logits_fn(state.global_models[0], {"x": batches["x"][0]})
+    t = kd_ref.ensemble_softmax_ref(x, tau)[:s.shape[0]].contiguous()
+    g = torch.ones((), device=DEV)
+    rows = kd_check(kd_ops, kd_ref, "ResNet-56 round inputs", x, s, t, g, tau, timed=True)
+    return [{"name": name, "route": "cuda", "source": KD_SOURCE, "replaces": KD_TPU[name],
+             "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+             "library_ms": r["library_ms"]} for name, r in rows.items()]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -412,6 +761,9 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.models import model_zoo as zoo
     from repro_torch import serve
+    from repro_torch.core import fedsdd as fed
+    from repro_torch.kernels.kd_loss import ops as kd_ops
+    from repro_torch.kernels.kd_loss import ref as kd_ref
 
     t_start = time.perf_counter()
     phase("1. card")
@@ -439,10 +791,21 @@ def main() -> int:
     phase("5. qwen2.5-14b full width, bf16, 48 layers: serve 16 requests")
     entry = serve_phase(serve, zoo, ops, get_config, args.seed, card)
 
-    phase("6. kernels")
+    torch.cuda.empty_cache()
+
+    phase("6. KD kernels vs plain")
+    kd_phase(kd_ops, kd_ref, args.seed)
+
+    phase("7. f32 ResNet-20 FedSDD round: kernels vs plain")
+    f32_round_phase(fed, kd_ops, kd_ref, args.seed)
+
+    phase("8. ResNet-56 FedSDD, K=4 R=2, 2 rounds at full depth and width")
+    kd_entries = resnet56_phase(fed, kd_ops, kd_ref, args.seed, card)
+
+    phase("9. kernels")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    print(json.dumps({"kernels": [entry, *kd_entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

@@ -1,0 +1,134 @@
+"""Ready-made FedTasks: the paper's image-classification setting on the
+synthetic CIFAR stand-in, with the paper's ResNets, a small CNN or a tiny
+MLP (port of ``repro/core/tasks.py::classification_task``).
+
+Data stays NHWC as in the reference (the MLP flattens it in that order).
+The numpy arrays are the reference's, byte for byte.  The server batches
+and the test set go to the device once; ``make_batch`` moves one client
+minibatch per step, as the reference does, from pinned memory without a
+host sync on a GPU.
+"""
+from __future__ import annotations
+
+from functools import partial
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch import device as device_lib
+from repro_torch.configs.resnet_cifar import get_resnet_config
+from repro_torch.core.fedsdd import FedTask
+from repro_torch.data.partition import dirichlet_partition
+from repro_torch.data.synthetic import SyntheticClassification
+from repro_torch.models.resnet import conv, init_resnet, resnet_accuracy, resnet_logits, resnet_loss
+
+
+# ---------------------------------------------------------------- small CNN
+def _init_cnn(gen: torch.Generator, num_classes: int = 10, width: int = 16):
+    r = partial(torch.randn, generator=gen, device=gen.device)
+    return {
+        "c1": r((3, 3, 3, width)) * 0.2,
+        "c2": r((3, 3, width, width * 2)) * 0.1,
+        "w": r((width * 2, num_classes)) * 0.1,
+        "b": torch.zeros((num_classes,), device=gen.device),
+    }
+
+
+def _cnn_logits(params, x):
+    h = F.relu(conv(x, params["c1"], 2))
+    h = F.relu(conv(h, params["c2"], 2))
+    h = h.mean(dim=(1, 2))
+    return h @ params["w"] + params["b"]
+
+
+# ---------------------------------------------------------------- tiny MLP
+def _init_mlp(gen: torch.Generator, num_classes: int = 10, width: int = 32):
+    d_in = 32 * 32 * 3
+    r = partial(torch.randn, generator=gen, device=gen.device)
+    return {
+        "w1": r((d_in, width)) * float(1.0 / np.sqrt(d_in)),
+        "b1": torch.zeros((width,), device=gen.device),
+        "w2": r((width, num_classes)) * 0.1,
+        "b2": torch.zeros((num_classes,), device=gen.device),
+    }
+
+
+def _mlp_logits(params, x):
+    h = x.reshape(x.shape[0], -1) @ params["w1"] + params["b1"]
+    return F.relu(h) @ params["w2"] + params["b2"]
+
+
+def _xent(logits, y):
+    logp = F.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, y.long()[:, None]).mean()
+
+
+def _to_device(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host array to ``dev``; to a GPU through pinned memory, so the copy
+    is queued on the stream instead of waiting for it to drain."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
+
+
+# ---------------------------------------------------------------- tasks
+def classification_task(model: str = "cnn",
+                        num_clients: int = 20,
+                        alpha: float = 0.1,
+                        num_classes: int = 10,
+                        num_train: int = 4000,
+                        num_server: int = 1024,
+                        server_batch: int = 256,
+                        noise: float = 0.6,
+                        seed: int = 0,
+                        device=None) -> FedTask:
+    """The paper's CIFAR setting on the synthetic stand-in, on ``device``
+    (``cuda`` unless the caller passes ``"cpu"``).
+
+    model: "cnn" (fast) | "mlp" (tiny) | "resnet20" | "resnet56" | "wrn16-2"
+           (the paper's).
+    """
+    dev = device_lib.resolve(device)
+    data = SyntheticClassification(num_classes=num_classes, num_train=num_train,
+                                   num_server=num_server, noise=noise, seed=seed)
+    x_tr, y_tr = data.train()
+    x_te, y_te = data.test()
+    parts = dirichlet_partition(y_tr, num_clients, alpha, seed=seed + 17)
+    client_data = [(x_tr[ix], y_tr[ix]) for ix in parts]
+    sx = data.server_unlabeled()
+    server_batches = [
+        {"x": torch.from_numpy(sx[i:i + server_batch]).to(dev)}
+        for i in range(0, len(sx) - server_batch + 1, server_batch)
+    ]
+    x_te_d = torch.from_numpy(x_te).to(dev)
+    y_te_d = torch.from_numpy(y_te).to(dev)
+
+    if model in ("cnn", "mlp"):
+        net = _cnn_logits if model == "cnn" else _mlp_logits
+        init_fn = partial(_init_cnn if model == "cnn" else _init_mlp,
+                          num_classes=num_classes)
+        logits_fn = lambda p, b: net(p, b["x"])
+        loss_fn = lambda p, b: (_xent(net(p, b["x"]), b["y"]), {})
+
+        @torch.no_grad()
+        def eval_fn(p):
+            hits = torch.zeros((), dtype=torch.int64, device=dev)
+            for i in range(0, len(x_te_d), 500):
+                hits += (net(p, x_te_d[i:i + 500]).argmax(-1) == y_te_d[i:i + 500]).sum()
+            return int(hits) / len(x_te_d)
+    else:
+        rcfg = get_resnet_config(model, num_classes)
+        init_fn = lambda gen: init_resnet(gen, rcfg)
+        logits_fn = lambda p, b: resnet_logits(p, b["x"], rcfg)
+        loss_fn = lambda p, b: resnet_loss(p, b, rcfg)
+        eval_fn = lambda p: resnet_accuracy(p, x_te_d, y_te_d, rcfg)
+
+    def make_batch(ds, idx):
+        x, y = ds
+        return {"x": _to_device(x[idx], dev), "y": _to_device(y[idx], dev)}
+
+    return FedTask(init_fn=init_fn, loss_fn=loss_fn, logits_fn=logits_fn,
+                   client_data=client_data, server_batches=server_batches,
+                   make_batch=make_batch, eval_fn=eval_fn, device=dev)

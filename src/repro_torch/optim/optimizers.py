@@ -1,0 +1,138 @@
+"""Minimal functional optimizers over tensor pytrees (port of
+``repro/optim/optimizers.py``).
+
+An ``Optimizer`` is an (init, update) pair, as in the reference:
+
+    state = opt.init(params)
+    updates, state = opt.update(grads, state, params)
+    params = apply_updates(params, updates)
+
+Every step is out of place: the runner starts each client of a group
+from the same global tensors, so an in-place update of one client's
+params would corrupt the group's model for the next.  The arithmetic of
+a step runs as ``torch._foreach_*`` ops over the tree's leaf list (a few
+multi-tensor launches on the GPU instead of several per leaf), in the
+reference's order of operations.
+
+FL-specific transforms:
+  * ``with_fedprox``  — adds the FedProx proximal gradient μ(w − w_anchor)
+                         [Li et al., MLSys 2020];
+  * ``with_scaffold`` — SCAFFOLD control-variate correction g − c_i + c
+                         [Karimireddy et al., ICML 2020].
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.utils.pytree import (tree_leaves, tree_map, tree_sub,
+                                      tree_unflatten, tree_zeros_like)
+
+PyTree = Any
+
+
+@dataclass(frozen=True)
+class Optimizer:
+    init: Callable[[PyTree], PyTree]
+    update: Callable[[PyTree, PyTree, PyTree], tuple[PyTree, PyTree]]
+
+
+def apply_updates(params: PyTree, updates: PyTree) -> PyTree:
+    ps = tree_leaves(params)
+    us = [u.to(p.dtype) for u, p in zip(tree_leaves(updates), ps)]
+    return tree_unflatten(params, torch._foreach_add(ps, us))
+
+
+def value_and_grad(fn: Callable, has_aux: bool = False) -> Callable:
+    """``jax.value_and_grad`` for a function of a param tree: returns
+    ``(value, grads)`` (``((loss, aux), grads)`` with ``has_aux``), the
+    value detached and the grads a tree like the params."""
+
+    def wrapped(params, *args):
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        out = fn(tree_unflatten(params, leaves), *args)
+        loss = out[0] if has_aux else out
+        grads = tree_unflatten(params, torch.autograd.grad(loss, leaves))
+        if has_aux:
+            return (loss.detach(), out[1]), grads
+        return loss.detach(), grads
+
+    return wrapped
+
+
+# ---------------------------------------------------------------- SGD
+def sgd(lr: float, momentum: float = 0.0, weight_decay: float = 0.0) -> Optimizer:
+    def init(params):
+        if momentum == 0.0:
+            return {}
+        return {"mu": tree_zeros_like(params)}
+
+    def update(grads, state, params):
+        g = tree_leaves(grads)
+        if weight_decay:
+            g = torch._foreach_add(g, torch._foreach_mul(tree_leaves(params), weight_decay))
+        if momentum == 0.0:
+            return tree_unflatten(grads, torch._foreach_mul(g, -lr)), state
+        mu = torch._foreach_mul(tree_leaves(state["mu"]), momentum)
+        torch._foreach_add_(mu, g)
+        return (tree_unflatten(grads, torch._foreach_mul(mu, -lr)),
+                {"mu": tree_unflatten(grads, mu)})
+
+    return Optimizer(init, update)
+
+
+# ---------------------------------------------------------------- FedProx
+def with_fedprox(base: Optimizer, mu: float) -> Optimizer:
+    """Adds μ(w − w_anchor) to the gradient.  State carries the anchor;
+    set it once per round via ``state['anchor'] = global_params``."""
+
+    def init(params):
+        return {"base": base.init(params), "anchor": params}
+
+    def update(grads, state, params):
+        d = torch._foreach_sub(tree_leaves(params), tree_leaves(state["anchor"]))
+        torch._foreach_mul_(d, mu)
+        g = torch._foreach_add(tree_leaves(grads), d)
+        upd, bstate = base.update(tree_unflatten(grads, g), state["base"], params)
+        return upd, {"base": bstate, "anchor": state["anchor"]}
+
+    return Optimizer(init, update)
+
+
+# ---------------------------------------------------------------- SCAFFOLD
+class ScaffoldState(NamedTuple):
+    base: Any
+    c_local: Any     # client control variate c_i
+    c_global: Any    # server control variate c
+    steps: int       # local step counter (for the c_i update rule), on the host
+
+
+def with_scaffold(base: Optimizer, lr: float) -> Optimizer:
+    """SCAFFOLD option-II.  Correction g − c_i + c each step; after local
+    training, ``scaffold_new_control`` yields the updated c_i."""
+
+    def init(params):
+        return ScaffoldState(base.init(params), tree_zeros_like(params),
+                             tree_zeros_like(params), 0)
+
+    def update(grads, state, params):
+        g = torch._foreach_sub(tree_leaves(grads), tree_leaves(state.c_local))
+        torch._foreach_add_(g, tree_leaves(state.c_global))
+        upd, bstate = base.update(tree_unflatten(grads, g), state.base, params)
+        return upd, ScaffoldState(bstate, state.c_local, state.c_global,
+                                  state.steps + 1)
+
+    return Optimizer(init, update)
+
+
+def scaffold_new_control(state: ScaffoldState, w_start: PyTree, w_end: PyTree,
+                         lr: float) -> PyTree:
+    """Option-II control update: c_i' = c_i − c + (w_start − w_end)/(K·lr),
+    with K·lr formed in f32 as the reference's device scalar is."""
+    denom = float(np.float32(max(state.steps, 1)) * np.float32(lr))
+    delta = tree_sub(w_start, w_end)
+    return tree_map(lambda ci, c, d: ci - c + d.to(ci.dtype) / denom,
+                    state.c_local, state.c_global, delta)

@@ -1,0 +1,110 @@
+"""Whole-tree algebra over tensor pytrees (port of the subset of
+``repro/utils/pytree.py`` that one round uses).
+
+A tree is what the reference's parameter trees are: nested dicts (and
+lists, tuples, NamedTuples) whose leaves are tensors.  Every function
+here is out of place: the runner hands one group's global tensors to
+several clients, so nothing may write into a leaf it was given.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Sequence
+
+import numpy as np
+import torch
+
+PyTree = Any
+
+
+def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
+    """``fn`` over corresponding leaves of congruent trees; containers are
+    rebuilt with the same keys in the same order."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):      # NamedTuple
+        return type(tree)(*(tree_map(fn, v, *(r[i] for r in rest))
+                            for i, v in enumerate(tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    if tree is None:
+        return None
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: PyTree) -> list:
+    """The leaves in ``tree_map`` order."""
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tree_unflatten(like: PyTree, leaves: Sequence) -> PyTree:
+    """Inverse of ``tree_leaves``: ``leaves`` placed in ``like``'s structure."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
+def tree_zeros_like(tree: PyTree) -> PyTree:
+    return tree_map(torch.zeros_like, tree)
+
+
+def tree_sub(a: PyTree, b: PyTree) -> PyTree:
+    return tree_map(torch.sub, a, b)
+
+
+def tree_scale(tree: PyTree, s) -> PyTree:
+    return tree_map(lambda x: x * s, tree)
+
+
+def tree_cast(tree: PyTree, dtype: torch.dtype) -> PyTree:
+    """Cast floating leaves to ``dtype``; leaves already there pass through
+    without a copy."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x, tree)
+
+
+def tree_stack(trees: Sequence[PyTree]) -> PyTree:
+    """List of congruent trees -> one tree with a new leading axis."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def tree_unstack(stacked: PyTree) -> list[PyTree]:
+    """Inverse of ``tree_stack``: the leading axis split back into a list
+    (each leaf a view of the stacked one)."""
+    n = tree_leaves(stacked)[0].shape[0]
+    return [tree_map(lambda x: x[i], stacked) for i in range(n)]
+
+
+def _f32_weights(weights) -> torch.Tensor:
+    """Host weights as the reference takes them: f32, normalised in f32."""
+    w = torch.as_tensor(np.asarray(weights), dtype=torch.float32)
+    return w / w.sum()
+
+
+def tree_weighted_sum(trees: Sequence[PyTree], weights) -> PyTree:
+    """sum_i weights[i] * trees[i]: the leaves are stacked in list order and
+    summed over the new axis, as ``repro.utils.pytree`` does."""
+    weights = torch.as_tensor(weights).to(tree_leaves(trees[0])[0].device)
+
+    def leaf(*leaves):
+        stacked = torch.stack(leaves)
+        w = weights.to(stacked.dtype).reshape((-1,) + (1,) * (stacked.ndim - 1))
+        return (stacked * w).sum(0)
+
+    return tree_map(leaf, *trees)
+
+
+def tree_weighted_mean(trees: Sequence[PyTree], weights) -> PyTree:
+    return tree_weighted_sum(trees, _f32_weights(weights))
+
+
+def tree_stacked_weighted_mean(stacked: PyTree, weights) -> PyTree:
+    """Weighted mean over the leading (client) axis of every leaf: Eq. 2
+    when ``weights`` are the |X_i| dataset sizes."""
+    norm = _f32_weights(weights).to(tree_leaves(stacked)[0].device)
+
+    def leaf(x):
+        w = norm.to(x.dtype).reshape((-1,) + (1,) * (x.ndim - 1))
+        return (x * w).sum(0)
+
+    return tree_map(leaf, stacked)

@@ -41,6 +41,8 @@ def test_importing_the_port_loads_no_jax_or_reference():
         "import importlib.util, sys\n"
         "import repro_torch, repro_torch.serve, repro_torch.launch.serve\n"
         "import repro_torch.interop, repro_torch.kernels.flash_attention.ops\n"
+        "import repro_torch.core.fedsdd, repro_torch.core.tasks, repro_torch.distill\n"
+        "import repro_torch.kernels.kd_loss.ops\n"
         f"spec = importlib.util.spec_from_file_location('chip_smoke', {str(ROOT / 'chip_smoke.py')!r})\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -64,6 +66,16 @@ def test_entry_points_without_device_raise_when_no_cuda(monkeypatch):
     for call in (device.resolve, lambda: model.init(0),
                  lambda: model.init_paged_cache(4, 4),
                  lambda: interop.params_from_numpy({})):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    from repro_torch.core.fedsdd import FederatedRunner, make_config, make_runner
+    from repro_torch.core.tasks import classification_task
+    from repro_torch.distill import KDPipeline
+    task = classification_task(num_clients=2, num_train=40, num_server=256, device="cpu")
+    for call in (lambda: classification_task(num_clients=2, num_train=40, num_server=256),
+                 lambda: make_runner("fedsdd", task),
+                 lambda: FederatedRunner(make_config("fedavg"), task),
+                 lambda: KDPipeline(task.logits_fn, steps=1, lr=0.1)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     monkeypatch.setattr(sys, "argv", ["serve", "--arch", "qwen2.5-14b"])

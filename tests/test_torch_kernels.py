@@ -4,12 +4,20 @@ Imports neither JAX nor the JAX package, so it runs where there is a GPU
 and no JAX.  Every test is marked ``cuda`` and skips itself where
 ``torch.cuda.is_available()`` is false: a CUDA kernel has no CPU mode.
 
-Tolerances: f32 at rtol = atol = 1e-5 (only the order of summation
-differs).  bf16 per (request, query head) row: the row's max
+Tolerances, ``paged_decode``: f32 at rtol = atol = 1e-5 (only the order
+of summation differs).  bf16 per (request, query head) row: the row's max
 |kernel - plain| is at most 1.6e-2 of its max |plain|, four bf16 ulps at
 that value.  The plain version rounds the scaled query and its
 probabilities to bf16 before P·V, the kernel keeps both in f32, and both
 round the output once.
+
+Tolerances, the KD kernels (both sides compute in f32 from the same
+inputs; only the order of summation differs): f32 per row, max
+|kernel - plain| at most 1e-5 of the row's max |plain|; bf16 teacher
+logits, probabilities at atol 2e-3 (the reference's own, as in
+``tests/test_kernels.py``); the loss at rtol 1e-4; a bf16 gradient per
+row at 8e-3 of its max |plain| (two bf16 ulps: both sides round once),
+plus 1e-6·|g|·τ/B absolute (f32 noise on p − t, for rows near zero).
 """
 import numpy as np
 import pytest
@@ -18,8 +26,30 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
+from repro_torch.kernels.kd_loss import ops as kd_ops  # noqa: E402
+from repro_torch.kernels.kd_loss import ref as kd_ref  # noqa: E402
 
 BF16_ROW_TOL = 1.6e-2
+KD_F32_ROW_TOL = 1e-5
+KD_BF16_PROB_ATOL = 2e-3
+KD_BF16_GRAD_ROW_TOL = 8e-3
+# the reference sweep (tests/test_kernels.py), the FedSDD round's own
+# V = 10 (M = K·R = 8 teachers over 8 server batches of 256) and an LM
+# vocabulary (Qwen2.5's V = 152,064)
+KD_SHAPES = [(1, 4, 128), (4, 8, 1000), (8, 4, 257), (2, 16, 4096), (8, 2048, 10),
+             (4, 256, 152064)]
+KD_TEMPS = [1.0, 4.0, 2.0, 4.0, 4.0, 4.0]
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+
+
+def _rows_within(out, ref, rel, atol=0.0):
+    """Every row's max |out - ref| at most ``rel`` of its max |ref| plus ``atol``."""
+    out, ref = out.float().flatten(0, -2), ref.float().flatten(0, -2)
+    return bool(((out - ref).abs().amax(-1) <= rel * ref.abs().amax(-1) + atol).all())
 
 
 def _paged_case(rng, *, G, dh, Hkv=2, bs=16, lens=(64, 17, 8, 0)):
@@ -55,3 +85,59 @@ def test_kernel_matches_plain_on_card(dtype, G, dh):
                 float((row_err / row_scale.clamp(min=1e-30)).max())
         assert not out[3].any()                 # seq_len 0: zeros
     assert kernels.launches["paged_decode"] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,tau", list(zip(KD_SHAPES, KD_TEMPS)),
+                         ids=[f"{m}x{b}x{v}" for m, b, v in KD_SHAPES])
+def test_ensemble_softmax_matches_plain_on_card(dtype, shape, tau):
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(sum(shape))
+    x = (torch.randn(shape, generator=gen, device="cuda") * 3).to(getattr(torch, dtype))
+    before = kernels.launches["ensemble_softmax"]
+    out = kd_ops.ensemble_softmax(x, tau)
+    ref = kd_ref.ensemble_softmax_ref(x, tau)
+    torch.cuda.synchronize()
+    assert kernels.launches["ensemble_softmax"] == before + 1
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    if dtype == "float32":
+        assert _rows_within(out, ref, KD_F32_ROW_TOL)
+    else:
+        torch.testing.assert_close(out, ref, rtol=0, atol=KD_BF16_PROB_ATOL)
+    torch.testing.assert_close(out.sum(-1), torch.ones_like(out[:, 0]), rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,tau", list(zip(KD_SHAPES, KD_TEMPS)),
+                         ids=[f"{m}x{b}x{v}" for m, b, v in KD_SHAPES])
+def test_kd_loss_and_grad_match_plain_on_card(dtype, shape, tau):
+    """The autograd.Function: forward through kd_loss_fwd, the gradient of
+    3·loss through kd_loss_bwd with g = 3 read on the device."""
+    _needs_card()
+    _, B, V = shape
+    gen = torch.Generator(device="cuda").manual_seed(B + V)
+    s = (torch.randn((B, V), generator=gen, device="cuda") * 3).to(getattr(torch, dtype))
+    t = torch.softmax(torch.randn((B, V), generator=gen, device="cuda") * 2, -1)
+    fwd, bwd = kernels.launches["kd_loss_fwd"], kernels.launches["kd_loss_bwd"]
+    s_req = s.clone().requires_grad_(True)
+    loss = kd_ops.kd_loss(s_req, t, tau)
+    (3.0 * loss).backward()
+    want = kd_ref.kd_loss_ref(s, t, tau)
+    want_grad = (kd_ref.kd_loss_grad_ref(s, t, tau) * 3.0).to(s.dtype)
+    torch.cuda.synchronize()
+    assert kernels.launches["kd_loss_fwd"] == fwd + 1
+    assert kernels.launches["kd_loss_bwd"] == bwd + 1
+    torch.testing.assert_close(loss.detach(), want, rtol=1e-4, atol=0)
+    assert s_req.grad.dtype == s.dtype
+    tol = KD_F32_ROW_TOL if dtype == "float32" else KD_BF16_GRAD_ROW_TOL
+    assert _rows_within(s_req.grad, want_grad, tol, 1e-6 * 3.0 * tau / B)
+
+
+@pytest.mark.cuda
+def test_kd_loss_zero_when_student_equals_teacher_on_card():
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    s = torch.randn((4, 100), generator=gen, device="cuda")
+    assert float(kd_ops.kd_loss(s, torch.softmax(s / 4.0, -1), 4.0)) < 1e-5
