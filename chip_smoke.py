@@ -40,8 +40,23 @@ JAX package.  Phases, each of which fails the run if it fails:
                teachers, the kernels' launch counts (2 / 400 / 400) and that
                models k>0 differ from the main one; then 10 client steps and 10
                KD steps under torch.profiler
-  9. kernels   one JSON line per the port's kernel contract
- 10. ok        {"ok": true, "device": {...}} as the last line
+  9. weight_avg multi_weighted_average (kernel 5) against its plain version
+               at G = 4, N = 2 for every ResNet-56 leaf and the leaves
+               flattened to D = 855,578, the reference sweep (3, 5, 517) and
+               (4, 8, 16,777,219); weighted_average (kernel 6) at N = 32,
+               D = 16,777,219; f32 and bf16, CUDA-event timings beside the
+               HBM bound and torch.einsum as the library yardstick
+ 10. vec CNN   classification_task(model="cnn"), 8 clients, fedsdd K=4 R=2,
+               2 rounds on the vectorized and the sequential engine from the
+               same weights made on the card, cuDNN deterministic: all K
+               models within 2e-4; kernel 5 launched leaves x rounds times
+ 11. vec R-56  phase 8's configuration with execution="vectorized": per round
+               t_local, t_kd, real and padded client steps, peak memory;
+               kernel 5 launched 169 leaves x 2 rounds times, the KD kernels
+               2 / 400 / 400; kernel 5 at the last round's own Eq. 2 inputs;
+               then one bucket's 10 vmapped steps under torch.profiler
+ 12. kernels   one JSON line per the port's kernel contract
+ 13. ok        {"ok": true, "device": {...}} as the last line
 
 Tolerances, paged_decode: f32 kernel vs plain at rtol = atol = 1e-5 (only
 the order of summation differs).  bf16 per (request, query head) row: the row's max
@@ -62,6 +77,14 @@ row also gets 1e-6·|g|·τ/B absolute: it is (p − t)·g·τ/B with p, t ≤ 1
 so f32 leaves about 1e-7 of that scale as noise, and a row the student
 already matches (the distilled model's, at the round's own inputs) has a
 max |plain| near that noise.
+
+Tolerances, weight_avg (both sides sum the same f32 products in another
+order): f32 at rtol 1e-5, atol 1e-6, the reference's own; bf16 within one
+bf16 ulp of the plain result plus 2^-22 of sum_n |w_hat_n x_n| (the two f32
+sums differ by a few f32 ulps of their terms, which a result much smaller
+than its terms does not absorb).  The vectorized CNN round against the
+sequential one: every model within 2e-4, the port's runner-parity
+tolerance.
 """
 from __future__ import annotations
 
@@ -93,6 +116,10 @@ KD_LOSS_RTOL = 1e-4
 KD_BF16_GRAD_ROW_TOL = 8e-3                    # of each row's max |plain|
 KD_GRAD_ATOL = 1e-6                            # × |g|·τ/B, the gradient's own scale
 ROUND_TOL = 2e-4                               # main model, kernels vs plain
+WA_TPU = {"multi_weighted_average": "src/repro/kernels/weight_avg/kernel.py:53",
+          "weighted_average": "src/repro/kernels/weight_avg/kernel.py:29"}
+WA_SOURCE = "src/repro_torch/kernels/csrc/weight_avg.cu"
+WA_RTOL, WA_ATOL = 1e-5, 1e-6
 DEV = "cuda"
 
 
@@ -601,6 +628,8 @@ def _train_group(name: str) -> str:
             return group
     if "multi_tensor" in low or "foreach" in low:
         return "optimiser"
+    if "index" in low:
+        return "gather"
     if any(k in low for k in ("norm", "moments", "fusedparams", "gammabeta",
                               "internalgradients")):
         return "norm"
@@ -629,8 +658,8 @@ def profile_window(label: str, fn, steps: int) -> dict:
         torch.cuda.synchronize()
     kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / steps
-    groups = dict.fromkeys(("conv", "norm", "elementwise", "optimiser", "ensemble_softmax",
-                            "kd_loss_fwd", "kd_loss_bwd", "other"), 0.0)
+    groups = dict.fromkeys(("conv", "norm", "elementwise", "optimiser", "gather",
+                            "ensemble_softmax", "kd_loss_fwd", "kd_loss_bwd", "other"), 0.0)
     for e in kern:
         groups[_train_group(e.key)] += e.self_device_time_total / 1e3 / steps
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
@@ -740,7 +769,259 @@ def resnet56_phase(fed, kd_ops, kd_ref, seed: int, card: str) -> list[dict]:
     return [{"name": name, "route": "cuda", "source": KD_SOURCE, "replaces": KD_TPU[name],
              "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
              "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-             "library_ms": r["library_ms"]} for name, r in rows.items()]
+             "library_ms": r["library_ms"]} for name, r in rows.items()], rounds
+
+
+# ---------------------------------------------------------------- phase 9
+def wa_within(out, ref, x, w) -> bool:
+    """Kernel 5/6 output against the plain version; ``x`` (G, N, D) and ``w``
+    (G, N) are the inputs (see the module docstring for the bounds)."""
+    if out.dtype == torch.float32:
+        return bool(((out - ref).abs() <= WA_ATOL + WA_RTOL * ref.abs()).all())
+    want = ref.float()
+    ulp = 2.0 ** (torch.floor(torch.log2(want.abs().clamp(min=2 ** -126))) - 7)
+    w_hat = w / w.sum(-1, keepdim=True)
+    terms = (x.float().abs() * w_hat[..., None]).sum(-2)
+    return bool(((out.float() - want).abs() <= ulp + 2.0 ** -22 * terms).all())
+
+
+def wa_bound(G: int, N: int, D: int, elt: int):
+    """(bound_ms, bound_by): x read once, the weights read once, the output
+    written once over HBM bandwidth, vs 2·G·N·D f32 operations."""
+    t_bytes = (G * N * D * elt + G * N * 4 + G * D * elt) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * G * N * D / PEAK_FLOPS[torch.float32] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def wa_library(x, w):
+    """Yardstick only, never called by the port: the normalised weights and
+    one batched product, ``einsum("gn,gnd->gd")``."""
+    return torch.einsum("gn,gnd->gd", (w / w.sum(1, keepdim=True)).to(x.dtype), x)
+
+
+def wa_check(wa_ops, wa_ref, label: str, x, w, timed: bool) -> dict:
+    """Kernel 5 on x (G, N, D), or kernel 6 when ``x`` is (N, D)."""
+    single = x.ndim == 2
+    kern = wa_ops.weighted_average if single else wa_ops.group_weighted_average
+    plain = wa_ref.weighted_average_ref if single else wa_ref.group_weighted_average_ref
+    out, ref = kern(x, w), plain(x, w)
+    torch.cuda.synchronize()
+    x3, w2 = (x[None], w[None]) if single else (x, w)
+    ok = (wa_within(out.reshape(ref.shape), ref, x3, w2) and out.dtype == x.dtype
+          and bool(out.isfinite().all()))
+    G, N, D = x3.shape
+    row = {"case": label, "kernel": "weighted_average" if single else "multi_weighted_average",
+           "shape": [G, N, D] if not single else [N, D],
+           "dtype": str(x.dtype).removeprefix("torch."),
+           "max_abs_err": float((out.float() - ref.float()).abs().max())}
+    if timed:
+        bound, by = wa_bound(G, N, D, x.element_size())
+        lib = (lambda: wa_library(x3, w2)[0]) if single else (lambda: wa_library(x, w))
+        row.update(ms=time_ms(lambda: kern(x, w)), plain_ms=time_ms(lambda: plain(x, w)),
+                   library_ms=time_ms(lib), bound_ms=bound, bound_by=by)
+    print(json.dumps(row), flush=True)
+    check(ok, f"{row['kernel']} disagrees with its plain version ({label}): {row}")
+    return row
+
+
+def weight_avg_phase(wa_ops, wa_ref, seed: int) -> dict:
+    """Kernels 5 and 6 against their plain versions; returns kernel 6's row
+    at N = 32, D = 16,777,219, f32."""
+    from repro_torch.configs.resnet_cifar import get_resnet_config
+    from repro_torch.models.resnet import init_resnet
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    shapes = [tuple(x.shape) for x in
+              _leaves(init_resnet(torch.Generator(device=DEV).manual_seed(seed),
+                                  get_resnet_config("resnet56")))]
+    w = torch.randint(1, 7000, (4, 2), generator=gen, device=DEV).float()
+    single = None
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        worst = 0.0
+        for shp in shapes:              # every ResNet-56 leaf, G = 4 groups of N = 2
+            x = torch.randn((4, 2, math.prod(shp)), generator=gen, device=DEV).to(dtype)
+            out, ref = wa_ops.group_weighted_average(x, w), wa_ref.group_weighted_average_ref(x, w)
+            check(wa_within(out, ref, x, w), f"multi_weighted_average, leaf {shp} {name}")
+            worst = max(worst, float((out.float() - ref.float()).abs().max()))
+        print(json.dumps({"case": f"every ResNet-56 leaf (G=4, N=2) {name}", "leaves": len(shapes),
+                          "max_abs_err": worst}), flush=True)
+        cases = [("ResNet-56 flattened (G=4, N=2)", (4, 2, 855_578), w, True),
+                 ("sweep", (3, 5, 517), None, False),
+                 ("large, odd D", (4, 8, 16_777_219), None, True)]
+        for label, shape, wc, timed in cases:
+            x = torch.randn(shape, generator=gen, device=DEV).to(dtype)
+            if wc is None:
+                wc = torch.randint(1, 40, shape[:2], generator=gen, device=DEV).float()
+            wa_check(wa_ops, wa_ref, f"{label} {name}", x, wc, timed)
+            del x
+        x = torch.randn((32, 16_777_219), generator=gen, device=DEV).to(dtype)
+        w1 = torch.randint(1, 40, (32,), generator=gen, device=DEV).float()
+        row = wa_check(wa_ops, wa_ref, f"kernel 6, N=32, odd D {name}", x, w1, timed=True)
+        single = single or row
+        del x
+    torch.cuda.empty_cache()
+    return single
+
+
+# ---------------------------------------------------------------- phase 10
+def vectorized_cnn_phase(fed, seed: int) -> None:
+    from repro_torch import kernels
+    from repro_torch.core.tasks import classification_task
+    from repro_torch.utils.pytree import tree_map
+    torch.backends.cudnn.deterministic = True
+    task = classification_task(model="cnn", num_clients=8, seed=seed, device=DEV)
+    kw = dict(K=4, R=2, num_clients=8, participation=1.0, local_epochs=1, distill_steps=20,
+              client_lr=0.05, server_lr=0.05, seed=seed)
+    init = fed.make_runner("fedsdd", task, device=DEV, **kw).init_state().global_models
+    runs = {}
+    for execution in ("vectorized", "sequential"):
+        runner = fed.make_runner("fedsdd", task, device=DEV, execution=execution, **kw)
+        state = fed.FedState(round=0, global_models=[tree_map(torch.clone, m) for m in init],
+                             ensemble=fed.TeacherBank(4, 2))
+        kernels.launches.clear()
+        state = runner.run(2, state=state)
+        torch.cuda.synchronize()
+        runs[execution] = (state, dict(kernels.launches))
+    torch.backends.cudnn.deterministic = False
+    (vec, launches), (seq, seq_launches) = runs["vectorized"], runs["sequential"]
+    errs = [_tree_err(a, b) for a, b in zip(vec.global_models, seq.global_models)]
+    n_leaves = len(_leaves(init[0]))
+    print(json.dumps({"phase": "f32 CNN round, vectorized vs sequential", "models_max_abs_err": errs,
+                      "tol": ROUND_TOL, "launches": launches, "launches_sequential": seq_launches,
+                      "leaves": n_leaves,
+                      "acc_main": [r["acc_main"] for r in vec.history],
+                      "acc_main_sequential": [r["acc_main"] for r in seq.history]}), flush=True)
+    check(all(torch.allclose(a, b, rtol=ROUND_TOL, atol=ROUND_TOL)
+              for m, n in zip(vec.global_models, seq.global_models)
+              for a, b in zip(_leaves(m), _leaves(n))),
+          f"vectorized CNN round: models beyond 2e-4 of the sequential run ({errs})")
+    check(launches.get("multi_weighted_average") == n_leaves * 2,
+          f"vectorized CNN round: launches {launches}, want {n_leaves} leaves x 2 rounds")
+    check(not seq_launches.get("multi_weighted_average"),
+          f"sequential CNN round launched kernel 5: {seq_launches}")
+
+
+# ---------------------------------------------------------------- phase 11
+def resnet56_vectorized_phase(fed, wa_ops, wa_ref, seed: int, card: str,
+                              sequential_rounds: list[dict]) -> dict:
+    import dataclasses
+    from unittest import mock
+
+    from repro_torch import kernels
+    from repro_torch.core.tasks import classification_task
+    from repro_torch.utils.pytree import tree_map, tree_stack
+    task = classification_task(model="resnet56", num_clients=20, alpha=0.1, num_train=50000,
+                               num_server=2048, server_batch=256, seed=seed, device=DEV)
+    tau, steps_kd = 4.0, 200
+    runner = fed.make_runner("fedsdd", task, device=DEV, K=4, R=2, num_clients=20,
+                             participation=0.4, client_batch=64, client_lr=0.05,
+                             server_lr=0.05, temperature=tau, local_epochs=1,
+                             distill_steps=steps_kd, seed=seed, execution="vectorized")
+    state = runner.init_state()
+    eng = runner._make_engine()
+    plans, agg_inputs = [], []
+    train_round, aggregate_groups = eng.train_round, fed.aggregate_groups
+
+    def recording_train_round(rplan, *a, **k):
+        plans.append(rplan.plans)
+        return train_round(rplan, *a, **k)
+
+    def recording_aggregate(stacked, sizes, gids, K):
+        agg_inputs[:] = [(stacked, sizes, gids, K)]
+        return aggregate_groups(stacked, sizes, gids, K)
+
+    eng.train_round = recording_train_round
+    torch.cuda.synchronize()
+    kernels.launches.clear()
+    rounds = []
+    with mock.patch.object(fed, "aggregate_groups", recording_aggregate):
+        for _ in range(2):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state = runner.run(1, state=state)
+            torch.cuda.synchronize()
+            rec = state.history[-1]
+            real = int(sum(p.num_steps.sum() for p in plans[-1]))
+            padded = int(sum(p.step_mask.numel() for p in plans[-1]))
+            rounds.append({"round": rec["round"], "active": rec["active"],
+                           "buckets": [[len(p.cids), int(p.step_mask.shape[1]), p.batch_size]
+                                       for p in plans[-1]],
+                           "real_client_steps": real, "padded_client_steps": padded,
+                           "host_steps": int(sum(p.step_mask.shape[1] for p in plans[-1])),
+                           "t_round_s": time.perf_counter() - t0, "t_local_s": rec["t_local"],
+                           "t_kd_s": rec["t_kd"], "acc_main": rec["acc_main"],
+                           "client_steps_per_s": real / rec["t_local"],
+                           "kd_steps_per_s": steps_kd / rec["t_kd"],
+                           "kd_loss_first": rec["kd_loss_first"],
+                           "kd_loss_last": rec["kd_loss_last"],
+                           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    launches = dict(kernels.launches)
+    eng.train_round = train_round
+    peak = max(r["peak_mem_gb"] for r in rounds)
+    for r, seq in zip(rounds, sequential_rounds):
+        print(json.dumps({"phase": "ResNet-56 FedSDD round, vectorized", "card": card, **r,
+                          "sequential_t_local_s": seq["t_local_s"],
+                          "sequential_client_steps": seq["client_steps"]}), flush=True)
+    n_leaves = len(_leaves(state.global_models[0]))
+    print(json.dumps({"phase": "ResNet-56 FedSDD run, vectorized", "card": card, "rounds": 2,
+                      "launches": launches, "leaves": n_leaves,
+                      "teachers": state.ensemble.num_members, "peak_mem_gb": peak}), flush=True)
+    check(len(state.history) == 2, "vectorized ResNet-56: two history records")
+    check(all(math.isfinite(r["kd_loss_first"]) and math.isfinite(r["kd_loss_last"])
+              for r in rounds), f"vectorized ResNet-56: non-finite KD losses {rounds}")
+    check(state.ensemble.num_members == 8, "vectorized ResNet-56: the ring does not hold 8 teachers")
+    check(launches.get("multi_weighted_average") == n_leaves * 2 and n_leaves > 0,
+          f"vectorized ResNet-56: kernel 5 launches {launches}, want {n_leaves} x 2")
+    check(launches.get("ensemble_softmax") == 2 and launches.get("kd_loss_fwd") == 2 * steps_kd
+          and launches.get("kd_loss_bwd") == 2 * steps_kd,
+          f"vectorized ResNet-56: KD launches {launches}")
+    check(all(_tree_err(state.global_models[k], state.global_models[0]) > 0
+              for k in range(1, 4)), "vectorized ResNet-56: a model k>0 equals the main model")
+    check(all(bool(x.isfinite().all()) for m in state.global_models for x in _leaves(m)),
+          "vectorized ResNet-56: non-finite weights")
+
+    # where a vmapped step's time goes: the last round's bucket, its first 10 steps
+    plan = max(plans[-1], key=lambda p: len(p.cids))
+    plan10 = dataclasses.replace(plan, indices=plan.indices[:, :10],
+                                 step_mask=plan.step_mask[:, :10],
+                                 num_steps=np.minimum(plan.num_steps, 10))
+    gid = torch.from_numpy(plan.group_of).to(DEV)
+    stacked_k = tree_stack(state.global_models)
+    w0 = tree_map(lambda x: x[gid], stacked_k)
+    s0 = eng.optimizer.init(w0)
+    label = (f"10 vmapped client steps, ResNet-56, {len(plan.cids)} clients x batch "
+             f"{plan.batch_size} (conv = cuDNN grouped convolutions, groups = clients)")
+    print(json.dumps({**profile_window(label, lambda: eng.train_bucket(plan10, w0, s0), 10),
+                      "card": card}), flush=True)
+
+    # kernel 5 at the last round's own Eq. 2 inputs: the (8, ...) client stack
+    # in group-major order, viewed as (K=4, 2, ...) per leaf
+    stacked, sizes, gids, K = agg_inputs[0]
+    n = len(sizes) // K
+    check(len(sizes) == K * n and bool((np.diff(gids) >= 0).all()),
+          "vectorized ResNet-56: the round's groups are not uniform")
+    w = torch.as_tensor(np.asarray(sizes, np.float64).reshape(K, n), dtype=torch.float32,
+                        device=DEV)
+    flat = [x.reshape(K, n, -1) for x in _leaves(stacked)]
+    worst = 0.0
+    for x in flat:
+        out, ref = wa_ops.group_weighted_average(x, w), wa_ref.group_weighted_average_ref(x, w)
+        torch.cuda.synchronize()
+        check(wa_within(out, ref, x, w), f"multi_weighted_average at the round's inputs {x.shape}")
+        worst = max(worst, float((out - ref).abs().max()))
+    bound = sum(wa_bound(K, n, x.shape[2], 4)[0] for x in flat)
+    row = {"case": "ResNet-56 round inputs, one launch per leaf", "leaves": len(flat),
+           "max_abs_err": worst,
+           "ms": time_ms(lambda: [wa_ops.group_weighted_average(x, w) for x in flat]),
+           "plain_ms": time_ms(lambda: [wa_ref.group_weighted_average_ref(x, w) for x in flat]),
+           "library_ms": time_ms(lambda: [wa_library(x, w) for x in flat]),
+           "bound_ms": bound, "bound_by": "bytes"}
+    print(json.dumps(row), flush=True)
+    return {"name": "multi_weighted_average", "route": "cuda", "source": WA_SOURCE,
+            "replaces": WA_TPU["multi_weighted_average"],
+            "launches": launches["multi_weighted_average"], "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]}, launches
 
 
 def main() -> int:
@@ -764,6 +1045,8 @@ def main() -> int:
     from repro_torch.core import fedsdd as fed
     from repro_torch.kernels.kd_loss import ops as kd_ops
     from repro_torch.kernels.kd_loss import ref as kd_ref
+    from repro_torch.kernels.weight_avg import ops as wa_ops
+    from repro_torch.kernels.weight_avg import ref as wa_ref
 
     t_start = time.perf_counter()
     phase("1. card")
@@ -800,12 +1083,28 @@ def main() -> int:
     f32_round_phase(fed, kd_ops, kd_ref, args.seed)
 
     phase("8. ResNet-56 FedSDD, K=4 R=2, 2 rounds at full depth and width")
-    kd_entries = resnet56_phase(fed, kd_ops, kd_ref, args.seed, card)
+    kd_entries, seq_rounds = resnet56_phase(fed, kd_ops, kd_ref, args.seed, card)
 
-    phase("9. kernels")
+    phase("9. weight_avg (kernels 5 and 6) vs plain")
+    single = weight_avg_phase(wa_ops, wa_ref, args.seed)
+
+    phase("10. f32 CNN FedSDD round: vectorized vs sequential engine")
+    vectorized_cnn_phase(fed, args.seed)
+
+    phase("11. ResNet-56 FedSDD, K=4 R=2, 2 rounds on the vectorized engine")
+    wa_entry, vec_launches = resnet56_vectorized_phase(fed, wa_ops, wa_ref, args.seed, card,
+                                                       seq_rounds)
+    single_entry = {"name": "weighted_average", "route": "cuda", "source": WA_SOURCE,
+                    "replaces": WA_TPU["weighted_average"],
+                    "launches": vec_launches.get("weighted_average", 0),
+                    "max_abs_err": single["max_abs_err"], "ms": single["ms"],
+                    "plain_ms": single["plain_ms"], "bound_ms": single["bound_ms"],
+                    "bound_by": single["bound_by"], "library_ms": single["library_ms"]}
+
+    phase("12. kernels")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
-    print(json.dumps({"kernels": [entry, *kd_entries]}), flush=True)
+    print(json.dumps({"kernels": [entry, *kd_entries, wa_entry, single_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

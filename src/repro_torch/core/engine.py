@@ -1,40 +1,101 @@
-"""The host half of the client engine (port of ``repro/core/engine.py``:
-``ClientEntry``, ``build_round_entries``, ``unstack_models``).
+"""The client engines' shared planning and the vectorized client engine
+(port of ``repro/core/engine.py``, apart from ``shard_map``).
 
-``build_round_entries`` draws every sampled client's minibatch schedule
-from the round's numpy rng in the sequential oracle's order (group-major,
-then epoch), so the port and the reference train on identical batches.
-The stacked vectorized engine arrives with its own slice.
+The sequential runner trains sampled clients one at a time.  The
+vectorized engine stacks the clients of a bucket along a leading client
+axis and trains them together: one step of the bucket is one
+``torch.func.vmap`` of ``grad_and_value(loss_fn)`` over the stacked
+params and the gathered minibatches, then the optimiser's elementwise
+update on the stacked trees as they are (``_foreach`` ops over ``(C, ...)``
+leaves), and ``tree_where`` to keep a client's params and optimiser state
+frozen on its padded steps.  The host drives one step per Python
+iteration: the reference's ``"stepped"`` mode.  The reference's ``"scan"``
+mode (one program per bucket) arrives with CUDA graphs; ``shard_map``
+over several cards with ``torch.distributed``.
+
+Exactness: ``build_round_entries`` draws the per-epoch permutations in
+the order the sequential loop draws them (group-major, then epoch), so
+both engines train on the same batches.  A client with fewer steps than
+its bucket's maximum replays its step 0 on the padded steps, masked out.
+Clients whose local batch size differs (a shard smaller than
+``client_batch``) form their own bucket.  Bucket rows are in sorted-cid
+order, so ``train_round`` permutes the results back into the round's
+group-major order before Eq. 2 consumes them, even for a single bucket.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
-from typing import Any, Sequence
+from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
+import torch
 
+from repro_torch.core.aggregation import fedavg_aggregate_grouped
+from repro_torch.core.client_store import InMemoryStore
 from repro_torch.core.grouping import group_major_order
-from repro_torch.utils.pytree import tree_unstack
+from repro_torch.optim.optimizers import Optimizer, apply_updates
+from repro_torch.utils.pytree import (tree_leaves, tree_map, tree_stack, tree_unstack,
+                                      tree_where)
 
 PyTree = Any
+
+
+# =====================================================================
+# round plan: host-side schedule, stacked device-side batches
+# =====================================================================
+@dataclass
+class ClientPlan:
+    """One batch-size bucket of the round's clients, stacked.
+
+    ``data`` holds the bucket's full client shards on the device (leaves
+    (Cb, n_pad, ...)); each step gathers its minibatches from it on the
+    device with the (Cb, S, bs) ``indices``.  ``order`` gives each client's
+    position in the round's group-major order.  ``num_steps`` is the host
+    copy of ``step_mask.sum(1)``, so the engine knows without a device read
+    which steps have a padded client.
+    """
+    cids: np.ndarray          # (Cb,) client ids (sorted)
+    group_of: np.ndarray      # (Cb,) group index per client
+    sizes: np.ndarray         # (Cb,) dataset sizes |X_i|
+    order: np.ndarray         # (Cb,) position in the group-major round order
+    batch_size: int
+    data: PyTree              # leaves (Cb, n_pad, ...) on the device
+    indices: torch.Tensor     # (Cb, S, bs) int32 rows into data, on the device
+    step_mask: torch.Tensor   # (Cb, S) bool on the device: False rows are padded no-ops
+    num_steps: np.ndarray     # (Cb,) real steps per client, on the host
+
+
+@dataclass
+class RoundPlan:
+    groups: list[np.ndarray]
+    plans: list[ClientPlan]
+    num_clients: int          # total sampled this round (this plan's subset)
 
 
 @dataclass
 class ClientEntry:
     """One sampled client's fully-drawn local schedule (host side)."""
-    pos: int                # position in the group-major round order
+    pos: int                  # position in the group-major round order
     cid: int
     group: int
-    n: int                  # dataset size |X_i|
-    bs: int                 # local batch size min(client_batch, n)
-    idx: np.ndarray         # (S_c, bs) int32 minibatch index rows
+    n: int                    # dataset size |X_i|
+    bs: int                   # local batch size min(client_batch, n)
+    idx: np.ndarray           # (S_c, bs) int32 minibatch index rows
+
+
+def _store_for(task, store):
+    """``None`` plans through an ephemeral in-memory store (no caching
+    across calls)."""
+    return InMemoryStore(task) if store is None else store
 
 
 def build_round_entries(task, cfg, groups: Sequence[np.ndarray],
-                        rng: np.random.Generator, store) -> list[ClientEntry]:
+                        rng: np.random.Generator, store=None) -> list[ClientEntry]:
     """Draw every sampled client's epoch schedule, in the exact order the
     sequential runner draws it (for k in groups: for cid in group: for
     epoch: ...)."""
+    store = _store_for(task, store)
     entries: list[ClientEntry] = []
     cids, gids = group_major_order(groups)
     for pos, (cid, k) in enumerate(zip(cids, gids)):
@@ -49,6 +110,199 @@ def build_round_entries(task, cfg, groups: Sequence[np.ndarray],
             pos=pos, cid=int(cid), group=int(k), n=n, bs=bs,
             idx=np.asarray(steps, np.int32)))  # lint-ok: RA101 host rng schedule
     return entries
+
+
+def entry_pad_hints(entries: Sequence[ClientEntry]) -> dict[int, tuple]:
+    """Per-batch-size (S, n_pad) maxima over a whole round's entries: the
+    pad targets of the round's buckets."""
+    hints: dict[int, tuple] = {}
+    for e in entries:
+        s, n = hints.get(e.bs, (0, 0))
+        hints[e.bs] = (max(s, len(e.idx)), max(n, e.n))
+    return hints
+
+
+def plans_from_entries(task, entries: Sequence[ClientEntry], store=None,
+                       pad_to: Optional[dict] = None) -> list[ClientPlan]:
+    """Bucket pre-drawn entries by batch size and stack them.  Shards come
+    off the store's device tier."""
+    store = _store_for(task, store)
+    plans: list[ClientPlan] = []
+    for bs in sorted({e.bs for e in entries}):
+        # sorted-cid bucket order -> a round-stable cache key
+        sub = sorted((e for e in entries if e.bs == bs), key=lambda e: e.cid)
+        S = max(len(e.idx) for e in sub)
+        n_pad = max(e.n for e in sub)
+        if pad_to and bs in pad_to:
+            S, n_pad = max(S, pad_to[bs][0]), max(n_pad, pad_to[bs][1])
+        idxs, masks = [], []
+        for e in sub:
+            idx, s_c = e.idx, len(e.idx)
+            if s_c < S:  # pad with replays of step 0; masked out below
+                idx = np.concatenate([idx, np.tile(idx[:1], (S - s_c, 1))])
+            idxs.append(idx)
+            masks.append(np.arange(S) < s_c)
+        data = store.get_bucket([e.cid for e in sub], n_pad)
+        dev = tree_leaves(data)[0].device
+        plans.append(ClientPlan(
+            cids=np.asarray([e.cid for e in sub]),
+            group_of=np.asarray([e.group for e in sub]),
+            sizes=np.asarray([e.n for e in sub]),
+            order=np.asarray([e.pos for e in sub]),
+            batch_size=bs,
+            data=data,
+            indices=torch.from_numpy(np.stack(idxs)).to(dev),
+            step_mask=torch.from_numpy(np.stack(masks)).to(dev),
+            num_steps=np.asarray([len(e.idx) for e in sub]),
+        ))
+    return plans
+
+
+def plan_from_entries(task, entries: Sequence[ClientEntry],
+                      groups: Sequence[np.ndarray], store=None,
+                      pad_to: Optional[dict] = None) -> RoundPlan:
+    """RoundPlan over an entry subset."""
+    return RoundPlan(groups=list(groups),
+                     plans=plans_from_entries(task, entries, store, pad_to),
+                     num_clients=len(entries))
+
+
+def build_round_plan(task, cfg, groups: Sequence[np.ndarray],
+                     rng: np.random.Generator, store=None) -> RoundPlan:
+    """Materialise every sampled client's epoch schedule, stacked."""
+    store = _store_for(task, store)
+    entries = build_round_entries(task, cfg, groups, rng, store)
+    return plan_from_entries(task, entries, groups, store)
+
+
+# =====================================================================
+# engine
+# =====================================================================
+def resolve_step_mode(mode: str = "auto") -> str:
+    """The engine's step mode; ``REPRO_ENGINE_STEP_MODE`` overrides the
+    caller's, as in the reference.  ``"auto"`` and ``"stepped"`` are one
+    vmapped step per host iteration; ``"scan"``, the whole schedule as one
+    device program, raises until the CUDA-graph slice brings it."""
+    mode = os.environ.get("REPRO_ENGINE_STEP_MODE", mode)
+    if mode not in ("auto", "scan", "stepped"):
+        raise ValueError(f"step_mode={mode!r} not in ('auto', 'scan', 'stepped')")
+    if mode == "scan":
+        raise NotImplementedError(
+            "step mode 'scan' (a bucket's whole schedule as one device program) "
+            "arrives with the CUDA-graph slice; this slice of the port runs "
+            "'stepped'")
+    return "stepped"
+
+
+class VectorizedClientEngine:
+    """Trains every client of a bucket as one stacked program.
+
+    ``loss_fn``/``optimizer`` are the objects the sequential oracle uses,
+    so the per-step arithmetic is the same; only the execution differs.
+    """
+
+    def __init__(self, loss_fn: Callable, optimizer: Optimizer,
+                 client_sharding: str = "auto", step_mode: str = "auto"):
+        if client_sharding not in ("auto", "vmap", "shard_map"):
+            raise ValueError(f"client_sharding={client_sharding!r} not in "
+                             "('auto', 'vmap', 'shard_map')")
+        if client_sharding == "shard_map":
+            raise NotImplementedError(
+                "client_sharding='shard_map' (the client axis over several "
+                "cards) arrives with the torch.distributed slice; on one card "
+                "'auto' and 'vmap' run vmap")
+        resolve_step_mode(step_mode)      # raises for the unported "scan"
+        self.loss_fn = loss_fn
+        self.optimizer = optimizer
+        self._grad_fn = None
+
+    def vmapped_grad(self) -> Callable:
+        """``(stacked params, stacked batch) -> (grads, (loss, aux))``, each
+        with the leading client axis: ``vmap(grad_and_value(loss_fn))``."""
+        if self._grad_fn is None:
+            self._grad_fn = torch.func.vmap(
+                torch.func.grad_and_value(self.loss_fn, has_aux=True))
+        return self._grad_fn
+
+    def step(self, params: PyTree, opt_state: PyTree, data: PyTree,
+             indices: torch.Tensor, mask: torch.Tensor, si: int, padded: bool):
+        """Step ``si`` of every client of a bucket.  The minibatches are
+        gathered on the device in one indexing op per data leaf; with
+        ``padded`` (some client has no step ``si``) the masked clients keep
+        their params and optimiser state."""
+        idx = indices[:, si]
+        rows = torch.arange(idx.shape[0], device=idx.device)[:, None]
+        batch = tree_map(lambda x: x[rows, idx], data)
+        grads, (loss, _) = self.vmapped_grad()(params, batch)
+        updates, new_state = self.optimizer.update(grads, opt_state, params)
+        new_params = apply_updates(params, updates)
+        if padded:
+            m = mask[:, si]
+            new_params = tree_where(m, new_params, params)
+            new_state = tree_where(m, new_state, opt_state)
+        return new_params, new_state, loss
+
+    # ---- bucket execution --------------------------------------------
+    def prepare_bucket(self, plan: ClientPlan, stacked_params: PyTree,
+                       stacked_opt_state: PyTree) -> tuple:
+        """The positional args ``run_prepared`` consumes (on one card there
+        is no shard padding to add, nor to trim afterwards)."""
+        return (stacked_params, stacked_opt_state, plan.data, plan.indices,
+                plan.step_mask, plan.num_steps)
+
+    def run_prepared(self, args):
+        """Every step of one bucket, driven from the host; returns the
+        trained params, optimiser state and the (C, S) losses."""
+        p, s, data, indices, mask, num_steps = args
+        losses = []
+        for si in range(mask.shape[1]):
+            p, s, loss = self.step(p, s, data, indices, mask, si,
+                                   padded=bool((num_steps <= si).any()))
+            losses.append(loss)
+        return p, s, torch.stack(losses, dim=1)
+
+    def train_bucket(self, plan: ClientPlan, stacked_params: PyTree,
+                     stacked_opt_state: PyTree):
+        """(Cb, ...)-stacked params and optimiser state -> trained stacks."""
+        return self.run_prepared(self.prepare_bucket(plan, stacked_params, stacked_opt_state))
+
+    def train_round(self, rplan: RoundPlan, init_params_for: Callable,
+                    init_opt_state_for: Callable):
+        """Train every bucket; return the client stacks in round order.
+
+        ``init_params_for(plan) -> (Cb, ...) start params``;
+        ``init_opt_state_for(plan, stacked_params) -> stacked opt state``.
+
+        Returns ``(stacked_params, group_ids, sizes, buckets)``: leaves (C,
+        ...) in the round's group-major client order, and per bucket
+        ``(plan, trained_params, final_opt_state, start_params)`` (SCAFFOLD's
+        control update needs the bucket view).
+        """
+        buckets = []
+        for plan in rplan.plans:
+            w0 = init_params_for(plan)
+            p, s, _ = self.train_bucket(plan, w0, init_opt_state_for(plan, w0))
+            buckets.append((plan, p, s, w0))
+        # bucket rows are in sorted-cid order, not round order: the
+        # permutation is needed even for a single bucket
+        inv = np.argsort(np.concatenate([b[0].order for b in buckets]))
+        dev = tree_leaves(buckets[0][1])[0].device
+        perm = torch.from_numpy(inv).to(dev)
+        stacked = tree_map(lambda *xs: torch.cat(xs)[perm], *[b[1] for b in buckets])
+        group_ids = np.concatenate([b[0].group_of for b in buckets])[inv]
+        sizes = np.concatenate([b[0].sizes for b in buckets])[inv]
+        return stacked, group_ids, sizes, buckets
+
+
+def aggregate_groups(stacked_params: PyTree, sizes, group_ids,
+                     num_groups: int) -> PyTree:
+    """Eq. 2 for every group at once over the client axis (the mean; the
+    robust statistics arrive with the robustness slice)."""
+    return fedavg_aggregate_grouped(stacked_params, sizes, group_ids, num_groups)
+
+
+def stack_models(models: Sequence[PyTree]) -> PyTree:
+    return tree_stack(list(models))
 
 
 def unstack_models(stacked: PyTree) -> list[PyTree]:

@@ -1,6 +1,6 @@
 """FedSDD (Algorithm 1) and the paper's baselines as one runner (port of
-``repro/core/fedsdd.py``, the sequential engine with the fused dense KD
-pipeline).
+``repro/core/fedsdd.py``: the sequential and vectorized client engines with
+the fused dense KD pipeline).
 
 A single ``FedConfig`` spans the paper's experimental matrix; each
 baseline is a preset:
@@ -36,13 +36,15 @@ from repro_torch import device as device_lib
 from repro_torch.core import round_plan
 from repro_torch.core.aggregation import fedavg_aggregate
 from repro_torch.core.client_store import InMemoryStore, make_client_store
-from repro_torch.core.engine import build_round_entries, unstack_models
+from repro_torch.core.engine import (VectorizedClientEngine, aggregate_groups,
+                                     build_round_entries, entry_pad_hints,
+                                     plan_from_entries, stack_models, unstack_models)
 from repro_torch.core.grouping import assign_groups, sample_clients
 from repro_torch.distill import KDPipeline, TeacherBank
 from repro_torch.optim.optimizers import (Optimizer, apply_updates, scaffold_new_control,
                                           sgd, value_and_grad, with_fedprox,
                                           with_scaffold)
-from repro_torch.utils.pytree import tree_stack, tree_zeros_like
+from repro_torch.utils.pytree import tree_map, tree_stack, tree_zeros_like
 
 PyTree = Any
 
@@ -204,15 +206,17 @@ class FedConfig:
             if unported:
                 raise NotImplementedError(
                     f"FedConfig: {slice_}; this slice of the port runs the "
-                    f"sequential engine with the fused dense KD pipeline")
+                    f"sequential and vectorized engines with the fused dense KD "
+                    f"pipeline")
 
     def _unported(self):
         """(condition, what and which later slice brings it) for each valid
         option the port does not run yet."""
         return (
-            (self.execution == "vectorized",
-             "execution='vectorized' arrives with the vectorized-engine slice "
-             "(kernel multi_weighted_average)"),
+            (self.client_sharding == "shard_map",
+             "client_sharding='shard_map' (the client axis over several cards) "
+             "arrives with the torch.distributed slice; on one card 'auto' and "
+             "'vmap' run vmap"),
             (self.kd_kernel == "flash" or self.kd_head_fusion
              or self.teacher_cache_dtype is not None,
              "kd_kernel='flash', kd_head_fusion and teacher_cache_dtype arrive "
@@ -304,8 +308,11 @@ class FederatedRunner:
                              f"runner runs on {self.device}; pass the same device "
                              f"to both")
         self._train_step = None
+        self._engine = None
         self._kd_pipe = None
         self._exec = None
+        if cfg.execution == "vectorized":
+            self._make_engine()          # an unported step mode raises here
 
     # ---- init ----------------------------------------------------------
     def init_state(self) -> FedState:
@@ -383,6 +390,14 @@ class FederatedRunner:
                 opt_state, w_start, params, cfg.client_lr))
         return params
 
+    # ---- vectorized engine ----------------------------------------------
+    def _make_engine(self) -> VectorizedClientEngine:
+        if self._engine is None:
+            self._engine = VectorizedClientEngine(
+                self.task.loss_fn, self._make_optimizer(),
+                client_sharding=self.cfg.client_sharding)
+        return self._engine
+
     # ---- distillation phase (Eq. 3-4) -------------------------------------
     def _kd_pipeline(self) -> KDPipeline:
         if self._kd_pipe is None:
@@ -398,14 +413,18 @@ class FederatedRunner:
         return self._exec
 
     def _distill_models(self, new_globals: list[PyTree], teachers, *,
-                        stacked: bool) -> dict:
+                        stacked: bool, stacked_students: PyTree | None = None) -> dict:
         """Distill the round's targets in place; returns the KD record.
         ``teachers``: a list of member trees (``stacked=False``) or one tree
-        whose leaves carry the leading (M, ...) member axis."""
+        whose leaves carry the leading (M, ...) member axis.
+        ``stacked_students``: the (K, ...) stack of ``new_globals`` when the
+        caller has one (the vectorized engine)."""
         pipe = self._kd_pipeline()
         tstack = teachers if stacked else tree_stack(list(teachers))
         if self.cfg.distill_target == "all":
-            out, kd_info = pipe.distill_all(tree_stack(new_globals), tstack,
+            if stacked_students is None:
+                stacked_students = tree_stack(new_globals)
+            out, kd_info = pipe.distill_all(stacked_students, tstack,
                                             self.task.server_batches)
             new_globals[:] = unstack_models(out)
         else:
@@ -420,7 +439,9 @@ class FederatedRunner:
         rng = np.random.default_rng(cfg.seed * 100_000 + t)
         active = sample_clients(cfg.num_clients, cfg.participation, rng)
         groups = assign_groups(active, cfg.K, rng)
-        ops = _SequentialRoundOps(self, state, groups, rng, t)
+        ops_cls = (_VectorizedRoundOps if cfg.execution == "vectorized"
+                   else _SequentialRoundOps)
+        ops = ops_cls(self, state, groups, rng, t)
         return self._executor().execute(state, t, len(active), ops)
 
     def finalize(self, state: FedState) -> FedState:
@@ -483,6 +504,79 @@ class _SequentialRoundOps:
             return runner._distill_models(new_globals, list(self.models), stacked=False)
         return runner._distill_models(new_globals, state.ensemble.members_stacked(),
                                       stacked=True)
+
+
+class _VectorizedRoundOps:
+    """The stacked engine's phase bodies: every bucket of the round trains
+    as one vmapped program, and Eq. 2 for all K groups runs as one pass over
+    the round-ordered client stack (``aggregate_groups``)."""
+
+    def __init__(self, runner, state, groups, rng, t):
+        self.runner, self.state = runner, state
+        self.groups, self.t = groups, t
+        self.eng = runner._make_engine()
+        self.store = runner._store(state)
+        self.entries = build_round_entries(runner.task, runner.cfg, groups, rng,
+                                           store=self.store)
+        self.pad_hints = entry_pad_hints(self.entries)
+
+    def train(self) -> None:
+        runner, state, cfg = self.runner, self.state, self.runner.cfg
+        optimizer, dev = self.eng.optimizer, runner.device
+        # pin the round's clients resident while their bucket stacks are
+        # assembled and consumed
+        with self.store.sampled_view([e.cid for e in self.entries]) as view:
+            rplan = plan_from_entries(runner.task, self.entries, self.groups,
+                                      store=self.store, pad_to=self.pad_hints)
+            stacked_k = stack_models(state.global_models)   # (K, ...)
+
+            def init_params_for(plan):
+                gid = torch.from_numpy(plan.group_of).to(dev)
+                return tree_map(lambda x: x[gid], stacked_k)
+
+            def init_opt_state_for(plan, w0):
+                s0 = optimizer.init(w0)
+                if cfg.local_algo == "scaffold":
+                    nb = len(plan.cids)
+                    c_glob = tree_map(lambda x: x.expand((nb,) + tuple(x.shape)),
+                                      state.scaffold_c_global)
+                    s0 = s0._replace(c_local=tree_stack(view.controls(plan.cids)),
+                                     c_global=c_glob)
+                return s0
+
+            self.stacked, self.gids, self.sizes, self.buckets = self.eng.train_round(
+                rplan, init_params_for, init_opt_state_for)
+
+    def finish_local(self) -> None:
+        state, cfg = self.state, self.runner.cfg
+        if cfg.local_algo == "scaffold":
+            for plan, p, s, w0 in self.buckets:
+                # each client's K is its count of real (unmasked) steps
+                new_c = scaffold_new_control(s._replace(steps=plan.step_mask.sum(1)),
+                                             w0, p, cfg.client_lr)
+                for i, cid in enumerate(plan.cids):
+                    self.store.put_control(int(cid), tree_map(lambda x, i=i: x[i], new_c))
+            state.scaffold_c_global = self.store.control_mean()
+
+    def aggregate(self) -> list[PyTree]:
+        """Eq. 2 for every group at once over the round-ordered client stack."""
+        self.stacked_globals = aggregate_groups(self.stacked, self.sizes, self.gids,
+                                                self.runner.cfg.K)
+        self.new_globals = unstack_models(self.stacked_globals)
+        return self.new_globals
+
+    def push(self, t: int, state) -> None:
+        # the (K, ...) stack goes into the bank as it is (Eq. 5)
+        state.ensemble.push(t, self.stacked_globals)
+
+    def inline_kd(self, new_globals) -> dict:
+        runner, state = self.runner, self.state
+        if runner.cfg.ensemble_source == "clients":
+            teacher_stack = self.stacked             # FedDF: the client models
+        else:
+            teacher_stack = state.ensemble.members_stacked()
+        return runner._distill_models(new_globals, teacher_stack, stacked=True,
+                                      stacked_students=self.stacked_globals)
 
 
 def make_runner(preset: str, task: FedTask, device=None, **overrides) -> FederatedRunner:

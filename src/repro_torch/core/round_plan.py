@@ -6,9 +6,9 @@ The back-to-back order of the reference's oracle::
     train all ─▶ finish_local ─▶ aggregate ─▶ push ─▶ KD ─▶ eval ─▶ record
 
 Engine-specific work is delegated to the per-round ``ops`` adapter
-(``fedsdd._SequentialRoundOps``).  Before each phase clock is read the
-device is synchronised, so ``t_local`` and ``t_kd`` hold the device's work
-and not only its enqueueing.  Overlapping round t's KD with round t+1's
+(``fedsdd._SequentialRoundOps`` or ``_VectorizedRoundOps``).  Before each
+phase clock is read the device is synchronised, so ``t_local`` and
+``t_kd`` hold the device's work and not only its enqueueing.  Overlapping round t's KD with round t+1's
 local training arrives with its own slice.
 """
 from __future__ import annotations

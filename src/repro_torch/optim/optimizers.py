@@ -107,7 +107,8 @@ class ScaffoldState(NamedTuple):
     base: Any
     c_local: Any     # client control variate c_i
     c_global: Any    # server control variate c
-    steps: int       # local step counter (for the c_i update rule), on the host
+    steps: Any       # local step counter (for the c_i update rule): a host int,
+                     # or a (C,) tensor of real steps on a stacked bucket
 
 
 def with_scaffold(base: Optimizer, lr: float) -> Optimizer:
@@ -131,8 +132,20 @@ def with_scaffold(base: Optimizer, lr: float) -> Optimizer:
 def scaffold_new_control(state: ScaffoldState, w_start: PyTree, w_end: PyTree,
                          lr: float) -> PyTree:
     """Option-II control update: c_i' = c_i − c + (w_start − w_end)/(K·lr),
-    with K·lr formed in f32 as the reference's device scalar is."""
-    denom = float(np.float32(max(state.steps, 1)) * np.float32(lr))
+    with K·lr formed in f32 as the reference's device scalar is.
+
+    On the vectorized engine's stacked state ``steps`` is a ``(C,)`` tensor
+    of each client's real step count and every leaf carries the leading
+    client axis: K·lr is formed per client and broadcast over each leaf."""
     delta = tree_sub(w_start, w_end)
+    if isinstance(state.steps, torch.Tensor):
+        denom = state.steps.to(torch.float32).clamp(min=1.0) * float(np.float32(lr))
+
+        def per_client(d):
+            return denom.reshape((-1,) + (1,) * (d.ndim - 1))
+
+        return tree_map(lambda ci, c, d: ci - c + d.to(ci.dtype) / per_client(d),
+                        state.c_local, state.c_global, delta)
+    denom = float(np.float32(max(state.steps, 1)) * np.float32(lr))
     return tree_map(lambda ci, c, d: ci - c + d.to(ci.dtype) / denom,
                     state.c_local, state.c_global, delta)

@@ -1,5 +1,5 @@
 """Whole-tree algebra over tensor pytrees (port of the subset of
-``repro/utils/pytree.py`` that one round uses).
+``repro/utils/pytree.py`` that the two client engines use).
 
 A tree is what the reference's parameter trees are: nested dicts (and
 lists, tuples, NamedTuples) whose leaves are tensors.  Every function
@@ -75,6 +75,20 @@ def tree_unstack(stacked: PyTree) -> list[PyTree]:
     return [tree_map(lambda x: x[i], stacked) for i in range(n)]
 
 
+def tree_where(pred: torch.Tensor, on_true: PyTree, on_false: PyTree) -> PyTree:
+    """Leafwise ``torch.where`` with a ``(C,)`` predicate broadcast over each
+    leaf's trailing axes: the masked-step combinator of the vectorized
+    engine.  A leaf that is the same object on both sides (a FedProx anchor,
+    SCAFFOLD's controls) and a non-tensor leaf (the host step count) come
+    back as ``on_true``'s without a launch."""
+    def leaf(a, b):
+        if a is b or not isinstance(a, torch.Tensor):
+            return a
+        return torch.where(pred.reshape(pred.shape + (1,) * (a.ndim - pred.ndim)), a, b)
+
+    return tree_map(leaf, on_true, on_false)
+
+
 def _f32_weights(weights) -> torch.Tensor:
     """Host weights as the reference takes them: f32, normalised in f32."""
     w = torch.as_tensor(np.asarray(weights), dtype=torch.float32)
@@ -106,5 +120,25 @@ def tree_stacked_weighted_mean(stacked: PyTree, weights) -> PyTree:
     def leaf(x):
         w = norm.to(x.dtype).reshape((-1,) + (1,) * (x.ndim - 1))
         return (x * w).sum(0)
+
+    return tree_map(leaf, stacked)
+
+
+def tree_group_weighted_mean(stacked: PyTree, weights, group_ids,
+                             num_groups: int) -> PyTree:
+    """Per-group Eq. 2 over a client-stacked tree, as the reference's segment
+    reduction: ``norm = w / totals[gid]`` in f32, then a segment sum of
+    ``x · norm`` into a zero ``(num_groups, ...)`` leaf (``index_add_``).
+    Ragged groups need no padding."""
+    dev = tree_leaves(stacked)[0].device
+    w = torch.as_tensor(np.asarray(weights), dtype=torch.float32).to(dev)
+    gid = torch.as_tensor(np.asarray(group_ids), dtype=torch.int64).to(dev)
+    totals = torch.zeros((num_groups,), dtype=torch.float32, device=dev).index_add_(0, gid, w)
+    norm = w / totals[gid]
+
+    def leaf(x):
+        wx = norm.to(x.dtype).reshape((-1,) + (1,) * (x.ndim - 1))
+        out = torch.zeros((num_groups,) + tuple(x.shape[1:]), dtype=x.dtype, device=dev)
+        return out.index_add_(0, gid, x * wx)
 
     return tree_map(leaf, stacked)

@@ -99,7 +99,8 @@ def test_value_errors_match_reference(kw):
 
 
 UNPORTED = [
-    dict(execution="vectorized"), dict(kd_kernel="flash"),
+    pytest.param(dict(execution="vectorized", client_sharding="shard_map"), id="execution"),
+    dict(client_sharding="shard_map"), dict(kd_kernel="flash"),
     dict(kd_kernel="flash", kd_head_fusion=True),
     dict(kd_kernel="flash", teacher_cache_dtype="bfloat16"), dict(overlap="async"),
     dict(overlap="fused"), dict(kd_pipeline="legacy"), dict(client_store="spilling"),

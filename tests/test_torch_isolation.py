@@ -42,7 +42,8 @@ def test_importing_the_port_loads_no_jax_or_reference():
         "import repro_torch, repro_torch.serve, repro_torch.launch.serve\n"
         "import repro_torch.interop, repro_torch.kernels.flash_attention.ops\n"
         "import repro_torch.core.fedsdd, repro_torch.core.tasks, repro_torch.distill\n"
-        "import repro_torch.kernels.kd_loss.ops\n"
+        "import repro_torch.kernels.kd_loss.ops, repro_torch.kernels.weight_avg.ops\n"
+        "import repro_torch.core.engine, repro_torch.launch.train\n"
         f"spec = importlib.util.spec_from_file_location('chip_smoke', {str(ROOT / 'chip_smoke.py')!r})\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -81,6 +82,10 @@ def test_entry_points_without_device_raise_when_no_cuda(monkeypatch):
     monkeypatch.setattr(sys, "argv", ["serve", "--arch", "qwen2.5-14b"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main()
+    from repro_torch.launch import train as train_cli
+    monkeypatch.setattr(sys, "argv", ["train", "--execution", "vectorized"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_cli.main()
     assert device.resolve("cpu") == torch.device("cpu")
 
 

@@ -18,6 +18,13 @@ logits, probabilities at atol 2e-3 (the reference's own, as in
 ``tests/test_kernels.py``); the loss at rtol 1e-4; a bf16 gradient per
 row at 8e-3 of its max |plain| (two bf16 ulps: both sides round once),
 plus 1e-6·|g|·τ/B absolute (f32 noise on p − t, for rows near zero).
+
+Tolerances, ``weight_avg`` (both sides sum the same f32 products, in
+another order): f32 at rtol 1e-5, atol 1e-6, the reference's own
+(``tests/test_engine_parity.py``); bf16 within one bf16 ulp of the plain
+result (both round one f32 sum once) plus 2^-22 of the sum of |ŵ_n·x_n|:
+the two f32 sums differ by a few f32 ulps of their terms, which a result
+much smaller than its terms (cancellation) does not absorb.
 """
 import numpy as np
 import pytest
@@ -28,6 +35,8 @@ from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
 from repro_torch.kernels.kd_loss import ops as kd_ops  # noqa: E402
 from repro_torch.kernels.kd_loss import ref as kd_ref  # noqa: E402
+from repro_torch.kernels.weight_avg import ops as wa_ops  # noqa: E402
+from repro_torch.kernels.weight_avg import ref as wa_ref  # noqa: E402
 
 BF16_ROW_TOL = 1.6e-2
 KD_F32_ROW_TOL = 1e-5
@@ -141,3 +150,86 @@ def test_kd_loss_zero_when_student_equals_teacher_on_card():
     gen = torch.Generator(device="cuda").manual_seed(0)
     s = torch.randn((4, 100), generator=gen, device="cuda")
     assert float(kd_ops.kd_loss(s, torch.softmax(s / 4.0, -1), 4.0)) < 1e-5
+
+
+# the reference sweep, the vectorized ResNet-56 round's largest leaf
+# (G = K = 4 groups of N = 2 clients) and a leaf of one element, an odd D
+# across many CTAs, and N above one warp
+WA_SHAPES = [(3, 5, 517), (4, 2, 36864), (4, 2, 1), (4, 8, 1_000_003), (1, 64, 4099)]
+
+
+def _wa_close(out, ref, x, w):
+    """``x`` (G, N, D) and ``w`` (G, N) are the inputs."""
+    if out.dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
+    else:
+        want = ref.float()
+        ulp = 2.0 ** (torch.floor(torch.log2(want.abs().clamp(min=2 ** -126))) - 7)
+        w_hat = w / w.sum(-1, keepdim=True)
+        terms = (x.float().abs() * w_hat[..., None]).sum(-2)
+        assert bool(((out.float() - want).abs() <= ulp + 2.0 ** -22 * terms).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", WA_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_group_weighted_average_matches_plain_on_card(dtype, shape):
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(sum(shape))
+    x = torch.randn(shape, generator=gen, device="cuda").to(getattr(torch, dtype))
+    w = torch.randint(1, 40, shape[:2], generator=gen, device="cuda").float()
+    before = kernels.launches["multi_weighted_average"]
+    out = wa_ops.group_weighted_average(x, w)
+    ref = wa_ref.group_weighted_average_ref(x, w)
+    torch.cuda.synchronize()
+    assert kernels.launches["multi_weighted_average"] == before + 1
+    assert out.dtype == x.dtype and out.shape == ref.shape
+    _wa_close(out, ref, x, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(5, 517), (32, 100_003)], ids=lambda s: "x".join(map(str, s)))
+def test_weighted_average_matches_plain_on_card(dtype, shape):
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(sum(shape))
+    x = torch.randn(shape, generator=gen, device="cuda").to(getattr(torch, dtype))
+    w = torch.randint(1, 40, shape[:1], generator=gen, device="cuda").float()
+    before = kernels.launches["weighted_average"]
+    out = wa_ops.weighted_average(x, w)
+    ref = wa_ref.weighted_average_ref(x, w)
+    torch.cuda.synchronize()
+    assert kernels.launches["weighted_average"] == before + 1
+    _wa_close(out, ref, x[None], w[None])
+
+
+@pytest.mark.cuda
+def test_weight_avg_pytree_wrappers_launch_once_per_leaf_on_card():
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tree = {"a": torch.randn((4, 2, 3, 3, 16), generator=gen, device="cuda"),
+            "b": {"c": torch.randn((4, 2, 10), generator=gen, device="cuda")}}
+    w = torch.tensor([[1.0, 3.0]] * 4, device="cuda")
+    before = kernels.launches["multi_weighted_average"]
+    out = wa_ops.group_weighted_average_pytree(tree, w)
+    assert kernels.launches["multi_weighted_average"] == before + 2
+    torch.testing.assert_close(out["a"], (tree["a"][:, 0] + 3 * tree["a"][:, 1]) / 4,
+                               rtol=1e-5, atol=1e-6)
+    assert out["b"]["c"].shape == (4, 10)
+    before = kernels.launches["weighted_average"]
+    one = wa_ops.weighted_average_pytree({"c": tree["b"]["c"][0]}, w[0])
+    assert kernels.launches["weighted_average"] == before + 1
+    torch.testing.assert_close(one["c"], (tree["b"]["c"][0, 0] + 3 * tree["b"]["c"][0, 1]) / 4,
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_weight_avg_refuses_what_the_kernel_does_not_take_on_card():
+    _needs_card()
+    x = torch.zeros((2, 3, 8), device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        wa_ops.group_weighted_average(x.transpose(0, 1), torch.ones((3, 2), device="cuda"))
+    with pytest.raises(ValueError, match="float16"):
+        wa_ops.group_weighted_average(x.half(), torch.ones((2, 3), device="cuda"))
+    with pytest.raises(ValueError, match="several devices"):
+        wa_ops.group_weighted_average(x, torch.ones((2, 3)))

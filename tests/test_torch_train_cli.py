@@ -1,0 +1,58 @@
+"""The port's training CLI, ``python -m repro_torch.launch.train``, on the
+CPU: a few clients, 2 rounds on each engine, the reference's per-round
+line (``[preset] round t/T acc=… kd=…``) and history file; a flag for what
+the port does not run yet raises ``NotImplementedError`` naming its slice.
+"""
+import json
+import re
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.launch import train  # noqa: E402
+
+ROUND_LINE = re.compile(r"^\[fedsdd\] round (\d+)/2 acc=\d\.\d{4} kd=\d+\.\d{4}$")
+SMALL = ["--device", "cpu", "--model", "cnn", "--clients", "4", "--rounds", "2",
+         "--local-epochs", "1", "--distill-steps", "3", "--K", "2", "--R", "2"]
+
+
+def _main(monkeypatch, *argv):
+    monkeypatch.setattr(sys, "argv", ["train", *argv])
+    train.main()
+
+
+@pytest.mark.parametrize("execution", ["sequential", "vectorized"])
+def test_cli_runs_two_rounds(execution, monkeypatch, capsys, tmp_path):
+    out = tmp_path / "history.json"
+    _main(monkeypatch, *SMALL, "--execution", execution, "--out", str(out))
+    lines = capsys.readouterr().out.strip().splitlines()
+    rounds = [ROUND_LINE.match(line) for line in lines[:-1]]
+    assert [int(m.group(1)) for m in rounds if m] == [1, 2], lines
+    assert lines[-1].startswith("done in ")
+    history = json.loads(out.read_text())
+    assert [rec["round"] for rec in history] == [1, 2]
+    assert all({"active", "t_local", "t_kd", "acc_main", "kd_loss_last"} <= rec.keys()
+               for rec in history)
+
+
+def test_cli_engines_agree(monkeypatch, capsys):
+    """Same flags, either engine: the same per-round lines."""
+    got = {}
+    for execution in ("sequential", "vectorized"):
+        _main(monkeypatch, *SMALL, "--execution", execution)
+        got[execution] = capsys.readouterr().out.strip().splitlines()[:-1]
+    assert got["sequential"] == got["vectorized"]
+
+
+@pytest.mark.parametrize("flags,slice_", [
+    (["--arch", "gemma-2b"], "LM-task slice"),
+    (["--dropout-rate", "0.1"], "robustness slice"),
+    (["--ckpt-dir", "ckpts"], "robustness slice"),
+    (["--kd-kernel", "flash"], "Flash-KD slice"),
+    (["--overlap", "async"], "overlap slice"),
+], ids=["arch", "faults", "checkpoints", "flash", "overlap"])
+def test_cli_unported_flags_raise(flags, slice_, monkeypatch):
+    with pytest.raises(NotImplementedError, match=slice_):
+        _main(monkeypatch, *SMALL, *flags)
