@@ -55,8 +55,33 @@ JAX package.  Phases, each of which fails the run if it fails:
                kernel 5 launched 169 leaves x 2 rounds times, the KD kernels
                2 / 400 / 400; kernel 5 at the last round's own Eq. 2 inputs;
                then one bucket's 10 vmapped steps under torch.profiler
- 12. kernels   one JSON line per the port's kernel contract
- 13. ok        {"ok": true, "device": {...}} as the last line
+ 12. Flash-KD  kernels 7-10 (flash_kd.cu) against their plain versions: 7/8 at
+               rows 1, 5, 512 x V 517, 50,304, 256,000, f32 and bf16 caches,
+               teacher lse on and off; 9/10 at D = 2,048 over the same rows and
+               V with gemma-2b's tied head, and every option (untied, bias, f32
+               cache, no lse) at (5, 50,304) and (512, 517), a bf16 head at two
+               shapes; CUDA-event timings at 512 x 2,048 x 256,000 beside the
+               bound, the plain version and a library composition
+ 13. LM f32    gemma-2b reduced with V = 50,304, lm_task (8 clients, 512 KD
+               rows), fedsdd K=4 R=2, 2 rounds from the same weights made on
+               the card, deterministic algorithms on: head-fused and unfused
+               Flash-KD (f32 cache) with the kernels and with the four wrappers
+               patched to their plain versions, the head-fused run with the
+               default bf16 cache both ways, and the dense KD kernels 2-4; main
+               model within 2e-4 and models k>0 bit-identical for each pair and
+               against dense (k>0 are never distilled: that shows the client
+               side repeats); kernels 7/8 or 9/10 launched 20 x 2 times; the
+               same rounds without KD give the main model's KD change, printed
+               beside the tolerance
+ 14. gemma-2b  full width (d_model 2,048, 8 heads of 256, 1 KV head, d_ff
+               16,384 GeGLU, V 256,000, tied), 2 of 18 layers, f32: lm_task(8
+               clients x 8 docs of 128 tokens, 2 server batches of 4), fedsdd
+               K=4 R=2, distill_steps 20, head-fused Flash-KD with the default
+               bf16 cache, the teacher ring stored in bf16; per round t_local,
+               t_kd, the cache build, peak memory and kernels 9/10's launches
+               (20 each); then 5 KD steps under torch.profiler
+ 15. kernels   one JSON line per the port's kernel contract
+ 16. ok        {"ok": true, "device": {...}} as the last line
 
 Tolerances, paged_decode: f32 kernel vs plain at rtol = atol = 1e-5 (only
 the order of summation differs).  bf16 per (request, query head) row: the row's max
@@ -85,12 +110,23 @@ sums differ by a few f32 ulps of their terms, which a result much smaller
 than its terms does not absorb).  The vectorized CNN round against the
 sequential one: every model within 2e-4, the port's runner-parity
 tolerance.
+
+Tolerances, Flash-KD (both sides compute in f32 from the same inputs, in
+other orders): the loss at rtol 1e-5 (kernel 7) or 1e-4 (kernel 9, whose
+student logits are sums of D = 2,048 products formed in the kernel) plus
+2^-22·tau^2·max|lse| (KL = cross - lse_t + lse_s cancels terms of size
+|lse|); the normalisers at rtol 1e-5 plus 2^-22·max|lse|; a logit gradient
+within 1e-5 of (|q| + |p|)·|g|·tau/B per element, the magnitude of what it
+subtracts, plus one bf16 ulp in bf16; the head's gradients within 2^-14 of
+the sum of the magnitudes of the products each element adds up (up to
+256,000 of them: u·sqrt(K) for K up to a million), plus one bf16 ulp in bf16.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -120,6 +156,17 @@ WA_TPU = {"multi_weighted_average": "src/repro/kernels/weight_avg/kernel.py:53",
           "weighted_average": "src/repro/kernels/weight_avg/kernel.py:29"}
 WA_SOURCE = "src/repro_torch/kernels/csrc/weight_avg.cu"
 WA_RTOL, WA_ATOL = 1e-5, 1e-6
+FLASH_TPU = {"flash_kd_fwd": "src/repro/kernels/kd_loss/flash.py:438",
+             "flash_kd_bwd": "src/repro/kernels/kd_loss/flash.py:500",
+             "flash_kd_head_fwd": "src/repro/kernels/kd_loss/flash.py:608",
+             "flash_kd_head_bwd": "src/repro/kernels/kd_loss/flash.py:698"}
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_kd.cu"
+FLASH_LOSS_RTOL = 1e-5                         # kernel 7
+FLASH_HEAD_LOSS_RTOL = 1e-4                    # kernel 9: its logits are sums of D products
+FLASH_LSE_RTOL = 1e-5
+FLASH_GRAD_TOL = 1e-5                          # of (|q| + |p|)·|g|·τ/B
+ULP_LSE = 2.0 ** -22                           # × τ²·max|lse| for the loss
+SUM_TOL = 2.0 ** -14                           # of the summed magnitudes (head gradients)
 DEV = "cuda"
 
 
@@ -678,7 +725,6 @@ def resnet56_phase(fed, kd_ops, kd_ref, seed: int, card: str) -> list[dict]:
     from repro_torch import kernels
     from repro_torch.core.tasks import classification_task
     from repro_torch.distill import KDPipeline
-    from repro_torch.utils.pytree import tree_map
     t0 = time.perf_counter()
     task = classification_task(model="resnet56", num_clients=20, alpha=0.1, num_train=50000,
                                num_server=2048, server_batch=256, seed=seed, device=DEV)
@@ -744,7 +790,7 @@ def resnet56_phase(fed, kd_ops, kd_ref, seed: int, card: str) -> list[dict]:
     rows = (np.arange(640) % sizes[cid]).reshape(10, 64)
     pipe = runner._kd_pipeline()
     batches = pipe.batches_for(task.server_batches)
-    teachers = state.ensemble.members_stacked()
+    teachers = state.ensemble.members()
     cache = pipe.precompute_cache(teachers, batches)
     pipe10 = KDPipeline(task.logits_fn, steps=10, lr=0.05, temperature=tau, device=DEV)
     for label, fn in (
@@ -757,10 +803,9 @@ def resnet56_phase(fed, kd_ops, kd_ref, seed: int, card: str) -> list[dict]:
     # the kernels at the round's own inputs: round 2's teacher logits over
     # the 8 server batches, and the distilled main model on batch 0
     with torch.no_grad():
-        M, nB = teachers["stem"].shape[0], batches["x"].shape[0]
-        x = torch.stack([torch.stack([task.logits_fn(tree_map(lambda w: w[m], teachers),
-                                                     {"x": batches["x"][b]})
-                                      for b in range(nB)]) for m in range(M)])
+        M, nB = len(teachers), batches["x"].shape[0]
+        x = torch.stack([torch.stack([task.logits_fn(member, {"x": batches["x"][b]})
+                                      for b in range(nB)]) for member in teachers])
         x = x.reshape(M, -1, x.shape[-1])
         s = task.logits_fn(state.global_models[0], {"x": batches["x"][0]})
     t = kd_ref.ensemble_softmax_ref(x, tau)[:s.shape[0]].contiguous()
@@ -1024,10 +1069,449 @@ def resnet56_vectorized_phase(fed, wa_ops, wa_ref, seed: int, card: str,
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]}, launches
 
 
+# ---------------------------------------------------------------- phase 12
+def flash_plain(flash) -> dict:
+    """The Flash-KD kernels' plain versions by wrapper name."""
+    return {"flash_kd_fwd": flash.flash_kd_fwd_tiled, "flash_kd_bwd": flash.flash_kd_bwd_ref,
+            "flash_kd_head_fwd": flash.flash_kd_head_fwd_tiled,
+            "flash_kd_head_bwd": flash.flash_kd_head_bwd_tiled}
+
+
+def plain_flash(kd_ops, flash):
+    """The four Flash-KD wrappers patched to their plain versions."""
+    from contextlib import ExitStack
+    from unittest import mock
+    plain = flash_plain(flash)
+    fns = {"flash_kd_fwd": lambda s, t, tau=1.0, tile_v=None, teacher_lse=None:
+           plain["flash_kd_fwd"](s, t, tau, tile_v or flash.DEFAULT_TILE_V_HOST,
+                                 teacher_lse=teacher_lse),
+           "flash_kd_bwd": plain["flash_kd_bwd"],
+           "flash_kd_head_fwd": lambda h, w, b, t, tau=1.0, tile_v=None, teacher_lse=None:
+           plain["flash_kd_head_fwd"](h, w, b, t, tau, tile_v or flash.DEFAULT_TILE_V_HOST,
+                                      teacher_lse=teacher_lse),
+           "flash_kd_head_bwd": lambda h, w, b, t, ls, lt, g, tau=1.0, tile_v=None:
+           plain["flash_kd_head_bwd"](h, w, b, t, ls, lt, g, tau,
+                                      tile_v or flash.DEFAULT_TILE_V_HOST)}
+    stack = ExitStack()
+    for name, fn in fns.items():
+        stack.enter_context(mock.patch.object(kd_ops, name, fn))
+    return stack
+
+
+def _bound(nbytes: float, ops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS[torch.float32] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_bound(name: str, B: int, V: int, D: int, es: int, et: int, bias: bool, lse: bool):
+    """(bound_ms, bound_by): every input read once and every output written
+    once over HBM, vs the f32 operations over the f32 peak (the products
+    2·B·D·V each, about 10 per (row, column) for the streaming epilogue)."""
+    rows = B * 4 * (2 if name.endswith("bwd") else 1) + (B * 4 if lse else 0) + 12
+    if name == "flash_kd_fwd":                  # s, t -> loss, lse_s, lse_t
+        return _bound(B * V * (es + et) + rows, 10 * B * V)
+    if name == "flash_kd_bwd":                  # s, t, lse_s, lse_t, g -> ds
+        return _bound(B * V * (2 * es + et) + rows, 8 * B * V)
+    head = D * V * es + B * D * es + (V * es if bias else 0) + B * V * et + rows
+    if name == "flash_kd_head_fwd":             # h, W, b, t -> loss, lse_s, lse_t
+        return _bound(head, 2 * B * D * V + 10 * B * V)
+    return _bound(head + D * V * es + B * D * es + (V * es if bias else 0),   # + dh, dW, db
+                  3 * 2 * B * D * V + 10 * B * V)
+
+
+FLASH_LIBRARY = {   # yardsticks only, never called by the port
+    "flash_kd_fwd": "kl_div(log_softmax(s / tau), softmax(t / tau), 'batchmean') * tau^2",
+    "flash_kd_bwd": "its backward through autograd",
+    "flash_kd_head_fwd": "h @ W (+ b), then the kl_div composition",
+    "flash_kd_head_bwd": "its backward to h, W (and b) through autograd",
+}
+
+
+def _library_loss(s, t, tau):
+    return torch.nn.functional.kl_div(torch.log_softmax(s.float() / tau, -1),
+                                      torch.softmax(t.float() / tau, -1),
+                                      reduction="batchmean") * tau ** 2
+
+
+def _ulp(ref):
+    return 2.0 ** (torch.floor(torch.log2(ref.float().abs().clamp(min=2.0 ** -126))) - 7)
+
+
+def flash_check(kd_ops, flash, label, s=None, h=None, w=None, b=None, z=None, tau=4.0,
+                lse=True, timed=False) -> dict:
+    """One kernel pair (7/8 with ``s``, 9/10 with ``h, w``) against its plain
+    versions on the same inputs; returns {name: row} and checks each (see
+    the module docstring for the bounds)."""
+    head = s is None
+    fwd, bwd = ("flash_kd_head_fwd", "flash_kd_head_bwd") if head else ("flash_kd_fwd",
+                                                                      "flash_kd_bwd")
+    plain = flash_plain(flash)
+    tl = kd_ops.teacher_cache_lse(z, tau) if lse else None
+    g = torch.tensor(1.5, device=DEV)
+    if head:
+        fargs = (h, w, b, z, tau)
+        got = kd_ops.flash_kd_head_fwd(*fargs, teacher_lse=tl)
+        want = plain[fwd](*fargs, teacher_lse=tl)
+        bargs = (h, w, b, z, want[1], want[2], g, tau)
+    else:
+        fargs = (s, z, tau)
+        got = kd_ops.flash_kd_fwd(*fargs, teacher_lse=tl)
+        want = plain[fwd](*fargs, teacher_lse=tl)
+        bargs = (s, z, want[1], want[2], g, tau)
+    gk = getattr(kd_ops, bwd)(*bargs)
+    gp = plain[bwd](*bargs)
+    torch.cuda.synchronize()
+    B, V = z.shape
+    lse_scale = float(torch.maximum(want[1].abs().max(), want[2].abs().max()))
+    loss_err = abs(float(got[0]) - float(want[0]))
+    loss_tol = ((FLASH_HEAD_LOSS_RTOL if head else FLASH_LOSS_RTOL) * abs(float(want[0]))
+                + ULP_LSE * tau ** 2 * lse_scale)
+    lse_err = max(float((a - c).abs().max()) for a, c in zip(got[1:], want[1:]))
+    fwd_ok = (loss_err <= loss_tol and bool(got[0].isfinite())
+              and all(bool(((a - c).abs() <= FLASH_LSE_RTOL * c.abs() + ULP_LSE * lse_scale)
+                           .all()) for a, c in zip(got[1:], want[1:])))
+    c = 1.5 * tau / B
+    st = (h.float() @ w.float() + (0 if b is None else b.float())) if head else s.float()
+    mag = (torch.exp(st / tau - want[1][:, None]) + torch.exp(z.float() / tau - want[2][:, None])) * c
+    if head:
+        bounds = [mag @ w.float().abs().T, h.float().abs().T @ mag, mag.sum(0)]
+        pairs = [(x, y, SUM_TOL * bd) for x, y, bd in zip(gk, gp, bounds) if x is not None]
+        bwd_ok = gk[1].stride() == w.stride() and (gk[2] is None) == (b is None)
+    else:
+        pairs = [(gk, gp, FLASH_GRAD_TOL * mag + c * 2.0 ** -126)]
+        bwd_ok = True
+    bwd_err = 0.0
+    for x, y, bound in pairs:
+        bound = bound + (_ulp(y) if x.dtype == torch.bfloat16 else 0)
+        diff = (x.float() - y.float()).abs()
+        bwd_ok = bwd_ok and x.dtype == y.dtype and bool((diff <= bound).all()) \
+            and bool(x.isfinite().all())
+        bwd_err = max(bwd_err, float(diff.max()))
+    del st, mag
+    es = (h if head else s).element_size()
+    D = h.shape[1] if head else 0
+    case = {"case": label, "shape": [B, D, V] if head else [B, V],
+            "dtype": str((h if head else s).dtype).removeprefix("torch."),
+            "cache": str(z.dtype).removeprefix("torch."), "teacher_lse": lse,
+            "bias": b is not None, "tied": bool(head and w.stride(0) == 1), "tau": tau}
+    rows = {fwd: {**case, "kernel": fwd, "max_abs_err": loss_err, "tol": loss_tol,
+                  "lse_max_abs_err": lse_err},
+            bwd: {**case, "kernel": bwd, "max_abs_err": bwd_err}}
+    if timed:
+        rows[fwd].update(ms=time_ms(lambda: getattr(kd_ops, fwd)(*fargs, teacher_lse=tl)),
+                         plain_ms=time_ms(lambda: plain[fwd](*fargs, teacher_lse=tl)))
+        rows[bwd].update(ms=time_ms(lambda: getattr(kd_ops, bwd)(*bargs)),
+                         plain_ms=time_ms(lambda: plain[bwd](*bargs)))
+        leaves = [x.detach().requires_grad_(True) for x in ((h, w) if head else (s,))]
+        if head and b is not None:
+            leaves.append(b.detach().requires_grad_(True))
+
+        def lib_fwd():
+            st = (leaves[0] @ leaves[1] + (leaves[2] if len(leaves) > 2 else 0)) if head \
+                else leaves[0]
+            return _library_loss(st, z, tau)
+
+        with torch.no_grad():
+            rows[fwd]["library_ms"] = time_ms(lib_fwd)
+        loss = lib_fwd()
+        rows[bwd]["library_ms"] = time_ms(lambda: torch.autograd.grad(loss, leaves,
+                                                                      retain_graph=True))
+        del loss
+        for name in (fwd, bwd):
+            rows[name]["bound_ms"], rows[name]["bound_by"] = flash_bound(
+                name, B, V, D, es, z.element_size(), b is not None, lse)
+            rows[name]["library"] = FLASH_LIBRARY[name]
+    for name in (fwd, bwd):
+        print(json.dumps(rows[name]), flush=True)
+    check(fwd_ok, f"{fwd} disagrees with its plain version ({label}): {rows[fwd]}")
+    check(bwd_ok, f"{bwd} disagrees with its plain version ({label}): {rows[bwd]}")
+    return rows
+
+
+def flash_phase(kd_ops, flash, seed: int) -> dict:
+    """Kernels 7-10 against their plain versions; returns the rows timed at
+    the LM path's shapes: 512 rows, V = 256,000 (gemma-2b), D = 2,048,
+    f32 student or head, bf16 cache with its lse, the tied head."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    f32, bf16 = torch.float32, torch.bfloat16
+    timed = {}
+
+    def rnd(shape, scale, dtype=f32):
+        return (torch.randn(shape, generator=gen, device=DEV) * scale).to(dtype)
+
+    # kernels 7/8: every (rows, V), both caches, teacher lse on and off
+    for B in (1, 5, 512):
+        for V in (517, 50304, 256000):
+            for cache in (f32, bf16):
+                for lse in (True, False):
+                    main = (B, V, cache, lse) == (512, 256000, bf16, True)
+                    rows = flash_check(kd_ops, flash, f"{B}x{V}", s=rnd((B, V), 3),
+                                       z=rnd((B, V), 3, cache), lse=lse, timed=main)
+                    if main:
+                        timed.update(rows)
+    torch.cuda.empty_cache()
+    # kernels 9/10 at D = 2,048: the path's options at every (rows, V) ...
+    D = 2048
+    for V in (517, 50304, 256000):
+        embed = rnd((V, D), 0.02)
+        for B in (1, 5, 512):
+            main = (B, V) == (512, 256000)
+            rows = flash_check(kd_ops, flash, f"{B}x{D}x{V} tied", h=rnd((B, D), 1),
+                               w=embed.T, z=rnd((B, V), 3, bf16), timed=main)
+            if main:
+                timed.update(rows)
+        del embed
+        torch.cuda.empty_cache()
+    # ... and every option where it is cheap: untied, bias, f32 cache, no lse
+    for B, V in ((5, 50304), (512, 517)):
+        for tied in (True, False):
+            w = rnd((V, D), 0.02).T if tied else rnd((D, V), 0.02)
+            for bias in (False, True):
+                for cache in (f32, bf16):
+                    for lse in (True, False):
+                        flash_check(kd_ops, flash, f"{B}x{D}x{V} options", h=rnd((B, D), 1),
+                                    w=w, b=rnd((V,), 0.5) if bias else None,
+                                    z=rnd((B, V), 3, cache), lse=lse)
+    # a bf16 head and features
+    for B, V in ((5, 517), (512, 50304)):
+        flash_check(kd_ops, flash, f"{B}x{D}x{V} bf16 head", h=rnd((B, D), 1, bf16),
+                    w=rnd((V, D), 0.02, bf16).T, b=rnd((V,), 0.5, bf16), z=rnd((B, V), 3, bf16))
+    torch.cuda.empty_cache()
+    return timed
+
+
+# ---------------------------------------------------------------- phase 13
+def lm_round_phase(fed, kd_ops, flash, seed: int) -> dict:
+    """Returns the launches of the unfused flash run (kernels 7/8's path)."""
+    import dataclasses
+    from contextlib import nullcontext
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.tasks import lm_task
+    from repro_torch.utils.pytree import tree_map
+    cfg = dataclasses.replace(get_config("gemma-2b").reduced(), vocab_size=50304)
+    task = lm_task(cfg, num_clients=8, docs_per_client=8, seq=128, server_batches_n=2,
+                   server_batch=4, seed=seed, device=DEV)
+    kw = dict(K=4, R=2, num_clients=8, participation=1.0, local_epochs=1, client_batch=4,
+              distill_steps=20, client_lr=0.01, server_lr=0.01, seed=seed)
+    init = fed.make_runner("fedsdd", task, device=DEV, **kw).init_state().global_models
+    runs = {
+        "head-fused, kernels": dict(kd_kernel="flash", kd_head_fusion=True,
+                                    teacher_cache_dtype="float32"),
+        "head-fused, plain": dict(kd_kernel="flash", kd_head_fusion=True,
+                                  teacher_cache_dtype="float32"),
+        "flash, kernels": dict(kd_kernel="flash", teacher_cache_dtype="float32"),
+        "flash, plain": dict(kd_kernel="flash", teacher_cache_dtype="float32"),
+        "dense, kernels 2-4": dict(kd_kernel="dense"),
+        "head-fused bf16 cache, kernels": dict(kd_kernel="flash", kd_head_fusion=True),
+        "head-fused bf16 cache, plain": dict(kd_kernel="flash", kd_head_fusion=True),
+        # the same rounds without KD: how far the 20 KD steps a round move the
+        # main model, beside the tolerance the pairs below are held to
+        "no KD": dict(kd_kernel="flash", distill_steps=0),
+    }
+    # the client steps must repeat bit for bit (the embedding's backward
+    # accumulates with atomics unless asked not to)
+    torch.use_deterministic_algorithms(True)
+    out = {}
+    try:
+        for label, opts in runs.items():
+            runner = fed.make_runner("fedsdd", task, device=DEV, **{**kw, **opts})
+            state = fed.FedState(round=0,
+                                 global_models=[tree_map(torch.clone, m) for m in init],
+                                 ensemble=fed.TeacherBank(4, 2))
+            kernels.launches.clear()
+            with plain_flash(kd_ops, flash) if label.endswith("plain") else nullcontext():
+                state = runner.run(2, state=state)
+            torch.cuda.synchronize()
+            out[label] = (state, dict(kernels.launches))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    steps = 2 * kw["distill_steps"]
+    summary = {"phase": "f32 LM rounds (gemma-2b reduced, V=50,304), kernels vs plain",
+               "tol": ROUND_TOL, "launches": {k: v[1] for k, v in out.items()},
+               "kd_change_main_max_abs": {
+                   k: _tree_err(v[0].global_models[0], out["no KD"][0].global_models[0])
+                   for k, v in out.items() if k.endswith("kernels") or "kernels 2-4" in k}}
+    pairs = (("head-fused, kernels", "head-fused, plain"), ("flash, kernels", "flash, plain"),
+             ("head-fused bf16 cache, kernels", "head-fused bf16 cache, plain"),
+             ("head-fused, kernels", "dense, kernels 2-4"), ("flash, kernels",
+                                                            "dense, kernels 2-4"))
+    for a, b in pairs:
+        sa, sb = out[a][0], out[b][0]
+        err = _tree_err(sa.global_models[0], sb.global_models[0])
+        rest = all(torch.equal(x, y) for k in range(1, 4) for x, y in
+                   zip(_leaves(sa.global_models[k]), _leaves(sb.global_models[k])))
+        summary[f"{a} vs {b}"] = {"main_max_abs_err": err, "models_k>0_bit_identical": rest,
+                                  "kd_loss_last": [r["kd_loss_last"] for r in sa.history],
+                                  "kd_loss_last_other": [r["kd_loss_last"] for r in sb.history]}
+    print(json.dumps(summary), flush=True)
+    for a, b in pairs:
+        sa, sb = out[a][0], out[b][0]
+        check(all(torch.allclose(x, y, rtol=ROUND_TOL, atol=ROUND_TOL) for x, y in
+                  zip(_leaves(sa.global_models[0]), _leaves(sb.global_models[0]))),
+              f"LM rounds: main model, {a} vs {b}, beyond 2e-4")
+        check(summary[f"{a} vs {b}"]["models_k>0_bit_identical"],
+              f"LM rounds: models k>0 differ between {a} and {b}")
+        check(all(bool(x.isfinite().all()) for x in _leaves(sa.global_models[0])),
+              f"LM rounds: non-finite main model ({a})")
+    want = {"head-fused, kernels": {"flash_kd_head_fwd": steps, "flash_kd_head_bwd": steps},
+            "head-fused bf16 cache, kernels": {"flash_kd_head_fwd": steps,
+                                               "flash_kd_head_bwd": steps},
+            "flash, kernels": {"flash_kd_fwd": steps, "flash_kd_bwd": steps},
+            "dense, kernels 2-4": {"ensemble_softmax": 2, "kd_loss_fwd": steps,
+                                   "kd_loss_bwd": steps}}
+    for label, (_, launches) in out.items():
+        check(launches == want.get(label, {}), f"LM rounds ({label}): launches {launches}")
+    return out["flash, kernels"][1]
+
+
+# ---------------------------------------------------------------- phase 14
+def _kd_group(name: str) -> str:
+    low = name.lower()
+    if "head_fwd_kernel" in low or "flash_combine" in low:
+        return "flash_kd_head_fwd"
+    if any(k in low for k in ("head_d_kernel", "head_gw_kernel", "head_gh_kernel",
+                              "head_gb_kernel")):
+        return "flash_kd_head_bwd"
+    return "backbone"
+
+
+def gemma_phase(fed, seed: int, card: str) -> dict:
+    """gemma-2b at full width, 2 of 18 layers, f32: FedSDD with head-fused
+    Flash-KD; returns the launches of the run."""
+    import dataclasses
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.tasks import lm_task
+    from repro_torch.distill import KDPipeline
+    cfg = dataclasses.replace(get_config("gemma-2b"), num_layers=2, param_dtype="float32",
+                              compute_dtype="float32")
+    t0 = time.perf_counter()
+    task = lm_task(cfg, num_clients=8, docs_per_client=8, seq=128, server_batches_n=2,
+                   server_batch=4, seed=seed, device=DEV)
+    steps_kd, tau = 20, 4.0
+    # the ring in bf16 (teacher_dtype, the reference's option; the teachers
+    # still forward in f32): with an f32 ring, round 2 peaked at 79.1 GB
+    # (4 old and 4 new globals, 8 client models and 8 teachers, 2.98 GB each)
+    runner = fed.make_runner("fedsdd", task, device=DEV, K=4, R=2, num_clients=8,
+                             participation=1.0, client_batch=4, local_epochs=1,
+                             distill_steps=steps_kd, client_lr=0.01, server_lr=0.01,
+                             temperature=tau, kd_kernel="flash", kd_head_fusion=True,
+                             teacher_dtype="bfloat16", seed=seed)
+    state = runner.init_state()
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(state.global_models[0]))
+    print(f"task and init: {time.perf_counter() - t0:.1f} s; {n_params:,} parameters per "
+          f"model ({n_params * 4 / 1e9:.2f} GB f32)", flush=True)
+    pipe = runner._kd_pipeline()
+    check(pipe.head_fused and pipe.cache_dtype == torch.bfloat16,
+          "gemma-2b: the KD pipeline is not head-fused with a bf16 cache")
+    cache_s = []
+    build_cache = pipe.precompute_cache
+
+    def timed_cache(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = build_cache(*a, **k)
+        torch.cuda.synchronize()
+        cache_s.append(time.perf_counter() - t)
+        return out
+
+    pipe.precompute_cache = timed_cache
+    rounds = []
+    torch.cuda.synchronize()
+    kernels.launches.clear()
+    for _ in range(2):
+        before = dict(kernels.launches)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = runner.run(1, state=state)
+        torch.cuda.synchronize()
+        rec = state.history[-1]
+        rounds.append({"round": rec["round"], "active": rec["active"],
+                       "t_round_s": time.perf_counter() - t0, "t_local_s": rec["t_local"],
+                       "t_kd_s": rec["t_kd"], "t_cache_s": cache_s[-1],
+                       "kd_steps_per_s": steps_kd / rec["t_kd"],
+                       "kd_loss_first": rec["kd_loss_first"], "kd_loss_last": rec["kd_loss_last"],
+                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "launches": {k: v - before.get(k, 0) for k, v in kernels.launches.items()}})
+    launches = dict(kernels.launches)
+    pipe.precompute_cache = build_cache
+    for r in rounds:
+        print(json.dumps({"phase": "gemma-2b FedSDD round, head-fused Flash-KD", "card": card,
+                          **r}), flush=True)
+    print(json.dumps({"phase": "gemma-2b FedSDD run", "card": card, "rounds": 2,
+                      "launches": launches, "teachers": state.ensemble.num_members,
+                      "teacher_bank_gb": state.ensemble.nbytes() / 1e9,
+                      "cache_mb": pipe.cache_nbytes(state.ensemble.members(),
+                                                    pipe.batches_for(task.server_batches)) / 1e6,
+                      "peak_mem_gb": max(r["peak_mem_gb"] for r in rounds)}), flush=True)
+    check(len(state.history) == 2, "gemma-2b: two history records")
+    check(all(math.isfinite(r["kd_loss_first"]) and math.isfinite(r["kd_loss_last"])
+              for r in rounds), f"gemma-2b: non-finite KD losses {rounds}")
+    check(state.ensemble.num_members == 8, "gemma-2b: the ring does not hold 8 teachers")
+    check(all(r["launches"].get("flash_kd_head_fwd") == steps_kd
+              and r["launches"].get("flash_kd_head_bwd") == steps_kd for r in rounds),
+          f"gemma-2b: kernels 9/10 not launched {steps_kd} times a round: {rounds}")
+    check(not any(launches.get(k) for k in ("flash_kd_fwd", "flash_kd_bwd", "kd_loss_fwd",
+                                            "kd_loss_bwd", "ensemble_softmax")),
+          f"gemma-2b: another KD kernel ran: {launches}")
+    check(all(bool(x.isfinite().all()) for m in state.global_models for x in _leaves(m)),
+          "gemma-2b: non-finite weights")
+    check(_tree_err(state.global_models[1], state.global_models[0]) > 0,
+          "gemma-2b: model 1 equals the main model")
+
+    # where a KD step's time goes: 5 head-fused steps over the last round's cache
+    batches = pipe.batches_for(task.server_batches)
+    cache = pipe.precompute_cache(state.ensemble.members(), batches)
+    pipe5 = KDPipeline(task.logits_fn, steps=5, lr=0.01, temperature=tau, device=DEV,
+                       kd_kernel="flash", features_fn=task.features_fn, head_fn=task.head_fn,
+                       head_fusion=True)
+    student = state.global_models[0]
+    pipe5._run(student, batches, cache)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe5._run(student, batches, cache)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 5
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pipe5._run(student, batches, cache)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / 5
+    groups = dict.fromkeys(("flash_kd_head_fwd", "flash_kd_head_bwd", "backbone"), 0.0)
+    for e in kern:
+        groups[_kd_group(e.key)] += e.self_device_time_total / 1e3 / 5
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    print(json.dumps({"phase": "profile: 5 head-fused KD steps, gemma-2b full width, 512 rows",
+                      "card": card, "wall_ms_per_step": wall_ms,
+                      "device_ms_per_step": busy_ms if kern else None,
+                      "idle_share": 1 - busy_ms / wall_ms if kern else None,
+                      "device_ms_by_group": groups,
+                      "kernel_launches_per_step": sum(e.count for e in kern) / 5,
+                      "top_kernels": [{"name": e.key[:80], "per_step": e.count / 5,
+                                       "ms_per_step": e.self_device_time_total / 1e3 / 5}
+                                      for e in top]}), flush=True)
+    check(bool(kern) and groups["flash_kd_head_fwd"] > 0 and groups["flash_kd_head_bwd"] > 0,
+          f"gemma-2b profile: no device time for kernels 9/10: {groups}")
+    del state, runner, pipe, pipe5, cache, student, task
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    # cuBLAS repeats its sums bit for bit under phase 13's deterministic
+    # algorithms only with a fixed workspace; set before the first handle
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU", file=sys.stderr)
         return 1
@@ -1101,10 +1585,29 @@ def main() -> int:
                     "plain_ms": single["plain_ms"], "bound_ms": single["bound_ms"],
                     "bound_by": single["bound_by"], "library_ms": single["library_ms"]}
 
-    phase("12. kernels")
+    phase("12. Flash-KD kernels (7-10) vs plain")
+    from repro_torch.kernels.kd_loss import flash
+    flash_rows = flash_phase(kd_ops, flash, args.seed)
+
+    phase("13. f32 LM FedSDD rounds (gemma-2b reduced, V = 50,304): kernels vs plain")
+    unfused_launches = lm_round_phase(fed, kd_ops, flash, args.seed)
+
+    phase("14. gemma-2b full width, FedSDD with head-fused Flash-KD")
+    fused_launches = gemma_phase(fed, args.seed, card)
+    path_launches = {**unfused_launches, **fused_launches}
+    flash_entries = [{"name": name, "route": "cuda", "source": FLASH_SOURCE,
+                      "replaces": FLASH_TPU[name], "launches": path_launches.get(name, 0),
+                      "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                      "library_ms": r["library_ms"]} for name, r in flash_rows.items()]
+    check(all(e["launches"] > 0 for e in flash_entries),
+          f"a Flash-KD kernel did not run on its path: {path_launches}")
+
+    phase("15. kernels")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
-    print(json.dumps({"kernels": [entry, *kd_entries, wa_entry, single_entry]}), flush=True)
+    print(json.dumps({"kernels": [entry, *kd_entries, wa_entry, single_entry,
+                                  *flash_entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

@@ -31,6 +31,16 @@ def resolve_cache_buckets(configured: Optional[int] = None) -> int:
     return DEFAULT_CACHE_BUCKETS if configured is None else int(configured)
 
 
+def _num_examples(ds) -> int:
+    """Rows of a shard: an (x, y) tuple, a dict of equal-length arrays (the
+    LM task's tokens and labels) or one array."""
+    if isinstance(ds, tuple):
+        return len(ds[0])
+    if isinstance(ds, dict):
+        return len(next(iter(ds.values())))
+    return len(ds)
+
+
 class _LRU:
     """Insertion-ordered dict LRU with per-client pinning.
 
@@ -136,14 +146,19 @@ class InMemoryStore:
         return self.task.client_data[int(cid)]
 
     def num_examples(self, cid: int) -> int:
-        """|X_i| of an (x, y) shard."""
-        return len(self.client_shard(cid)[0])
+        """|X_i|, without building the shard when the task's ``client_data``
+        knows its sizes (``num_examples``)."""
+        data = self.task.client_data
+        if hasattr(data, "num_examples"):
+            return int(data.num_examples(int(cid)))
+        return _num_examples(data[int(cid)])
 
     def _build_row(self, cid: int, n_pad: int) -> PyTree:
         """The client's whole shard through the task's ``make_batch`` (onto
         the task's device), zero-padded on the device to ``n_pad`` rows."""
-        n = self.num_examples(cid)
-        full = self.task.make_batch(self.client_shard(cid), np.arange(n))
+        ds = self.client_shard(cid)
+        n = _num_examples(ds)
+        full = self.task.make_batch(ds, np.arange(n))
         if n == n_pad:
             return full
         return tree_map(lambda x: torch.cat([x, x.new_zeros((n_pad - n,) + tuple(x.shape[1:]))]),

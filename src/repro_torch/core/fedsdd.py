@@ -1,6 +1,6 @@
 """FedSDD (Algorithm 1) and the paper's baselines as one runner (port of
 ``repro/core/fedsdd.py``: the sequential and vectorized client engines with
-the fused dense KD pipeline).
+the fused KD pipeline, dense or Flash-KD).
 
 A single ``FedConfig`` spans the paper's experimental matrix; each
 baseline is a preset:
@@ -206,8 +206,8 @@ class FedConfig:
             if unported:
                 raise NotImplementedError(
                     f"FedConfig: {slice_}; this slice of the port runs the "
-                    f"sequential and vectorized engines with the fused dense KD "
-                    f"pipeline")
+                    f"sequential and vectorized engines with the fused KD "
+                    f"pipeline, dense or Flash-KD")
 
     def _unported(self):
         """(condition, what and which later slice brings it) for each valid
@@ -217,10 +217,6 @@ class FedConfig:
              "client_sharding='shard_map' (the client axis over several cards) "
              "arrives with the torch.distributed slice; on one card 'auto' and "
              "'vmap' run vmap"),
-            (self.kd_kernel == "flash" or self.kd_head_fusion
-             or self.teacher_cache_dtype is not None,
-             "kd_kernel='flash', kd_head_fusion and teacher_cache_dtype arrive "
-             "with the Flash-KD slice (kernels flash_kd_*)"),
             (self.overlap != "off",
              f"overlap={self.overlap!r} arrives with the overlap slice"),
             (self.kd_pipeline == "legacy",
@@ -282,6 +278,12 @@ class FedTask:
     make_batch: Callable[[Any, np.ndarray], Any]  # (client_ds, idx) -> batch
     eval_fn: Optional[Callable[[PyTree], float]] = None
     device: Optional[torch.device] = None
+    # optional features/head split of logits_fn (LM tasks): enables the
+    # head-fused Flash-KD path (FedConfig.kd_head_fusion), where the student
+    # (B, V) logit row never exists.  Contract: logits_fn(p, b) ==
+    # features_fn(p, b) @ W (+ bias) for head_fn(p) = (W, bias)
+    features_fn: Optional[Callable[[PyTree, Any], torch.Tensor]] = None
+    head_fn: Optional[Callable[[PyTree], tuple]] = None
 
 
 @dataclass
@@ -404,7 +406,10 @@ class FederatedRunner:
             cfg = self.cfg
             self._kd_pipe = KDPipeline(
                 self.task.logits_fn, steps=cfg.distill_steps, lr=cfg.server_lr,
-                temperature=cfg.temperature, device=self.device)
+                temperature=cfg.temperature, device=self.device,
+                kd_kernel=cfg.kd_kernel, cache_dtype=cfg.teacher_cache_dtype,
+                features_fn=self.task.features_fn, head_fn=self.task.head_fn,
+                head_fusion=cfg.kd_head_fusion)
         return self._kd_pipe
 
     def _executor(self) -> round_plan.RoundExecutor:
@@ -412,23 +417,22 @@ class FederatedRunner:
             self._exec = round_plan.RoundExecutor(self)
         return self._exec
 
-    def _distill_models(self, new_globals: list[PyTree], teachers, *,
-                        stacked: bool, stacked_students: PyTree | None = None) -> dict:
+    def _distill_models(self, new_globals: list[PyTree], teachers: list[PyTree], *,
+                        stacked_students: PyTree | None = None) -> dict:
         """Distill the round's targets in place; returns the KD record.
-        ``teachers``: a list of member trees (``stacked=False``) or one tree
-        whose leaves carry the leading (M, ...) member axis.
+        ``teachers``: the list of member trees; the pipeline reads one member
+        at a time, so a list of views into the ring is never copied.
         ``stacked_students``: the (K, ...) stack of ``new_globals`` when the
         caller has one (the vectorized engine)."""
         pipe = self._kd_pipeline()
-        tstack = teachers if stacked else tree_stack(list(teachers))
         if self.cfg.distill_target == "all":
             if stacked_students is None:
                 stacked_students = tree_stack(new_globals)
-            out, kd_info = pipe.distill_all(stacked_students, tstack,
+            out, kd_info = pipe.distill_all(stacked_students, teachers,
                                             self.task.server_batches)
             new_globals[:] = unstack_models(out)
         else:
-            new_globals[0], kd_info = pipe.distill(new_globals[0], tstack,
+            new_globals[0], kd_info = pipe.distill(new_globals[0], teachers,
                                                    self.task.server_batches)
         return kd_info
 
@@ -486,12 +490,16 @@ class _SequentialRoundOps:
             self.state.scaffold_c_global = self.state.store.control_mean()
 
     def aggregate(self) -> list[PyTree]:
-        """Per-group Eq. 1-2 over the trained client models."""
+        """Per-group Eq. 1-2 over the trained client models.  Only FedDF's
+        client ensemble reads the client models after this, so otherwise
+        they are released here, before the KD phase allocates."""
         new_globals: list[PyTree] = []
         for k in range(len(self.groups)):
             ents = [e for e in self.entries if e.group == k]
             new_globals.append(fedavg_aggregate([self.models[e.pos] for e in ents],
                                                 [e.n for e in ents]))
+        if self.runner.cfg.ensemble_source != "clients":
+            self.models = None
         self.new_globals = new_globals
         return new_globals
 
@@ -501,9 +509,8 @@ class _SequentialRoundOps:
     def inline_kd(self, new_globals) -> dict:
         runner, state = self.runner, self.state
         if runner.cfg.ensemble_source == "clients":
-            return runner._distill_models(new_globals, list(self.models), stacked=False)
-        return runner._distill_models(new_globals, state.ensemble.members_stacked(),
-                                      stacked=True)
+            return runner._distill_models(new_globals, list(self.models))
+        return runner._distill_models(new_globals, state.ensemble.members())
 
 
 class _VectorizedRoundOps:
@@ -572,10 +579,10 @@ class _VectorizedRoundOps:
     def inline_kd(self, new_globals) -> dict:
         runner, state = self.runner, self.state
         if runner.cfg.ensemble_source == "clients":
-            teacher_stack = self.stacked             # FedDF: the client models
+            teachers = unstack_models(self.stacked)  # FedDF: the client models
         else:
-            teacher_stack = state.ensemble.members_stacked()
-        return runner._distill_models(new_globals, teacher_stack, stacked=True,
+            teachers = state.ensemble.members()
+        return runner._distill_models(new_globals, teachers,
                                       stacked_students=self.stacked_globals)
 
 

@@ -1,6 +1,7 @@
-"""Ready-made FedTasks: the paper's image-classification setting on the
-synthetic CIFAR stand-in, with the paper's ResNets, a small CNN or a tiny
-MLP (port of ``repro/core/tasks.py::classification_task``).
+"""Ready-made FedTasks (port of ``repro/core/tasks.py``): the paper's
+image-classification setting on the synthetic CIFAR stand-in, with the
+paper's ResNets, a small CNN or a tiny MLP (``classification_task``), and
+FedSDD over a model-zoo LM on synthetic token shards (``lm_task``).
 
 Data stays NHWC as in the reference (the MLP flattens it in that order).
 The numpy arrays are the reference's, byte for byte.  The server batches
@@ -20,7 +21,8 @@ from repro_torch import device as device_lib
 from repro_torch.configs.resnet_cifar import get_resnet_config
 from repro_torch.core.fedsdd import FedTask
 from repro_torch.data.partition import dirichlet_partition
-from repro_torch.data.synthetic import SyntheticClassification
+from repro_torch.data.synthetic import SyntheticClassification, make_model_batch
+from repro_torch.models.model_zoo import build_model
 from repro_torch.models.resnet import conv, init_resnet, resnet_accuracy, resnet_logits, resnet_loss
 
 
@@ -132,3 +134,45 @@ def classification_task(model: str = "cnn",
     return FedTask(init_fn=init_fn, loss_fn=loss_fn, logits_fn=logits_fn,
                    client_data=client_data, server_batches=server_batches,
                    make_batch=make_batch, eval_fn=eval_fn, device=dev)
+
+
+def lm_task(cfg, num_clients: int = 8, docs_per_client: int = 8, seq: int = 32,
+            server_batches_n: int = 2, server_batch: int = 4, seed: int = 0,
+            device=None) -> FedTask:
+    """FedSDD over a model-zoo architecture: clients hold token shards, the
+    server distils on unlabeled token batches; the KD logits are flattened
+    over sequence positions, (B·S, V).  The shards are the reference's
+    numpy arrays byte for byte (seeds ``seed*991 + c`` and
+    ``seed*7919 + 100 + i``).  ``features_fn`` and ``head_fn`` split
+    ``logits_fn`` for the head-fused Flash-KD path:
+    ``logits_fn(p, b) == features_fn(p, b) @ head_fn(p)[0]``."""
+    dev = device_lib.resolve(device)
+    model = build_model(cfg)
+
+    def loss_fn(p, b):
+        return model.loss(p, b)
+
+    def logits_fn(p, b):
+        lg, _ = model.logits(p, b)
+        return lg.reshape(-1, cfg.vocab_size)
+
+    def features_fn(p, b):
+        return model.features(p, b).reshape(-1, cfg.d_model)
+
+    def head_fn(p):
+        return model.head(p), None          # zoo heads carry no bias
+
+    client_data = [make_model_batch(cfg, docs_per_client, seq, seed=seed * 991 + c)
+                   for c in range(num_clients)]
+    server_batches = []
+    for i in range(server_batches_n):
+        b = make_model_batch(cfg, server_batch, seq, seed=seed * 7919 + 100 + i)
+        server_batches.append({k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+
+    def make_batch(ds, idx):
+        return {k: _to_device(v[np.asarray(idx)], dev) for k, v in ds.items()}
+
+    return FedTask(init_fn=model.init_from, loss_fn=loss_fn, logits_fn=logits_fn,
+                   client_data=client_data, server_batches=server_batches,
+                   make_batch=make_batch, eval_fn=None, device=dev,
+                   features_fn=features_fn, head_fn=head_fn)

@@ -1,24 +1,32 @@
 """Server KD over stacked teachers, paper Eqs. 3-4 (port of
-``repro/distill/pipeline.py``, the dense cache).
+``repro/distill/pipeline.py``: the dense cache and Flash-KD).
 
 One round's distillation phase:
 
-  1. **Teacher cache** — the teachers (upcast to f32) forward every server
-     batch, member by member and batch by batch into one
-     ``(M, n_batches, B, V)`` logit stack; ONE ``ensemble_softmax_many``
+  1. **Teacher cache** — the teachers (upcast to f32 one member at a time)
+     forward every server batch.  ``kd_kernel="dense"``: the logits go into
+     one ``(M, n_batches, B, V)`` stack and ONE ``ensemble_softmax_many``
      launch turns it into the ``(n_batches, B, V)`` f32 probability cache,
-     adding the members in ``members_stacked``' order (newest round first).
+     adding the members in order (newest round first).
+     ``kd_kernel="flash"``: the members' logits are summed in that order and
+     divided by M into the mean-logit cache, stored in ``cache_dtype``
+     (bf16 unless asked otherwise), beside its f32 row normaliser
+     ``teacher_cache_lse`` — the pair ``(mean_logits, lse)``, at the true V.
   2. **KD schedule** — ``distill_steps`` SGD steps (momentum 0.9, the
      server optimiser), step ``s`` on batch ``s % n_batches``, each through
-     the ``kd_loss`` kernels (forward and backward).  Losses stay on the
-     device; ONE host pull per round fills the history record.
+     the KD kernels (forward and backward): ``kd_loss`` (dense),
+     ``flash_kd_loss`` (flash) or, where the task splits ``logits_fn`` into
+     ``features_fn`` and ``head_fn`` and ``head_fusion`` is on,
+     ``flash_kd_head_loss``, whose kernels form the student's LM-head tile
+     themselves so the (B, V) student row never exists.  A task without
+     that split keeps the plain flash path.  Losses stay on the device; ONE
+     host pull per round fills the history record.
   3. **Multi-student** — ``distill_all`` runs the K students one after the
      other over the same cache (the reference vmaps them); the reported
      losses are the main model's.
 
-The flash kernel family (``kd_kernel="flash"``), head fusion, the
-compressed cache, teacher trust weights and the sharded precompute arrive
-with later slices.
+Teacher trust weights and the sharded precompute arrive with later
+slices.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ from repro_torch.utils.pytree import (tree_cast, tree_leaves, tree_map, tree_sta
 
 PyTree = Any
 LogitsFn = Callable[[PyTree, Any], torch.Tensor]
+_CACHE_DTYPES = {None: None, "float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def stack_server_batches(batches: Sequence[Any]) -> PyTree:
@@ -55,8 +64,35 @@ class KDPipeline:
     server batches are cached keyed on the batch list's identity."""
 
     def __init__(self, logits_fn: LogitsFn, *, steps: int, lr: float,
-                 temperature: float = 4.0, momentum: float = 0.9, device=None):
+                 temperature: float = 4.0, momentum: float = 0.9, device=None,
+                 kd_kernel: str = "dense", cache_dtype: str | None = None,
+                 features_fn: Callable | None = None, head_fn: Callable | None = None,
+                 head_fusion: bool = False):
+        if kd_kernel not in ("dense", "flash"):
+            raise ValueError(f"kd_kernel={kd_kernel!r} not in ('dense', 'flash')")
+        if head_fusion and kd_kernel != "flash":
+            raise ValueError(
+                "head fusion streams the LM-head matmul through the "
+                "flash vocab tiles — the dense prob path has no tiles "
+                "to fuse it into")
+        if cache_dtype not in _CACHE_DTYPES:
+            raise ValueError(f"cache_dtype={cache_dtype!r} not in (None, 'float32', "
+                             f"'bfloat16')")
         self.logits_fn = logits_fn
+        self.features_fn = features_fn
+        self.head_fn = head_fn
+        # head fusion engages only where the task exposes the features/head
+        # split; tasks whose head is inside logits_fn keep the plain flash path
+        self.head_fused = bool(head_fusion and features_fn is not None and head_fn is not None)
+        self.kd_kernel = kd_kernel
+        # the flash cache holds mean logits, bf16 by default (half the f32
+        # bytes); the dense cache holds f32 probabilities only
+        if kd_kernel == "flash":
+            self.cache_dtype = _CACHE_DTYPES[cache_dtype] or torch.bfloat16
+        else:
+            if _CACHE_DTYPES[cache_dtype] not in (None, torch.float32):
+                raise ValueError("the dense prob cache is f32-only")
+            self.cache_dtype = torch.float32
         self.steps = int(steps)
         self.temperature = float(temperature)
         self.optimizer = sgd(lr, momentum=momentum)
@@ -76,65 +112,118 @@ class KDPipeline:
         return self._batches
 
     # --------------------------------------------------- teacher precompute
+    def _teacher_logits(self, teachers: Sequence[PyTree], batches):
+        """Yield (m, b, logits) for every member m of the teacher list and
+        server batch b, each member upcast to f32 on its own (a bf16 ring
+        stays half-width)."""
+        nB = tree_leaves(batches)[0].shape[0]
+        for m, member in enumerate(teachers):
+            member = tree_cast(member, torch.float32)
+            for b in range(nB):
+                yield m, b, self.logits_fn(member, tree_map(lambda x: x[b], batches)).float()
+
     @torch.no_grad()
-    def precompute_teacher_probs(self, teacher_stack: PyTree, batches: PyTree) -> torch.Tensor:
-        """(M, ...) teachers × (n_batches, B, ...) batches -> (n_batches, B, V)
-        f32 ensemble probabilities, in one ``ensemble_softmax`` launch."""
-        ts = tree_cast(teacher_stack, torch.float32)
-        M = tree_leaves(ts)[0].shape[0]
+    def precompute_teacher_probs(self, teachers: Sequence[PyTree],
+                                 batches: PyTree) -> torch.Tensor:
+        """M teachers × (n_batches, B, ...) batches -> (n_batches, B, V) f32
+        ensemble probabilities, in one ``ensemble_softmax`` launch."""
+        M = len(teachers)
         nB = tree_leaves(batches)[0].shape[0]
         logits = None
-        for m in range(M):
-            member = tree_map(lambda x: x[m], ts)
-            for b in range(nB):
-                lg = self.logits_fn(member, tree_map(lambda x: x[b], batches))
-                if logits is None:
-                    logits = torch.empty((M, nB) + tuple(lg.shape), dtype=torch.float32,
-                                         device=lg.device)
-                logits[m, b] = lg
+        for m, b, lg in self._teacher_logits(teachers, batches):
+            if logits is None:
+                logits = torch.empty((M, nB) + tuple(lg.shape), dtype=torch.float32,
+                                     device=lg.device)
+            logits[m, b] = lg
         return kd_ops.ensemble_softmax_many(logits, self.temperature)
 
-    def precompute_cache(self, teacher_stack: PyTree, batches: PyTree) -> torch.Tensor:
-        """The tensor the KD steps consume: for the dense kernel, the f32
-        probability cache itself."""
-        return self.precompute_teacher_probs(teacher_stack, batches)
+    @torch.no_grad()
+    def precompute_mean_logits(self, teachers: Sequence[PyTree], batches: PyTree) -> torch.Tensor:
+        """(n_batches, B, V) f32 mean teacher logit (Eq. 3's ensemble in the
+        logit-sum form), the members summed in order and divided by M."""
+        nB = tree_leaves(batches)[0].shape[0]
+        total, M = None, 0
+        for m, b, lg in self._teacher_logits(teachers, batches):
+            if total is None:
+                total = torch.zeros((nB,) + tuple(lg.shape), dtype=torch.float32,
+                                    device=lg.device)
+            total[b] += lg
+            M = m + 1
+        return total / M
+
+    def precompute_cache(self, teachers: Sequence[PyTree], batches: PyTree):
+        """The tensor the KD steps consume: the (n_batches, B, V) f32
+        probability cache (dense), or the pair ``(mean_logits, lse)`` of the
+        ``cache_dtype`` mean-logit cache and its (n_batches, B) f32
+        normaliser (flash)."""
+        if self.kd_kernel == "dense":
+            return self.precompute_teacher_probs(teachers, batches)
+        data = self.precompute_mean_logits(teachers, batches).to(self.cache_dtype)
+        # τ-fixed and student-independent: computed once here, so every
+        # step skips the teacher's max/sum chain
+        return data, kd_ops.teacher_cache_lse(data, self.temperature)
+
+    def cache_nbytes(self, teachers: Sequence[PyTree], batches: PyTree) -> int:
+        """Device bytes of the round's teacher cache, from shapes alone: one
+        teacher forward on the meta device gives the (B, V) row."""
+        member = tree_map(lambda x: x.to("meta"), teachers[0])
+        meta_batches = tree_map(lambda x: x.to("meta"), batches)
+        with torch.no_grad():
+            lg = self.logits_fn(tree_cast(member, torch.float32),
+                                tree_map(lambda x: x[0], meta_batches))
+        rows = tree_leaves(batches)[0].shape[0] * lg.numel()
+        if self.kd_kernel == "dense":
+            return rows * 4
+        return rows * self.cache_dtype.itemsize + rows // lg.shape[-1] * 4
 
     # ------------------------------------------------------- KD step body
     def _loss(self, student, batch, cache_row):
-        return kd_ops.kd_loss(self.logits_fn(student, batch), cache_row, self.temperature)
+        tau = self.temperature
+        if self.head_fused:
+            zt, lse = cache_row
+            w, b = self.head_fn(student)
+            return kd_ops.flash_kd_head_loss(self.features_fn(student, batch), w, b, zt, tau,
+                                             teacher_lse=lse)
+        if self.kd_kernel == "flash":
+            zt, lse = cache_row
+            return kd_ops.flash_kd_loss(self.logits_fn(student, batch), zt, tau,
+                                        teacher_lse=lse)
+        return kd_ops.kd_loss(self.logits_fn(student, batch), cache_row, tau)
 
-    def _run(self, student: PyTree, batches: PyTree, cache: torch.Tensor):
+    def _run(self, student: PyTree, batches: PyTree, cache):
         """The whole schedule for one student; returns it and the (steps,)
-        device tensor of losses."""
-        n = cache.shape[0]
+        device tensor of losses.  ``cache`` is a tensor or a pair of
+        tensors, each with the leading n_batches axis."""
+        n = tree_leaves(cache)[0].shape[0]
         opt_state = self.optimizer.init(student)
         losses = []
         for s in range(self.steps):
             bi = s % n
             batch = tree_map(lambda x: x[bi], batches)
-            loss, grads = self._loss_and_grad(student, batch, cache[bi])
+            loss, grads = self._loss_and_grad(student, batch, tree_map(lambda x: x[bi], cache))
             updates, opt_state = self.optimizer.update(grads, opt_state, student)
             student = apply_updates(student, updates)
             losses.append(loss)              # a device scalar: no sync here
         if not losses:
-            return student, torch.zeros((0,), device=cache.device)
+            return student, torch.zeros((0,), device=self.device)
         return student, torch.stack(losses)
 
     # ------------------------------------------------------------- public
-    def distill(self, student: PyTree, teacher_stack: PyTree,
+    def distill(self, student: PyTree, teachers: Sequence[PyTree],
                 server_batches: Sequence[Any]) -> tuple[PyTree, dict]:
-        """Single-student KD (``distill_target='main'``)."""
+        """Single-student KD (``distill_target='main'``).  ``teachers``: the
+        list of member trees."""
         batches = self.batches_for(server_batches)
-        cache = self.precompute_cache(teacher_stack, batches)
+        cache = self.precompute_cache(teachers, batches)
         student, losses = self._run(student, batches, cache)
         return student, self._info(losses)
 
-    def distill_all(self, students_stacked: PyTree, teacher_stack: PyTree,
+    def distill_all(self, students_stacked: PyTree, teachers: Sequence[PyTree],
                     server_batches: Sequence[Any]) -> tuple[PyTree, dict]:
         """All K students over one cache (``distill_target='all'``); the
         reported losses are the main model's (row 0)."""
         batches = self.batches_for(server_batches)
-        cache = self.precompute_cache(teacher_stack, batches)
+        cache = self.precompute_cache(teachers, batches)
         outs, losses = zip(*(self._run(st, batches, cache)
                              for st in tree_unstack(students_stacked)))
         return tree_stack(list(outs)), self._info(torch.stack(losses))

@@ -6,8 +6,9 @@ last R rounds, held as ONE stacked tree on the device (leaves
 ``(R, K, ...)``).  ``push`` copies a round's K models into the oldest
 slot: a copy, never a reference, since the round goes on to distil its
 own main model and must not change the teacher it just pushed.
-``members_stacked`` gathers the ``(M, ...)`` teacher stack, newest round
-first.  Spilling evicted rounds to disk is not ported.
+``members`` lists the teachers as views into the ring, newest round first;
+``members_stacked`` gathers the same members into one ``(M, ...)`` copy.
+Spilling evicted rounds to disk is not ported.
 """
 from __future__ import annotations
 
@@ -96,9 +97,13 @@ class TeacherBank:
         return tree_map(lambda b: b.index_select(0, index).flatten(0, 1), self._bank)
 
     def members(self) -> list[PyTree]:
-        """Flat teacher list {w_{t-r,k}}, newest round first."""
-        stacked = self.members_stacked()
-        return [] if stacked is None else tree_unstack(stacked)
+        """Flat teacher list {w_{t-r,k}}, newest round first, as views into
+        the ring: no copy, valid until the next ``push``.  The KD pipeline
+        reads them a member at a time (a model-zoo ring of 8 is tens of GB)."""
+        if self._bank is None:
+            return []
+        return [tree_map(lambda b, s=s, k=k: b[s, k], self._bank)
+                for s in self._slots_newest_first() for k in range(self.K)]
 
     @property
     def num_members(self) -> int:

@@ -2,17 +2,19 @@
 
 Runs FedSDD or any preset baseline on the paper's image-classification
 setting (the synthetic CIFAR stand-in; ResNet-20/56, WRN16-2 or the fast
-CNN), on either client engine:
+CNN) or, with ``--arch``, on the LM task over a reduced model-zoo
+architecture, on either client engine:
 
   PYTHONPATH=src python -m repro_torch.launch.train --preset fedsdd --rounds 10
   PYTHONPATH=src python -m repro_torch.launch.train --model resnet56 --execution vectorized
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b --kd-kernel flash --kd-head-fusion
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --rounds 2
 
 The flags are the reference's, plus ``--device`` (default cuda; no GPU is
 an error, not a fallback).  A flag for what the port does not run yet
-raises ``NotImplementedError`` naming the slice that brings it: ``--arch``
-(the LM task), the fault and checkpoint flags here, and the runner's own
-options (``--kd-kernel flash``, ``--overlap`` and the rest) through
+raises ``NotImplementedError`` naming the slice that brings it: an
+``--arch`` outside the dense GQA families, the fault and checkpoint flags
+here, and the runner's own options (``--overlap`` and the rest) through
 ``FedConfig``.
 """
 from __future__ import annotations
@@ -22,16 +24,18 @@ import json
 import os
 import time
 
-from repro_torch.configs import ASSIGNED_ARCHS
+from repro_torch.configs import ASSIGNED_ARCHS, get_config, list_configs
 from repro_torch.core.fedsdd import PRESETS, make_runner
-from repro_torch.core.tasks import classification_task
+from repro_torch.core.tasks import classification_task, lm_task
 
 
 def _refuse_unported(args) -> None:
     """The CLI-level options of the reference this port does not run yet."""
     unported = (
-        (args.arch is not None,
-         "--arch (the LM task, lm_task) arrives with the Flash-KD and LM-task slice"),
+        (args.arch is not None and args.arch not in list_configs(),
+         f"--arch {args.arch}: the model families beyond dense GQA (MoE, MLA, SSM, "
+         f"the audio/VLM frontends) arrive with their own slice of the port; the "
+         f"LM task runs {list_configs()}"),
         (args.faults or args.zero_fill or args.attack != "none"
          or any(r > 0 for r in (args.dropout_rate, args.straggler_rate, args.corrupt_rate,
                                 args.spill_fail_rate, args.attack_rate)),
@@ -52,8 +56,7 @@ def main() -> None:
     ap.add_argument("--model", default="cnn",
                     choices=["cnn", "resnet20", "resnet56", "wrn16-2"])
     ap.add_argument("--arch", default=None, choices=list(ASSIGNED_ARCHS),
-                    help="run the LM task on a reduced assigned architecture "
-                         "(not ported yet)")
+                    help="run the LM task on a reduced assigned architecture")
     ap.add_argument("--device", default="cuda",
                     help="where the run's tensors live (cuda unless 'cpu' is asked for)")
     ap.add_argument("--rounds", type=int, default=10)
@@ -107,8 +110,14 @@ def main() -> None:
     args = ap.parse_args()
     _refuse_unported(args)
 
-    task = classification_task(model=args.model, num_clients=args.clients,
-                               alpha=args.alpha, seed=args.seed, device=args.device)
+    if args.arch:
+        cfg = get_config(args.arch).reduced()
+        task = lm_task(cfg, num_clients=args.clients, seed=args.seed, device=args.device)
+        overrides = dict(client_lr=0.01, server_lr=0.01, client_batch=4)
+    else:
+        task = classification_task(model=args.model, num_clients=args.clients,
+                                   alpha=args.alpha, seed=args.seed, device=args.device)
+        overrides = dict(client_lr=args.client_lr, server_lr=args.server_lr)
     runner = make_runner(
         args.preset, task, device=args.device,
         aggregator=args.aggregator, trim_frac=args.trim_frac,
@@ -122,8 +131,8 @@ def main() -> None:
         overlap=args.overlap, teacher_dtype=args.teacher_dtype,
         client_store=args.client_store, client_store_dir=args.client_store_dir,
         client_cache_buckets=args.client_cache_buckets,
-        client_lr=args.client_lr, server_lr=args.server_lr,
-        **({"K": args.K, "R": args.R} if PRESETS[args.preset].get("K", 1) > 1 else {}))
+        **({"K": args.K, "R": args.R} if PRESETS[args.preset].get("K", 1) > 1 else {}),
+        **overrides)
 
     t0 = time.perf_counter()
     state = runner.init_state()

@@ -87,3 +87,17 @@ def apply_mlp(p, x, cfg):
     else:
         h = F.gelu(h, approximate="tanh")
     return h @ p["w_out"].to(x.dtype)
+
+
+# -------------------------------------------------------------------- losses
+def cross_entropy(logits, labels, mask=None):
+    """Mean token cross-entropy in f32.  logits (..., V), labels (...); with
+    ``mask`` the mean over the masked-in positions (at least one)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    return nll.mean()

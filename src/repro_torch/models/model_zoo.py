@@ -22,7 +22,7 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init,
+from repro_torch.models.layers import (apply_mlp, apply_norm, cross_entropy, dense_init,
                                        embed_init, init_mlp, init_norm)
 
 
@@ -148,10 +148,14 @@ class Model:
         the device itself (no host init + copy).  The numbers differ from
         ``jax.random``'s; tests carry the reference's weights across with
         ``interop.params_from_numpy`` instead."""
-        cfg = self.cfg
-        dev = device_lib.resolve(device)
-        gen = torch.Generator(device=dev)
+        gen = torch.Generator(device=device_lib.resolve(device))
         gen.manual_seed(seed)
+        return self.init_from(gen)
+
+    def init_from(self, gen: torch.Generator) -> dict:
+        """Random weights drawn from ``gen`` on its own device (the form a
+        ``FedTask.init_fn`` takes)."""
+        cfg, dev = self.cfg, gen.device
         q, _ = self.prefix_period
         params: dict[str, Any] = {
             "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, cfg.pdtype),
@@ -186,6 +190,14 @@ class Model:
     def _logits_out(self, params, x):
         x = apply_norm(params["final_norm"], x, self.cfg)
         return x @ self.head(params).to(x.dtype)
+
+    def features(self, params, batch):
+        """(B, S, D) post-final-norm hidden states, the LM-head input:
+        ``logits == features @ head``.  The head-fused KD path consumes this
+        instead of ``logits``, so the (B·S, V) student row never exists."""
+        x = self._embed_in(params, batch)
+        x, _ = self._stack_forward(params, x, mode="train")
+        return apply_norm(params["final_norm"], x, self.cfg)
 
     # ---- the layer stack ----------------------------------------------
     def _stack_forward(self, params, x, *, mode: str, caches=None, pos=None):
@@ -225,6 +237,15 @@ class Model:
         x = self._embed_in(params, batch)
         x, _ = self._stack_forward(params, x, mode="train")
         return self._logits_out(params, x), torch.zeros((), device=x.device)
+
+    def loss(self, params, batch):
+        """Next-token cross-entropy over the batch, masked by the optional
+        ``loss_mask``; returns (loss, {"ce", "moe_aux"}).  Dense families
+        only: the MoE router loss and the audio/VLM targets arrive with
+        their slices."""
+        logits, aux = self.logits(params, batch)
+        loss = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+        return loss, {"ce": loss, "moe_aux": aux}
 
     def prefill(self, params, batch, *, last=None):
         """Returns (last-token logits (B,V), caches).

@@ -100,9 +100,7 @@ def test_value_errors_match_reference(kw):
 
 UNPORTED = [
     pytest.param(dict(execution="vectorized", client_sharding="shard_map"), id="execution"),
-    dict(client_sharding="shard_map"), dict(kd_kernel="flash"),
-    dict(kd_kernel="flash", kd_head_fusion=True),
-    dict(kd_kernel="flash", teacher_cache_dtype="bfloat16"), dict(overlap="async"),
+    dict(client_sharding="shard_map"), dict(overlap="async"),
     dict(overlap="fused"), dict(kd_pipeline="legacy"), dict(client_store="spilling"),
     dict(faults=FaultPlan()), dict(aggregator="median"), dict(clip_norm=1.0),
     dict(teacher_trust=True), dict(secure_aggregation=True),
@@ -115,6 +113,18 @@ def test_unported_options_raise_not_implemented(kw):
     JaxFedConfig(**kw).validate()            # valid in the reference
     with pytest.raises(NotImplementedError, match="slice"):
         FedConfig(**kw).validate()
+
+
+@pytest.mark.parametrize("kw", [
+    dict(kd_kernel="flash"), dict(kd_kernel="flash", kd_head_fusion=True),
+    dict(kd_kernel="flash", teacher_cache_dtype="bfloat16"),
+    dict(kd_kernel="flash", teacher_cache_dtype="float32", execution="vectorized")],
+    ids=lambda kw: ",".join(kw))
+def test_flash_kd_options_validate(kw):
+    """Flash-KD, head fusion and the cache dtype run in the port (the LM
+    parity is in tests/test_torch_fedsdd_lm.py)."""
+    JaxFedConfig(**kw).validate()
+    FedConfig(**kw).validate()
 
 
 def test_unported_entry_points_raise_not_implemented():
@@ -167,18 +177,17 @@ def test_kd_pipeline_matches_reference(tasks, multi):
     kw = dict(steps=5, lr=0.05, temperature=4.0)
     jpipe = JaxKDPipeline(jtask.logits_fn, **kw)
     pipe = KDPipeline(task.logits_fn, **kw, device="cpu")
-    probs = pipe.precompute_teacher_probs(tree_stack(models[1:]),
-                                          pipe.batches_for(task.server_batches))
+    probs = pipe.precompute_teacher_probs(models[1:], pipe.batches_for(task.server_batches))
     jprobs = jpipe.precompute_teacher_probs(jstack, jpipe.batches_for(jtask.server_batches))
     np.testing.assert_allclose(probs.numpy(), np.asarray(jprobs), atol=1e-6, rtol=0)
     if multi:
         students = jax.tree.map(lambda *xs: jax.numpy.stack(xs), *jmodels[:2])
         jout, jinfo = jpipe.distill_all(students, jstack, jtask.server_batches)
-        out, info = pipe.distill_all(tree_stack(models[:2]), tree_stack(models[1:]),
+        out, info = pipe.distill_all(tree_stack(models[:2]), models[1:],
                                      task.server_batches)
     else:
         jout, jinfo = jpipe.distill(jmodels[0], jstack, jtask.server_batches)
-        out, info = pipe.distill(models[0], tree_stack(models[1:]), task.server_batches)
+        out, info = pipe.distill(models[0], models[1:], task.server_batches)
     _close(out, jout)
     for k in ("kd_loss_first", "kd_loss_last"):
         np.testing.assert_allclose(info[k], jinfo[k], rtol=RTOL, atol=ATOL)

@@ -44,6 +44,7 @@ def test_importing_the_port_loads_no_jax_or_reference():
         "import repro_torch.core.fedsdd, repro_torch.core.tasks, repro_torch.distill\n"
         "import repro_torch.kernels.kd_loss.ops, repro_torch.kernels.weight_avg.ops\n"
         "import repro_torch.core.engine, repro_torch.launch.train\n"
+        "import repro_torch.kernels.kd_loss.flash\n"
         f"spec = importlib.util.spec_from_file_location('chip_smoke', {str(ROOT / 'chip_smoke.py')!r})\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -72,8 +73,10 @@ def test_entry_points_without_device_raise_when_no_cuda(monkeypatch):
     from repro_torch.core.fedsdd import FederatedRunner, make_config, make_runner
     from repro_torch.core.tasks import classification_task
     from repro_torch.distill import KDPipeline
+    from repro_torch.core.tasks import lm_task
     task = classification_task(num_clients=2, num_train=40, num_server=256, device="cpu")
     for call in (lambda: classification_task(num_clients=2, num_train=40, num_server=256),
+                 lambda: lm_task(get_config("gemma-2b").reduced(), num_clients=2),
                  lambda: make_runner("fedsdd", task),
                  lambda: FederatedRunner(make_config("fedavg"), task),
                  lambda: KDPipeline(task.logits_fn, steps=1, lr=0.1)):

@@ -25,6 +25,16 @@ another order): f32 at rtol 1e-5, atol 1e-6, the reference's own
 result (both round one f32 sum once) plus 2^-22 of the sum of |ŵ_n·x_n|:
 the two f32 sums differ by a few f32 ulps of their terms, which a result
 much smaller than its terms (cancellation) does not absorb.
+
+Tolerances, Flash-KD (kernels 7-10; both sides compute in f32 from the
+same inputs, in other orders): the loss at rtol 1e-5 (kernel 7) or 1e-4
+(kernel 9, whose student logits are a length-D sum formed in the kernel)
+plus 2^-22·τ²·max|lse| (KL = cross − lse_t + lse_s cancels terms of size
+|lse|); the normalisers at rtol 1e-5 plus 2^-22·max|lse|; a logit gradient
+within 1e-5 of (|q| + |p|)·|g|·τ/B per element, the magnitude of what it
+subtracts, plus one ulp of its type when that is bf16; the head's
+gradients within 2^-14 of the sum of the magnitudes of the products each
+element adds up (up to 256,000 of them: u·√K for K up to a million).
 """
 import numpy as np
 import pytest
@@ -233,3 +243,155 @@ def test_weight_avg_refuses_what_the_kernel_does_not_take_on_card():
         wa_ops.group_weighted_average(x.half(), torch.ones((2, 3), device="cuda"))
     with pytest.raises(ValueError, match="several devices"):
         wa_ops.group_weighted_average(x, torch.ones((2, 3)))
+
+
+# ----------------------------------------------------------- Flash-KD 7-10
+ULP_LSE, SUM_TOL, F32_TINY = 2.0 ** -22, 2.0 ** -14, 2.0 ** -126
+
+
+def _ulp(ref):
+    return 2.0 ** (torch.floor(torch.log2(ref.float().abs().clamp(min=F32_TINY))) - 7)
+
+
+def _check_flash_fwd(got, want, tau, loss_rtol):
+    scale = float(torch.maximum(want[1].abs().max(), want[2].abs().max()))
+    assert abs(float(got[0]) - float(want[0])) <= (loss_rtol * abs(float(want[0]))
+                                                   + ULP_LSE * tau ** 2 * scale)
+    for a, b in zip(got[1:], want[1:]):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=ULP_LSE * scale)
+
+
+def _flash_case(gen, B, V, sdtype, tdtype):
+    s = (torch.randn((B, V), generator=gen, device="cuda") * 3).to(sdtype)
+    z = (torch.randn((B, V), generator=gen, device="cuda") * 3).to(tdtype)
+    return s, z
+
+
+FLASH_SHAPES = [(1, 517), (5, 50304), (64, 4096), (3, 9000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sdtype,tdtype", [("float32", "float32"), ("float32", "bfloat16"),
+                                           ("bfloat16", "bfloat16")])
+@pytest.mark.parametrize("lse", [False, True], ids=["online", "teacher_lse"])
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_flash_kd_fwd_bwd_match_plain_on_card(sdtype, tdtype, lse, shape):
+    _needs_card()
+    from repro_torch.kernels.kd_loss import flash
+    B, V = shape
+    tau = 2.0
+    gen = torch.Generator(device="cuda").manual_seed(B + V)
+    s, z = _flash_case(gen, B, V, getattr(torch, sdtype), getattr(torch, tdtype))
+    tl = kd_ops.teacher_cache_lse(z, tau) if lse else None
+    fwd, bwd = kernels.launches["flash_kd_fwd"], kernels.launches["flash_kd_bwd"]
+    got = kd_ops.flash_kd_fwd(s, z, tau, teacher_lse=tl)
+    want = flash.flash_kd_fwd_tiled(s, z, tau, teacher_lse=tl)
+    g = torch.tensor(1.5, device="cuda")
+    gs = kd_ops.flash_kd_bwd(s, z, want[1], want[2], g, tau)
+    ws = flash.flash_kd_bwd_ref(s, z, want[1], want[2], g, tau)
+    torch.cuda.synchronize()
+    assert kernels.launches["flash_kd_fwd"] == fwd + 1
+    assert kernels.launches["flash_kd_bwd"] == bwd + 1
+    _check_flash_fwd(got, want, tau, 1e-5)
+    c = 1.5 * tau / B
+    mag = (torch.exp(s.float() / tau - want[1][:, None])
+           + torch.exp(z.float() / tau - want[2][:, None])) * c
+    bound = 1e-5 * mag + c * F32_TINY + (_ulp(ws) if gs.dtype == torch.bfloat16 else 0)
+    assert gs.dtype == s.dtype and bool(((gs.float() - ws.float()).abs() <= bound).all())
+
+
+def _head_case(gen, B, D, V, mdtype, tdtype, bias, tied):
+    h = torch.randn((B, D), generator=gen, device="cuda").to(mdtype)
+    if tied:
+        w = (torch.randn((V, D), generator=gen, device="cuda") * 0.05).to(mdtype).T
+    else:
+        w = (torch.randn((D, V), generator=gen, device="cuda") * 0.05).to(mdtype)
+    b = (torch.randn((V,), generator=gen, device="cuda") * 0.5).to(mdtype) if bias else None
+    z = (torch.randn((B, V), generator=gen, device="cuda") * 3).to(tdtype)
+    return h, w, b, z
+
+
+def _check_head_bwd(got, want, h, w, b, z, lse_s, lse_t, g, tau):
+    gh, gw, gb = got
+    assert gh.dtype == h.dtype and gw.dtype == w.dtype and gw.stride() == w.stride()
+    assert (gb is None) == (b is None)
+    s = h.float() @ w.float() + (0 if b is None else b.float())
+    mag = (torch.exp(s / tau - lse_s[:, None]) + torch.exp(z.float() / tau - lse_t[:, None])) \
+        * abs(float(g)) * tau / h.shape[0]
+    bounds = [mag @ w.float().abs().T, h.float().abs().T @ mag, mag.sum(0)]
+    for x, ref, bound in zip(got, want, bounds):
+        if x is None:
+            continue
+        bound = SUM_TOL * bound + (_ulp(ref) if x.dtype == torch.bfloat16 else 0)
+        assert bool(((x.float() - ref.float()).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mdtype,tdtype", [("float32", "float32"), ("float32", "bfloat16"),
+                                           ("bfloat16", "bfloat16")])
+@pytest.mark.parametrize("lse", [False, True], ids=["online", "teacher_lse"])
+@pytest.mark.parametrize("bias", [False, True], ids=["no_bias", "bias"])
+@pytest.mark.parametrize("tied", [False, True], ids=["untied", "tied"])
+@pytest.mark.parametrize("shape", [(1, 64, 517), (70, 40, 1100), (5, 256, 50304)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_flash_kd_head_fwd_bwd_match_plain_on_card(mdtype, tdtype, lse, bias, tied, shape):
+    _needs_card()
+    from repro_torch.kernels.kd_loss import flash
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, D, V = shape
+    tau = 4.0
+    gen = torch.Generator(device="cuda").manual_seed(B + D + V)
+    h, w, b, z = _head_case(gen, B, D, V, getattr(torch, mdtype), getattr(torch, tdtype),
+                            bias, tied)
+    tl = kd_ops.teacher_cache_lse(z, tau) if lse else None
+    fwd, bwd = kernels.launches["flash_kd_head_fwd"], kernels.launches["flash_kd_head_bwd"]
+    got = kd_ops.flash_kd_head_fwd(h, w, b, z, tau, teacher_lse=tl)
+    want = flash.flash_kd_head_fwd_tiled(h, w, b, z, tau, teacher_lse=tl)
+    g = torch.tensor(0.7, device="cuda")
+    ggot = kd_ops.flash_kd_head_bwd(h, w, b, z, want[1], want[2], g, tau)
+    gwant = flash.flash_kd_head_bwd_tiled(h, w, b, z, want[1], want[2], g, tau)
+    torch.cuda.synchronize()
+    assert kernels.launches["flash_kd_head_fwd"] == fwd + 1
+    assert kernels.launches["flash_kd_head_bwd"] == bwd + 1
+    _check_flash_fwd(got, want, tau, 1e-4)
+    _check_head_bwd(ggot, gwant, h, w, b, z, want[1], want[2], g, tau)
+
+
+@pytest.mark.cuda
+def test_flash_kd_losses_backward_through_the_kernels_on_card():
+    """The autograd Functions on the card: one launch of each kernel per
+    forward and backward, and a tied head's gradient lands in the
+    embedding without a copy."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    h, w, _, z = _head_case(gen, 8, 32, 1000, torch.float32, torch.bfloat16, False, True)
+    embed = w.T.contiguous().requires_grad_(True)
+    hh = h.clone().requires_grad_(True)
+    before = dict(kernels.launches)
+    loss = kd_ops.flash_kd_head_loss(hh, embed.T, None, z, 4.0,
+                                     teacher_lse=kd_ops.teacher_cache_lse(z, 4.0))
+    loss.backward()
+    s = (h @ embed.detach().T).requires_grad_(True)
+    kd_ops.flash_kd_loss(s, z, 4.0).backward()
+    torch.cuda.synchronize()
+    for name in ("flash_kd_head_fwd", "flash_kd_head_bwd", "flash_kd_fwd", "flash_kd_bwd"):
+        assert kernels.launches[name] == before.get(name, 0) + 1
+    assert embed.grad.is_contiguous() and hh.grad.shape == h.shape
+    assert bool(loss.isfinite()) and bool(s.grad.isfinite().all())
+
+
+@pytest.mark.cuda
+def test_flash_kd_refuses_what_the_kernels_do_not_take_on_card():
+    _needs_card()
+    h = torch.zeros((2, 8), device="cuda")
+    w = torch.zeros((8, 16), device="cuda")
+    z = torch.zeros((2, 16), device="cuda")
+    with pytest.raises(ValueError, match="one dtype"):
+        kd_ops.flash_kd_head_fwd(h, w.to(torch.bfloat16), None, z)
+    with pytest.raises(ValueError, match="row-major"):
+        kd_ops.flash_kd_head_fwd(h, torch.zeros((8, 32), device="cuda")[:, ::2], None, z)
+    with pytest.raises(ValueError, match="float16"):
+        kd_ops.flash_kd_fwd(z.half(), z)
+    with pytest.raises(ValueError, match="several devices"):
+        kd_ops.flash_kd_fwd(z, z.cpu())

@@ -46,13 +46,29 @@ def test_cli_engines_agree(monkeypatch, capsys):
     assert got["sequential"] == got["vectorized"]
 
 
+def test_cli_lm_task_with_head_fused_flash_kd(monkeypatch, capsys, tmp_path):
+    """``--arch`` runs the LM task on the reduced architecture, here with the
+    head-fused Flash-KD path: the reference's round lines (no accuracy on
+    the LM task) and history."""
+    out = tmp_path / "history.json"
+    _main(monkeypatch, "--device", "cpu", "--arch", "stablelm-3b", "--clients", "4",
+          "--rounds", "2", "--local-epochs", "1", "--distill-steps", "2", "--K", "2",
+          "--kd-kernel", "flash", "--kd-head-fusion", "--out", str(out))
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert [re.fullmatch(r"\[fedsdd\] round (\d)/2 kd=\d+\.\d{4}", x) is not None
+            for x in lines[:-1]] == [True, True], lines
+    history = json.loads(out.read_text())
+    assert [rec["round"] for rec in history] == [1, 2]
+    assert all(rec["kd_steps"] == 2 and "acc_main" not in rec for rec in history)
+
+
 @pytest.mark.parametrize("flags,slice_", [
-    (["--arch", "gemma-2b"], "LM-task slice"),
+    (["--arch", "deepseek-v2-lite-16b"], "own slice"),
     (["--dropout-rate", "0.1"], "robustness slice"),
     (["--ckpt-dir", "ckpts"], "robustness slice"),
-    (["--kd-kernel", "flash"], "Flash-KD slice"),
+    (["--kd-pipeline", "legacy"], "its own slice"),
     (["--overlap", "async"], "overlap slice"),
-], ids=["arch", "faults", "checkpoints", "flash", "overlap"])
+], ids=["arch", "faults", "checkpoints", "legacy", "overlap"])
 def test_cli_unported_flags_raise(flags, slice_, monkeypatch):
     with pytest.raises(NotImplementedError, match=slice_):
         _main(monkeypatch, *SMALL, *flags)
