@@ -12,8 +12,11 @@ JAX package.  Phases, each of which fails the run if it fails:
                all started together
   3. kernel    paged_decode against its plain version at the Qwen2.5-14B
                shapes (B=8, Hkv=8, G=5, dh=128, bs=16; ragged lens with 0, 1,
-               bs, bs+1 and 2048; a windowed case) and Gemma's (Hkv=1, G=8,
-               dh=256), f32 and bf16, with CUDA-event timings
+               bs, bs+1 and 2048; a windowed case), Gemma's (Hkv=1, G=8,
+               dh=256), StableLM-3B's (Hkv=32, G=1, dh=80) and
+               StarCoder2-3B's (Hkv=2, G=12, dh=128, lens 0 to 20,512 on
+               both sides of its window, with window 4,096 and without),
+               f32 and bf16, with CUDA-event timings
   4. f32/2     qwen2.5-14b at full width, 2 layers, f32: ContinuousEngine and
                generate_static give identical greedy tokens
   5. bf16/48   qwen2.5-14b as configured (48 layers, bf16, random weights
@@ -80,8 +83,29 @@ JAX package.  Phases, each of which fails the run if it fails:
                bf16 cache, the teacher ring stored in bf16; per round t_local,
                t_kd, the cache build, peak memory and kernels 9/10's launches
                (20 each); then 5 KD steps under torch.profiler
- 15. kernels   one JSON line per the port's kernel contract
- 16. ok        {"ok": true, "device": {...}} as the last line
+ 15. flash     kernels 11-12 (flash_attention.cu): first their own path, the
+               reference's kernel bench and tests through the public ops
+               (counts zeroed before, read after); then against their plain
+               versions: the reference sweep and dh 80, f32 and bf16; the
+               four registered configs' full widths at S = 4,096, causal, f32
+               and bf16; starcoder2-3b's window 4,096 at S = 16,384; one
+               backward at qwen2.5-14b's width; decode at the bench shape and
+               at qwen2.5-14b's decode_32k per card, cache_len 1, 700, S - 1,
+               S; CUDA-event timings beside the bound, the plain version and
+               scaled_dot_product_attention
+ 16. sc2 f32   starcoder2-3b at full width, 2 layers, f32: ContinuousEngine
+               == generate_static within the window; a 20,480-token prompt
+               (block-local sliding_attention prefill) served through kernel
+               1 and through its plain version with identical tokens
+ 17. sc2 bf16  starcoder2-3b as configured (30 layers, bf16): ContinuousEngine
+               serves 8 requests, prompts 32-2,048 tokens and one of 20,480;
+               token counts, the drained pool, 30 launches of kernel 1 per
+               decode micro-step; tokens/s, TTFT p50, the long prefill, peak
+               memory
+ 18. kernels   one JSON line per the port's kernel contract; kernel 12's
+               entry is its bf16 row at qwen2.5-14b's width (the configs'
+               dtype), with the f32 row beside it under "f32"
+ 19. ok        {"ok": true, "device": {...}} as the last line
 
 Tolerances, paged_decode: f32 kernel vs plain at rtol = atol = 1e-5 (only
 the order of summation differs).  bf16 per (request, query head) row: the row's max
@@ -110,6 +134,13 @@ sums differ by a few f32 ulps of their terms, which a result much smaller
 than its terms does not absorb).  The vectorized CNN round against the
 sequential one: every model within 2e-4, the port's runner-parity
 tolerance.
+
+Tolerances, flash attention (kernels 11-12; both sides compute in f32 from
+the same inputs and round the output once): f32 at rtol = atol = 1e-5; bf16
+within one bf16 ulp of each row's max |plain| plus 2e-5.  The backward
+recomputes through the plain chunked attention, held against autograd of
+the plain version at 1e-4 (the reference's gradient test) of the largest
+gradient, or absolute below 1.
 
 Tolerances, Flash-KD (both sides compute in f32 from the same inputs, in
 other orders): the loss at rtol 1e-5 (kernel 7) or 1e-4 (kernel 9, whose
@@ -167,6 +198,11 @@ FLASH_LSE_RTOL = 1e-5
 FLASH_GRAD_TOL = 1e-5                          # of (|q| + |p|)·|g|·τ/B
 ULP_LSE = 2.0 ** -22                           # × τ²·max|lse| for the loss
 SUM_TOL = 2.0 ** -14                           # of the summed magnitudes (head gradients)
+FA_TPU = {"flash_forward": "src/repro/kernels/flash_attention/kernel.py:87",
+          "flash_decode": "src/repro/kernels/flash_attention/kernel.py:151"}
+FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FA_F32_TOL = 1e-5                              # rtol = atol, elementwise
+FA_GRAD_TOL = 1e-4                             # the reference's gradient test
 DEV = "cuda"
 
 
@@ -175,8 +211,11 @@ def check(ok: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
+T_START = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"\n== {name}", flush=True)
+    print(f"\n== {name} (at {time.perf_counter() - T_START:.1f} s)", flush=True)
 
 
 def card_line() -> str:
@@ -241,15 +280,19 @@ def paged_bound(q, k_pool, bt, sl, window: int):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def library_call(q, k_pool, v_pool, bt, sl):
+def library_call(q, k_pool, v_pool, bt, sl, window: int = 0):
     """Yardstick only, never called by the port: gather the table, then
-    torch's scaled_dot_product_attention with a length mask."""
+    torch's scaled_dot_product_attention with a length (and window) mask."""
     B, _, H, dh = q.shape
     _, bs, Hkv, _ = k_pool.shape
     S = bt.shape[1] * bs
     kg = k_pool[bt.long()].reshape(B, S, Hkv, dh).transpose(1, 2)
     vg = v_pool[bt.long()].reshape(B, S, Hkv, dh).transpose(1, 2)
-    mask = (torch.arange(S, device=q.device)[None, :] < sl[:, None])[:, None, None]
+    pos = torch.arange(S, device=q.device)[None, :]
+    mask = pos < sl[:, None]
+    if window > 0:
+        mask &= pos >= sl[:, None] - window
+    mask = mask[:, None, None]
     return torch.nn.functional.scaled_dot_product_attention(
         q.transpose(1, 2), kg, vg, attn_mask=mask, enable_gqa=True)
 
@@ -279,12 +322,16 @@ def compare_kernel(ops, args, window: int, label: str, timed: bool):
         bound, by = paged_bound(q, args[1], args[3], args[4], window)
         row.update(ms=time_ms(lambda: ops.paged_decode(*args, window=window)),
                    plain_ms=time_ms(lambda: ops.paged_decode_ref(*args, window=window)),
-                   library_ms=time_ms(lambda: library_call(*args)) if window == 0 else None,
+                   library_ms=time_ms(lambda: library_call(*args, window)),
                    bound_ms=bound, bound_by=by)
     print(json.dumps(row), flush=True)
     check(ok, f"paged_decode disagrees with its plain version ({label}): "
               f"max_abs_err {max_err}, max_row_rel_err {row_rel}, tol {tol}")
     return row
+
+
+STARCODER_WINDOW = 4096
+STARCODER_LENS = [0, 1, 4095, 4096, 4097, 9000, 16384, 20512]
 
 
 def kernel_phase(ops, seed: int):
@@ -297,6 +344,15 @@ def kernel_phase(ops, seed: int):
         compare_kernel(ops, qwen, 256, f"qwen {name} window=256", timed=False)
         gemma = paged_case(gen, B=8, Hkv=1, G=8, dh=256, bs=16, lens=lens, dtype=dtype)
         compare_kernel(ops, gemma, 0, f"gemma {name}", timed=True)
+        stablelm = paged_case(gen, B=8, Hkv=32, G=1, dh=80, bs=16, lens=lens, dtype=dtype)
+        compare_kernel(ops, stablelm, 0, f"stablelm dh=80 {name}", timed=True)
+        # starcoder2-3b's decode as phases 16-17 serve it: G 12 and lengths
+        # on both sides of its window, up to the long prompt's
+        starcoder = paged_case(gen, B=8, Hkv=2, G=12, dh=128, bs=16, lens=STARCODER_LENS,
+                               dtype=dtype)
+        compare_kernel(ops, starcoder, STARCODER_WINDOW,
+                       f"starcoder2 {name} window={STARCODER_WINDOW}", timed=True)
+        compare_kernel(ops, starcoder, 0, f"starcoder2 {name}", timed=True)
 
 
 # ------------------------------------------------------------- phases 4-5
@@ -1505,6 +1561,380 @@ def gemma_phase(fed, seed: int, card: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------------- phase 15
+# (name, H, Hkv, dh) of the registered configs at full width
+FA_CONFIGS = [("qwen2.5-14b", 40, 8, 128), ("gemma-2b", 8, 1, 256),
+              ("stablelm-3b", 32, 32, 80), ("starcoder2-3b", 24, 2, 128)]
+FA_SWEEP = [(2, 256, 4, 2, 64), (1, 128, 8, 1, 32), (2, 256, 4, 4, 128)]
+FA_MODES = [(True, 0), (True, 64), (False, 0)]
+FA_DECODE_SWEEP = [(2, 1024, 4, 2, 64, 700), (1, 512, 8, 1, 32, 512), (2, 512, 4, 4, 128, 1)]
+FA_FULL_S = 4096                      # the configs' forward at full width
+FA_WINDOW_CASE = (16384, 4096)        # starcoder2-3b: S, its window
+FA_BWD = (4096, 40, 8, 128)           # S, H, Hkv, dh: qwen2.5-14b's width
+FA_DECODE = [("bench", 8, 4096, 8, 8, 64, torch.float32),      # label, B, S, H, Hkv, dh
+             ("qwen2.5-14b decode_32k", 8, 32768, 40, 8, 128, torch.bfloat16)]
+
+
+def fa_close(out, ref) -> tuple[float, bool]:
+    """f32 at rtol = atol = FA_F32_TOL; bf16 within one bf16 ulp of each
+    row's max |plain| plus 2e-5 (both sides round one f32 result once)."""
+    out_f, ref_f = out.float(), ref.float()
+    err = (out_f - ref_f).abs()
+    if ref.dtype == torch.float32:
+        ok = bool((err <= FA_F32_TOL + FA_F32_TOL * ref_f.abs()).all())
+    else:
+        ok = bool((err <= _ulp(ref_f.abs().amax(-1, keepdim=True)) + 2e-5).all())
+    return float(err.max()), ok and bool(out_f.isfinite().all())
+
+
+def _rand(gen, shape, dtype):
+    return torch.randn(shape, generator=gen, device=DEV).to(dtype)
+
+
+def band_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs one head's band allows."""
+    q = torch.arange(Sq, dtype=torch.int64)
+    hi = q.clamp(max=Skv - 1) if causal else torch.full_like(q, Skv - 1)
+    lo = (q - window + 1).clamp(min=0) if window > 0 else torch.zeros_like(q)
+    return int((hi - lo + 1).clamp(min=0).sum())
+
+
+def fa_forward_bound(q, k, causal: bool, window: int):
+    """(bound_ms, bound_by): q, k, v read once and the output written once
+    over HBM, vs 4·dh operations per allowed pair and head over the peak
+    for the inputs' type (f32 CUDA cores, or bf16 tensor cores)."""
+    B, Sq, H, dh = q.shape
+    ops = 4 * B * H * band_pairs(Sq, k.shape[1], causal, window) * dh
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS[q.dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fa_decode_bound(q1, k, live: int):
+    """(bound_ms, bound_by): the ``live`` K and V rows read once, q read
+    and the output written once, vs 4·dh operations per live key and query
+    head over the peak for the inputs' type."""
+    B, _, H, dh = q1.shape
+    Hkv, elt = k.shape[2], q1.element_size()
+    nbytes = 2 * B * live * Hkv * dh * elt + 2 * q1.numel() * elt
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * B * H * live * dh / PEAK_FLOPS[q1.dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fa_library(q, k, v, causal: bool, window: int):
+    """Yardstick only, never called by the port: scaled_dot_product_attention
+    with enable_gqa over (B, H, S, dh) views, and a band mask built once
+    when there is a window."""
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if window:
+        pos = torch.arange(q.shape[1], device=DEV)
+        rel = pos[:, None] - pos[None, :]
+        mask = (rel < window) & ((rel >= 0) if causal else True)
+        return lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=True)
+
+
+def fa_check(label: str, fn, plain, *, bound=None, library=None, plain_reps: int = 25) -> dict:
+    out, ref = fn(), plain()
+    torch.cuda.synchronize()
+    err, ok = fa_close(out, ref)
+    del out, ref
+    row = {"case": label, "max_abs_err": err}
+    if bound is not None:
+        row.update(ms=time_ms(fn), plain_ms=time_ms(plain, reps=plain_reps),
+                   library_ms=time_ms(library) if library else None,
+                   bound_ms=bound[0], bound_by=bound[1])
+    print(json.dumps(row), flush=True)
+    check(ok, f"{label}: kernel disagrees with its plain version, max_abs_err {err}")
+    return row
+
+
+def flash_path(ops, gen) -> dict:
+    """The path the JAX package gives kernels 11-12: its kernel bench
+    (benchmarks/bench_kernels.py:56-76: a causal forward at B 1, S 1,024,
+    8 heads of 64; a decode at B 8, S 4,096, 8 heads of 64, the cache
+    full) and its tests (tests/test_kernels.py:88-160: the forward sweep,
+    the dtypes, the decode sweep and a gradient), through the public ops.
+    Counts are zeroed before and read after; the outputs are then held
+    against the plain versions."""
+    from repro_torch import kernels
+    calls = []
+    torch.cuda.synchronize()
+    kernels.launches.clear()
+    q, k, v = (_rand(gen, (1, 1024, 8, 64), torch.float32) for _ in range(3))
+    calls.append(("bench forward", (q, k, v, True, 0), ops.flash_attention(q, k, v, True, 0)))
+    q1 = _rand(gen, (8, 1, 8, 64), torch.float32)
+    kc, vc = (_rand(gen, (8, 4096, 8, 64), torch.float32) for _ in range(2))
+    calls.append(("bench decode", (q1, kc, vc, 4096), ops.flash_decode(q1, kc, vc, 4096)))
+    for B, S, H, Hkv, dh in FA_SWEEP:
+        for causal, window in FA_MODES:
+            q = _rand(gen, (B, S, H, dh), torch.float32)
+            k, v = (_rand(gen, (B, S, Hkv, dh), torch.float32) for _ in range(2))
+            calls.append((f"sweep {B}x{S}x{H}x{Hkv}x{dh} causal={causal} window={window}",
+                          (q, k, v, causal, window), ops.flash_attention(q, k, v, causal, window)))
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (_rand(gen, (1, 128, 2, 64), dtype) for _ in range(3))
+        calls.append((f"dtype {dtype}", (q, k, v, True, 0), ops.flash_attention(q, k, v, True, 0)))
+    for B, S, H, Hkv, dh, clen in FA_DECODE_SWEEP:
+        q1 = _rand(gen, (B, 1, H, dh), torch.float32)
+        kc, vc = (_rand(gen, (B, S, Hkv, dh), torch.float32) for _ in range(2))
+        calls.append((f"decode sweep {B}x{S}x{H}x{Hkv}x{dh} len={clen}", (q1, kc, vc, clen),
+                      ops.flash_decode(q1, kc, vc, clen)))
+    qkv = [_rand(gen, (1, 128, 2, 32), torch.float32).requires_grad_(True) for _ in range(3)]
+    (ops.flash_attention(*qkv, True, 0) ** 2).sum().backward()
+    torch.cuda.synchronize()
+    launches = {n: kernels.launches[n] for n in ("flash_forward", "flash_decode")}
+    check(launches["flash_forward"] == 1 + 9 + 2 + 1 and launches["flash_decode"] == 1 + 3,
+          f"flash path: launches {launches}")
+    worst = 0.0
+    for label, args, out in calls:
+        plain = (ops.flash_forward_ref(*args[:3], causal=args[3], window=args[4])
+                 if len(args) == 5 else ops.flash_decode_ref(*args))
+        err, ok = fa_close(out, plain)
+        check(ok, f"flash path, {label}: output disagrees with the plain version ({err})")
+        worst = max(worst, err)
+    ref = [t.detach().clone().requires_grad_(True) for t in qkv]
+    (ops.flash_forward_ref(*ref, causal=True) ** 2).sum().backward()
+    grad_err = max(float((a.grad - b.grad).abs().max()) for a, b in zip(qkv, ref))
+    check(grad_err <= FA_GRAD_TOL, f"flash path: gradient off by {grad_err}")
+    print(json.dumps({"phase": "flash kernels' path (reference bench and tests)",
+                      "calls": len(calls) + 1, "launches": launches,
+                      "max_abs_err": worst, "grad_max_abs_err": grad_err}), flush=True)
+    return launches
+
+
+def flash_attention_phase(ops, seed: int) -> tuple[dict, dict, dict]:
+    """Returns (the path's launches, kernel 12's row, kernel 11's row)."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    launches = flash_path(ops, gen)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        for B, S, H, Hkv, dh in FA_SWEEP + [(1, 384, 4, 4, 80), (1, 100, 2, 1, 80)]:
+            q = _rand(gen, (B, S, H, dh), dtype)
+            k, v = (_rand(gen, (B, S, Hkv, dh), dtype) for _ in range(2))
+            for causal, window in FA_MODES:
+                fa_check(f"flash_forward {B}x{S}x{H}x{Hkv}x{dh} causal={causal} "
+                         f"window={window} {name}",
+                         lambda: ops.flash_attention(q, k, v, causal, window),
+                         lambda: ops.flash_forward_ref(q, k, v, causal=causal, window=window))
+    rows = {}
+    S = FA_FULL_S
+    for cfg_name, H, Hkv, dh in FA_CONFIGS:        # full widths, causal
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).removeprefix("torch.")
+            q = _rand(gen, (1, S, H, dh), dtype)
+            k, v = (_rand(gen, (1, S, Hkv, dh), dtype) for _ in range(2))
+            row = fa_check(f"flash_forward {cfg_name} S={S} causal {name}",
+                           lambda: ops.flash_attention(q, k, v, True, 0),
+                           lambda: ops.flash_forward_ref(q, k, v, causal=True),
+                           bound=fa_forward_bound(q, k, True, 0),
+                           library=fa_library(q, k, v, True, 0), plain_reps=5)
+            if cfg_name == "qwen2.5-14b":
+                rows[name] = row
+            del q, k, v
+    S, W = FA_WINDOW_CASE                          # starcoder2-3b's own window
+    q = _rand(gen, (1, S, 24, 128), torch.bfloat16)
+    k, v = (_rand(gen, (1, S, 2, 128), torch.bfloat16) for _ in range(2))
+    fa_check(f"flash_forward starcoder2-3b S={S} window={W} bfloat16",
+             lambda: ops.flash_attention(q, k, v, True, W),
+             lambda: ops.flash_forward_ref(q, k, v, causal=True, window=W),
+             bound=fa_forward_bound(q, k, True, W),
+             library=fa_library(q, k, v, True, W), plain_reps=3)
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # one backward at qwen2.5-14b's width: recompute through the plain
+    # chunked attention against autograd of the plain version
+    S, H, Hkv, dh = FA_BWD
+    qkv = [_rand(gen, (1, S, n, dh), torch.float32).requires_grad_(True) for n in (H, Hkv, Hkv)]
+    (ops.flash_attention(*qkv, True, 0) ** 2).sum().backward()
+    ref = [t.detach().clone().requires_grad_(True) for t in qkv]
+    (ops.flash_forward_ref(*ref, causal=True) ** 2).sum().backward()
+    torch.cuda.synchronize()
+    errs = [float((a.grad - b.grad).abs().max()) for a, b in zip(qkv, ref)]
+    scale = max(float(b.grad.abs().max()) for b in ref)
+    print(json.dumps({"case": f"flash_attention backward qwen2.5-14b S={S} f32",
+                      "grad_max_abs_err": errs, "grad_max_abs": scale,
+                      "tol": FA_GRAD_TOL}), flush=True)
+    check(all(e <= FA_GRAD_TOL * max(1.0, scale) for e in errs),
+          f"flash_attention backward at qwen width: errors {errs} (scale {scale})")
+    del qkv, ref
+    torch.cuda.empty_cache()
+
+    dec_row = None
+    for label, B, S, H, Hkv, dh, dtype in FA_DECODE:
+        name = str(dtype).removeprefix("torch.")
+        q1 = _rand(gen, (B, 1, H, dh), dtype)
+        kc, vc = (_rand(gen, (B, S, Hkv, dh), dtype) for _ in range(2))
+        kt, vt = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+        for clen in (1, 700, S - 1, S):
+            timed = clen == S
+            row = fa_check(f"flash_decode {label} B={B} S={S} H={H} Hkv={Hkv} dh={dh} "
+                           f"cache_len={clen} {name}",
+                           lambda: ops.flash_decode(q1, kc, vc, clen),
+                           lambda: ops.flash_decode_ref(q1, kc, vc, clen),
+                           bound=fa_decode_bound(q1, kc, clen) if timed else None,
+                           library=(lambda: torch.nn.functional.scaled_dot_product_attention(
+                               q1.transpose(1, 2), kt, vt, enable_gqa=True)) if timed else None)
+            if timed and label != "bench":
+                dec_row = row
+        del q1, kc, vc, kt, vt
+    torch.cuda.empty_cache()
+    # kernel 12's entry: the bf16 row (every config's dtype), f32 beside it
+    fwd_row = {**rows["bfloat16"], "f32": {key: rows["float32"][key] for key in
+                                           ("ms", "plain_ms", "library_ms", "bound_ms")}}
+    return launches, fwd_row, dec_row
+
+
+# ---------------------------------------------------------- phases 16-17
+LONG_PROMPT = 20480          # > 4·window and a multiple of 512: block-local prefill
+
+
+def starcoder_f32_phase(serve, zoo, ops, get_config, seed: int) -> None:
+    """starcoder2-3b at full width, 2 layers, f32: engine == static within
+    the window; one 20,480-token prompt, prefilled through
+    sliding_attention, served through kernel 1 and through its plain
+    version with identical tokens."""
+    import dataclasses
+    from unittest import mock
+
+    from repro_torch import kernels
+    cfg = dataclasses.replace(get_config("starcoder2-3b"), num_layers=2,
+                              param_dtype="float32", compute_dtype="float32")
+    model = zoo.build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(seed, device=DEV)
+    rng = np.random.default_rng(seed)
+    reqs = make_requests(serve.Request, cfg.vocab_size, 6, rng,
+                         (16, min(1000, cfg.sliding_window // 4)), (4, 24))
+    check(all(len(r.tokens) + r.max_new_tokens <= cfg.sliding_window for r in reqs),
+          "starcoder2 f32: a request outgrows the window")
+    engine = serve.ContinuousEngine(model, params, max_batch=4, num_blocks=400,
+                                    block_size=16, max_seq_len=1040, chunk_steps=4)
+    kernels.launches.clear()
+    results, _ = drive(engine, reqs)
+    launches = kernels.launches["paged_decode"]
+    got = {r.rid: r.tokens for r in results}
+    for r in reqs:
+        ref = serve.generate_static(model, params, r.tokens[None], r.max_new_tokens)[0]
+        check(got[r.rid] == ref.cpu().tolist(),
+              f"starcoder2 f32: request {r.rid} engine {got[r.rid]} != static {ref.tolist()}")
+    check(launches == cfg.num_layers * engine.steps,
+          f"starcoder2 f32: {launches} launches for {engine.steps} micro-steps")
+
+    long = serve.Request(rid=99, tokens=rng.integers(0, cfg.vocab_size, LONG_PROMPT)
+                         .astype(np.int32), max_new_tokens=6)
+    long_tokens = {}
+    for label, fn in (("kernel", ops.paged_decode), ("plain", ops.paged_decode_ref)):
+        eng = serve.ContinuousEngine(model, params, max_batch=1,
+                                     num_blocks=LONG_PROMPT // 16 + 4,
+                                     block_size=16, max_seq_len=LONG_PROMPT + 16, chunk_steps=4)
+        calls = []
+        real = zoo.attn.sliding_attention
+        with mock.patch.object(ops, "paged_decode", fn), \
+                mock.patch.object(zoo.attn, "sliding_attention",
+                                  lambda *a, **k: calls.append(1) or real(*a, **k)):
+            long_tokens[label] = eng.run([long])[0].tokens
+        check(len(calls) == cfg.num_layers,
+              f"starcoder2 f32: the long prefill took sliding_attention {len(calls)} times")
+    check(long_tokens["kernel"] == long_tokens["plain"],
+          f"starcoder2 f32, {LONG_PROMPT}-token prompt: kernel {long_tokens['kernel']} "
+          f"!= plain {long_tokens['plain']}")
+    print(json.dumps({"phase": "starcoder2-3b f32 depth 2, full width", "requests": len(reqs),
+                      "identical_tokens": True, "paged_decode_launches": launches,
+                      "micro_steps": engine.steps, "long_prompt": LONG_PROMPT,
+                      "long_tokens_kernel_eq_plain": True,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}), flush=True)
+    del engine, params, model
+    torch.cuda.empty_cache()
+
+
+def starcoder_serve_phase(serve, zoo, get_config, seed: int, card: str) -> None:
+    """starcoder2-3b as configured (30 layers, bf16, random weights made on
+    the card): ContinuousEngine serves 8 requests, prompts of 32-2,048
+    tokens and one of 20,480; then where the time goes: one decode chunk
+    with every lane busy under torch.profiler, and the long prefill with
+    its sliding_attention calls timed apart."""
+    from unittest import mock
+
+    from repro_torch import kernels
+    cfg = get_config("starcoder2-3b")
+    model = zoo.build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed, device=DEV)
+    torch.cuda.synchronize()
+    print(f"init: {serve.pool_bytes(params) / 1e9:.2f} GB of {cfg.param_dtype} weights "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    rng = np.random.default_rng(seed)
+    engine = serve.ContinuousEngine(model, params, max_batch=8, num_blocks=2600,
+                                    block_size=16, max_seq_len=max(LONG_PROMPT, 2048) + 64,
+                                    chunk_steps=8)
+    drive(engine, make_requests(serve.Request, cfg.vocab_size, 2, rng, (32, 64), (8, 8)))
+    reqs = make_requests(serve.Request, cfg.vocab_size, 7, rng, (32, 2048), (8, 64))
+    reqs.append(serve.Request(rid=7, tokens=rng.integers(0, cfg.vocab_size, LONG_PROMPT)
+                              .astype(np.int32), max_new_tokens=32))
+    steps0 = engine.steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.launches.clear()
+    t0 = time.perf_counter()
+    results, _ = drive(engine, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, micro = kernels.launches["paged_decode"], engine.steps - steps0
+    by_rid = {r.rid: r for r in results}
+    check(len(results) == len(reqs), f"starcoder2: {len(results)} results for {len(reqs)}")
+    for r in reqs:
+        check(not by_rid[r.rid].cancelled and len(by_rid[r.rid].tokens) == r.max_new_tokens,
+              f"starcoder2: request {r.rid}: {len(by_rid[r.rid].tokens)} tokens")
+    check(engine.alloc.used_blocks == 0 and engine.reserved_tokens == 0,
+          "starcoder2: pool not free after the drain")
+    check(launches > 0 and launches == cfg.num_layers * micro,
+          f"starcoder2: {launches} paged_decode launches for {micro} micro-steps x "
+          f"{cfg.num_layers}")
+    ntok = sum(len(r.tokens) for r in results)
+    ttft = sorted(r.ttft for r in results)
+    long = by_rid[7]
+    print(json.dumps({"phase": "starcoder2-3b bf16 full depth, full width", "card": card,
+                      "requests": len(results), "generated_tokens": ntok,
+                      "prompt_tokens": int(sum(len(r.tokens) for r in reqs)),
+                      "wall_s": wall, "tokens_per_s": ntok / wall,
+                      "ttft_p50_ms": ttft[len(ttft) // 2] * 1e3,
+                      "long_prefill_s": long.t_first - long.t_admit,
+                      "micro_steps": micro, "paged_decode_launches": launches,
+                      "launches_per_micro_step": launches / micro,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}), flush=True)
+    print(json.dumps(profile_chunk(engine, serve, cfg.vocab_size, rng)), flush=True)
+
+    spent = [0.0]
+    real = zoo.attn.sliding_attention
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real(*a, **k)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t
+        return out
+
+    toks = torch.from_numpy(reqs[-1].tokens[None]).to(DEV)
+    with mock.patch.object(zoo.attn, "sliding_attention", timed), torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(params, {"tokens": toks}, last=[LONG_PROMPT - 1])
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    print(json.dumps({"phase": f"starcoder2-3b prefill of {LONG_PROMPT} tokens", "card": card,
+                      "prefill_s": prefill_s, "sliding_attention_s": spent[0],
+                      "sliding_attention_share": spent[0] / prefill_s}), flush=True)
+    del engine, params, model
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1532,7 +1962,6 @@ def main() -> int:
     from repro_torch.kernels.weight_avg import ops as wa_ops
     from repro_torch.kernels.weight_avg import ref as wa_ref
 
-    t_start = time.perf_counter()
     phase("1. card")
     card = card_line()
     print(card, flush=True)
@@ -1603,11 +2032,26 @@ def main() -> int:
     check(all(e["launches"] > 0 for e in flash_entries),
           f"a Flash-KD kernel did not run on its path: {path_launches}")
 
-    phase("15. kernels")
-    print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+    phase("15. flash attention kernels (11-12) vs plain")
+    fa_launches, fwd_row, dec_row = flash_attention_phase(ops, args.seed)
+    fa_entries = [{"name": name, "route": "cuda", "source": FA_SOURCE, "replaces": FA_TPU[name],
+                   "launches": fa_launches[name], "max_abs_err": r["max_abs_err"],
+                   "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                   "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                   "case": r["case"], **({"f32": r["f32"]} if "f32" in r else {})}
+                  for name, r in (("flash_forward", fwd_row), ("flash_decode", dec_row))]
+
+    phase("16. starcoder2-3b full width, f32, 2 layers: engine == static, long prompt")
+    starcoder_f32_phase(serve, zoo, ops, get_config, args.seed)
+
+    phase("17. starcoder2-3b full width, bf16, 30 layers: serve 8 requests")
+    starcoder_serve_phase(serve, zoo, get_config, args.seed, card)
+
+    phase("18. kernels")
+    print(f"total {time.perf_counter() - T_START:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [entry, *kd_entries, wa_entry, single_entry,
-                                  *flash_entries]}), flush=True)
+                                  *flash_entries, *fa_entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

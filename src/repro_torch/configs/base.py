@@ -201,7 +201,8 @@ def _ensure_loaded() -> None:
         return
     _LOADED = True
     import importlib
-    # the dense all-GQA architectures the port serves; the MoE, MLA, SSM
-    # and frontend families come with the slices that port those mixers
-    for m in ("gemma_2b", "stablelm_3b", "qwen2_5_14b"):
+    # the dense all-GQA architectures the port serves (starcoder2-3b with
+    # sliding-window attention); the MoE, MLA, SSM and frontend families
+    # come with the slices that port those mixers
+    for m in ("gemma_2b", "stablelm_3b", "qwen2_5_14b", "starcoder2_3b"):
         importlib.import_module(f"repro_torch.configs.{m}")

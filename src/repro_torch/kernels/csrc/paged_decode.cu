@@ -27,7 +27,9 @@
 // softmax states), and TMA (or cp.async) multi-stage loads of the K/V tiles.
 //
 // Types: float32 and bfloat16 (q, pools, out of one type); dh in
-// {64, 128, 256} as a template parameter; any G <= 16.  The caller checks
+// {32, 64, 80, 128, 256} as a template parameter (dh = 80, StableLM-3B's,
+// is 20 f32 or 10 bf16 16-byte loads a row; the score loop's lanes past
+// dh add nothing); any G <= 16.  The caller checks
 // shapes, types, alignment and contiguity; the launch runs on the given
 // stream, allocates nothing and does not synchronise.
 
@@ -212,7 +214,9 @@ int dispatch_dh(int dh, const void* q, const void* k, const void* v, const int* 
                 const int* sl, void* out, int B, int Hkv, int G, int bs, int nbmax,
                 int window, cudaStream_t stream) {
   switch (dh) {
+    case 32: return launch<T, 32>(q, k, v, bt, sl, out, B, Hkv, G, bs, nbmax, window, stream);
     case 64: return launch<T, 64>(q, k, v, bt, sl, out, B, Hkv, G, bs, nbmax, window, stream);
+    case 80: return launch<T, 80>(q, k, v, bt, sl, out, B, Hkv, G, bs, nbmax, window, stream);
     case 128: return launch<T, 128>(q, k, v, bt, sl, out, B, Hkv, G, bs, nbmax, window, stream);
     case 256: return launch<T, 256>(q, k, v, bt, sl, out, B, Hkv, G, bs, nbmax, window, stream);
     default: return -1;

@@ -1,24 +1,194 @@
-"""Paged decode attention: the Hopper kernel and its plain version
-(port of ``repro/kernels/flash_attention/ops.py::paged_decode``).
+"""Flash attention, flash decode and paged decode: the Hopper kernels and
+their plain versions (port of ``repro/kernels/flash_attention/ops.py``).
 
-``paged_decode`` keeps the reference's signature and layouts.  For CUDA
-tensors it launches ``csrc/paged_decode.cu`` or raises; for CPU tensors it
-runs ``paged_decode_ref``, the plain version the tests and the on-card
-check hold the kernel against.
+Each op keeps the reference's signature and layouts.  For CUDA tensors it
+launches its kernel or raises (``csrc/flash_attention.cu`` for
+``flash_attention`` / ``flash_decode``, ``csrc/paged_decode.cu`` for
+``paged_decode``); for CPU tensors it runs the plain version the tests and
+the on-card check hold the kernel against.
+
+The plain versions compute what the Pallas kernels compute, which is not
+quite the reference's XLA fallback: q is scaled after the cast to f32, the
+probabilities stay in f32 for P·V and only the output is rounded.  Masked
+scores are NEG_INF = -1e30, not -inf, so a query row with no allowed key
+in the tiles the Pallas kernel visits averages V over those tiles, and
+``flash_decode`` with ``cache_len <= 0`` returns the mean of V over the
+whole cache; the plain versions and the kernels reproduce both.
 """
 from __future__ import annotations
 
 import ctypes
+import operator
 
 import torch
 
 from repro_torch import kernels
 from repro_torch.kernels import build
-from repro_torch.models.attention import decode_attention
+from repro_torch.models.attention import NEG_INF, attention, decode_attention
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128, 256)
+_HEAD_DIMS = (32, 64, 80, 128, 256)
 _MAX_G = 16
+FWD_TILE = 128           # the Pallas kernel's q and kv blocks (kernel.py:32-33)
+DECODE_TILE = 512        # the Pallas flash_decode's kv block (kernel.py:151)
+_PLAIN_SCORE_ELEMS = 2 ** 27     # f32 scores one plain-forward chunk holds
+
+
+def _device(name: str, *tensors) -> torch.device:
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: tensors on several devices {devices}")
+    (dev,) = devices
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    return dev
+
+
+# =====================================================================
+# flash attention forward (kernel 12)
+# =====================================================================
+def _fwd_tiles(q, k, v) -> tuple[int, int]:
+    """The Pallas kernel's (qb, kb) for these shapes, raising where its
+    wrapper asserts (kernel.py:91-96)."""
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}; want (B,Sq,H,dh) and (B,Skv,Hkv,dh)")
+    B, Sq, H, dh = q.shape
+    Bk, Skv, Hkv, dhk = k.shape
+    if Bk != B or dhk != dh or Hkv < 1 or H % Hkv:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k/v "
+                         f"{tuple(k.shape)} disagree")
+    qb, kb = min(FWD_TILE, Sq), min(FWD_TILE, Skv)
+    if Sq % qb or Skv % kb:
+        raise ValueError(f"flash_attention: Sq {Sq} and Skv {Skv} must be at most "
+                         f"{FWD_TILE} or multiples of it (the Pallas kernel's blocks)")
+    return qb, kb
+
+
+def flash_forward_ref(q, k, v, *, causal: bool = True, window: int = 0):
+    """Plain version of the Pallas ``flash_forward``: q (B,Sq,H,dh), k/v
+    (B,Skv,Hkv,dh) -> (B,Sq,H,dh) in q's dtype.
+
+    Dense over the keys, in chunks of query rows.  A score the band masks
+    is NEG_INF inside the (qb, kb) tiles the Pallas grid computes and
+    contributes nothing outside them, which is what the kernel's online
+    softmax gives: exactly the masked softmax for every row with an
+    allowed key.
+    """
+    qb, kb = _fwd_tiles(q, k, v)
+    B, Sq, H, dh = q.shape
+    _, Skv, Hkv, _ = k.shape
+    G = H // Hkv
+    dev = q.device
+    kf = k.float().permute(0, 2, 1, 3)                      # (B,Hkv,Skv,dh)
+    vf = v.float().permute(0, 2, 1, 3)
+    k_pos = torch.arange(Skv, device=dev)
+    k_tile = k_pos // kb
+    chunk = max(qb, _PLAIN_SCORE_ELEMS // max(1, B * H * Skv) // qb * qb)
+    outs = []
+    for q0 in range(0, Sq, chunk):
+        n = min(chunk, Sq - q0)
+        qc = (q[:, q0:q0 + n].float() * dh ** -0.5).reshape(B, n, Hkv, G, dh)
+        s = torch.einsum("bqhgd,bhkd->bhgqk", qc, kf)       # (B,Hkv,G,n,Skv)
+        q_pos = q0 + torch.arange(n, device=dev)
+        q_tile = q_pos // qb
+        rel = q_pos[:, None] - k_pos[None, :]
+        ok = torch.ones((n, Skv), dtype=torch.bool, device=dev)
+        visited = torch.ones((n, Skv), dtype=torch.bool, device=dev)
+        if causal:
+            ok &= rel >= 0
+            visited &= (k_tile * kb)[None, :] <= (q_tile * qb + qb - 1)[:, None]
+        if window > 0:
+            ok &= rel < window
+            visited &= ((k_tile + 1) * kb - 1)[None, :] > (q_tile * qb - window)[:, None]
+        s = torch.where(ok, s, torch.where(visited, NEG_INF, float("-inf")))
+        m = s.amax(-1, keepdim=True).clamp(min=NEG_INF)
+        p = torch.exp(s - m)
+        o = torch.einsum("bhgqk,bhkd->bqhgd", p, vf)
+        l = p.sum(-1).permute(0, 3, 1, 2)[..., None]          # (B,n,Hkv,G,1)
+        outs.append((o / l.clamp(min=1e-30)).reshape(B, n, H, dh))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def _forward(q, k, v, causal: bool, window: int):
+    dev = _device("flash_attention", q, k, v)
+    if dev.type == "cpu":
+        return flash_forward_ref(q, k, v, causal=causal, window=window)
+    return _launch_forward(q, k, v, causal, window)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward through kernel 12 (or its plain version on the CPU);
+    backward recomputes through the plain chunked ``attention``, as the
+    reference's custom_vjp does (ops.py:58-69): there is no backward
+    kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return _forward(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = attention(*qkv, causal=ctx.causal, window=ctx.window)
+            dq, dk, dv = torch.autograd.grad(out, qkv, g)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int = 0):
+    """q (B,Sq,H,dh); k,v (B,Skv,Hkv,dh) -> (B,Sq,H,dh)."""
+    return _FlashAttention.apply(q, k, v, bool(causal), int(window))
+
+
+# =====================================================================
+# flash decode (kernel 11)
+# =====================================================================
+def _decode_shapes(q1, k_cache, v_cache) -> None:
+    if q1.ndim != 4 or k_cache.ndim != 4 or k_cache.shape != v_cache.shape:
+        raise ValueError(f"flash_decode: q1 {tuple(q1.shape)}, caches "
+                         f"{tuple(k_cache.shape)}/{tuple(v_cache.shape)}")
+    B, one, H, dh = q1.shape
+    Bk, S, Hkv, dhk = k_cache.shape
+    if one != 1 or Bk != B or dhk != dh or Hkv < 1 or H % Hkv:
+        raise ValueError(f"flash_decode: q1 {tuple(q1.shape)} and caches "
+                         f"{tuple(k_cache.shape)} disagree")
+    if S % min(DECODE_TILE, S):
+        raise ValueError(f"flash_decode: cache length {S} must be at most "
+                         f"{DECODE_TILE} or a multiple of it (the Pallas kernel's block)")
+
+
+def flash_decode_ref(q1, k_cache, v_cache, cache_len):
+    """Plain version of the Pallas ``flash_decode``: q1 (B,1,H,dh), caches
+    (B,S,Hkv,dh), an int ``cache_len`` -> (B,1,H,dh).  Positions at or
+    past ``cache_len`` score NEG_INF, so ``cache_len <= 0`` gives the mean
+    of V over all S, as the kernel does."""
+    _decode_shapes(q1, k_cache, v_cache)
+    B, _, H, dh = q1.shape
+    _, S, Hkv, _ = k_cache.shape
+    qg = q1.reshape(B, Hkv, H // Hkv, dh).float() * dh ** -0.5
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.float())
+    valid = torch.arange(S, device=q1.device) < cache_len
+    p = torch.softmax(torch.where(valid, s, NEG_INF), dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    return out.reshape(B, 1, H, dh).to(q1.dtype)
+
+
+def flash_decode(q1, k_cache, v_cache, cache_len):
+    """q1 (B,1,H,dh); caches (B,S,Hkv,dh); cache_len an int -> (B,1,H,dh).
+    A one-element integer tensor is read to the host as its int."""
+    cache_len = operator.index(cache_len)
+    if _device("flash_decode", q1, k_cache, v_cache).type == "cpu":
+        return flash_decode_ref(q1, k_cache, v_cache, cache_len)
+    return _launch_decode(q1, k_cache, v_cache, cache_len)
+
+
+# =====================================================================
+# paged decode (kernel 1)
+# =====================================================================
 
 
 def paged_decode_ref(q1, k_pool, v_pool, block_tables, seq_lens, *,
@@ -47,15 +217,10 @@ def paged_decode(q1, k_pool, v_pool, block_tables, seq_lens, *,
     ``block_tables[b, j]``; seq_lens (B,) int32 valid lengths (0 = inactive
     slot: its row is zeros).  Returns (B,1,H,dh) in q1's dtype.
     """
-    devices = {t.device for t in (q1, k_pool, v_pool, block_tables, seq_lens)}
-    if len(devices) != 1:
-        raise ValueError(f"paged_decode: tensors on several devices {devices}")
-    (dev,) = devices
+    dev = _device("paged_decode", q1, k_pool, v_pool, block_tables, seq_lens)
     if dev.type == "cpu":
         return paged_decode_ref(q1, k_pool, v_pool, block_tables, seq_lens,
                                 window=window)
-    if dev.type != "cuda":
-        raise ValueError(f"paged_decode: no kernel for device {dev}")
     return _launch(q1, k_pool, v_pool, block_tables, seq_lens, window)
 
 
@@ -104,4 +269,87 @@ def _lib():
         lib.paged_decode.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                                      + [ctypes.c_void_p])
         lib.paged_decode.restype = ctypes.c_int
+    return lib
+
+
+# =====================================================================
+# launches of csrc/flash_attention.cu
+# =====================================================================
+_SM_COUNT = 132          # H100 SXM; the split below aims at a few CTAs per SM
+_DECODE_CHUNK_MIN = 256  # keys per split-K CTA at least (amortises its partial)
+
+
+def _check_common(name: str, tensors: dict, dh: int) -> None:
+    first = next(iter(tensors.values()))
+    if dh not in _HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {dh} not in {_HEAD_DIMS}")
+    if first.dtype not in _DTYPES or any(t.dtype != first.dtype for t in tensors.values()):
+        raise ValueError(f"{name}: dtypes {[t.dtype for t in tensors.values()]}; "
+                         f"the kernel takes one of f32, bf16 for all inputs")
+    for label, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {label} must be 16-byte aligned")
+
+
+def _launch_forward(q, k, v, causal: bool, window: int):
+    qb, kb = _fwd_tiles(q, k, v)
+    B, Sq, H, dh = q.shape
+    _, Skv, Hkv, _ = k.shape
+    _check_common("flash_attention", {"q": q, "k": k, "v": v}, dh)
+    lib = _flash_lib()
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = lib.flash_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                             B, Sq, Skv, H, Hkv, dh, int(causal), int(window), qb, kb,
+                             _DTYPES[q.dtype], stream)
+    build.check(lib, code, "flash_forward")
+    kernels.launches["flash_forward"] += 1
+    return out
+
+
+def decode_splits(rows: int, live: int) -> tuple[int, int]:
+    """(chunk, splits): split-K over the ``live`` >= 1 leading cache
+    positions for ``rows`` = B·Hkv (KV head, request) pairs, into chunks of
+    a multiple of 32 keys, aiming at four CTAs per SM in all."""
+    want = max(1, -(-4 * _SM_COUNT // rows))
+    splits = max(1, min(want, live // _DECODE_CHUNK_MIN))
+    chunk = -(-live // splits)
+    chunk = -(-chunk // 32) * 32
+    return chunk, -(-live // chunk)
+
+
+def _launch_decode(q1, k_cache, v_cache, cache_len):
+    _decode_shapes(q1, k_cache, v_cache)
+    B, _, H, dh = q1.shape
+    _, S, Hkv, _ = k_cache.shape
+    G = H // Hkv
+    if G > _MAX_G:
+        raise ValueError(f"flash_decode: {G} query heads per KV head "
+                         f"(the kernel takes 1..{_MAX_G})")
+    _check_common("flash_decode", {"q1": q1, "k_cache": k_cache, "v_cache": v_cache}, dh)
+    live = S if cache_len <= 0 else min(cache_len, S)
+    chunk, splits = decode_splits(B * Hkv, live)
+    lib = _flash_lib()
+    out = torch.empty_like(q1)
+    part = torch.empty((B * Hkv * splits * G * (dh + 2),), dtype=torch.float32,
+                       device=q1.device)
+    stream = torch.cuda.current_stream(q1.device).cuda_stream
+    code = lib.flash_decode(q1.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                            out.data_ptr(), part.data_ptr(), cache_len,
+                            B, S, Hkv, G, dh, chunk, splits, _DTYPES[q1.dtype], stream)
+    build.check(lib, code, "flash_decode")
+    kernels.launches["flash_decode"] += 1
+    return out
+
+
+def _flash_lib():
+    lib = build.load("flash_attention")
+    if lib.flash_forward.argtypes is None:
+        lib.flash_forward.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        lib.flash_forward.restype = ctypes.c_int
+        lib.flash_decode.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+                                     + [ctypes.c_void_p])
+        lib.flash_decode.restype = ctypes.c_int
     return lib

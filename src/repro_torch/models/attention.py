@@ -1,8 +1,9 @@
 """GQA attention and KV caches (port of ``repro/models/attention.py``).
 
 Prefill attention is plain PyTorch (matmul + softmax), as the reference
-leaves it to XLA.  The one kernel on this path is the paged decode
-attention of the serving engine, reached through
+leaves it to XLA: ``attention`` and, for sliding-window configs past
+4·window, the block-local ``sliding_attention``.  The one kernel on this
+path is the paged decode attention of the serving engine, reached through
 ``kernels.flash_attention.ops.paged_decode``.
 
 Scores are formed in f32 from the inputs upcast (the reference's
@@ -59,11 +60,13 @@ def _band_mask(q_pos, k_pos, *, causal: bool, window: int):
 
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
-              kv_block: int = 1024):
+              q_offset: int = 0, kv_block: int = 1024, kv_valid_start: int = 0):
     """Chunked online-softmax attention.
 
     q: (B, Sq, H, dh); k, v: (B, Skv, Hkv, dh); GQA via H = Hkv * G.
+    ``q_offset``: absolute position of q[0] relative to k[0] (prefill=0).
     ``window``>0: sliding window (queries see the last `window` keys).
+    ``kv_valid_start``: keys before this index are masked (front padding).
     Returns (B, Sq, H, dh) in q.dtype.
     """
     B, Sq, H, dh = q.shape
@@ -72,13 +75,14 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
     G = H // Hkv
     dev = q.device
     qg = _scale(q.reshape(B, Sq, Hkv, G, dh)).float()
-    q_pos = torch.arange(Sq, device=dev)
+    q_pos = q_offset + torch.arange(Sq, device=dev)
 
     nblk = max(1, math.ceil(Skv / kv_block))
     if nblk == 1:
         k_pos = torch.arange(Skv, device=dev)
         scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
         mask = _band_mask(q_pos, k_pos, causal=causal, window=window)
+        mask &= (k_pos >= kv_valid_start)[None, :]
         scores = torch.where(mask, scores, NEG_INF)
         probs = torch.softmax(scores, dim=-1)
         out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(q.dtype), v)
@@ -97,7 +101,7 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
             vblk = torch.nn.functional.pad(vblk, (0, 0, 0, 0, 0, pad))
         scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, kblk)
         mask = _band_mask(q_pos, k_pos, causal=causal, window=window)
-        mask &= (k_pos < Skv)[None, :]
+        mask &= ((k_pos < Skv) & (k_pos >= kv_valid_start))[None, :]
         scores = torch.where(mask, scores, NEG_INF)
         m_new = torch.maximum(m, scores.amax(-1))
         p = torch.exp(scores - m_new[..., None])
@@ -107,6 +111,38 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
         m = m_new
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, dv).to(q.dtype)
+
+
+def sliding_attention(q, k, v, *, window: int, q_block: int = 512):
+    """Causal sliding-window attention with O(S·window) FLOPs.
+
+    Each query block of length qb attends only the KV slice
+    [blk_start - window, blk_end): one slice per block instead of a full
+    S×S score matrix.  Requires Sq == Skv (prefill self-attention) and,
+    past the short-sequence path, S divisible by ``q_block``.
+    """
+    B, S, H, dh = q.shape
+    if S <= q_block or S <= window:
+        return attention(q, k, v, causal=True, window=window)
+    qb = q_block
+    if S % qb:
+        raise ValueError(f"sliding_attention requires seq {S} divisible by "
+                         f"q_block {qb}")
+    span = min(window + qb, S)               # kv context visible to one block
+    outs = []
+    for i in range(S // qb):
+        # the kv slice ends at the block's end; slots before key 0 are the
+        # reference's front padding, masked by kv_valid_start
+        end = (i + 1) * qb
+        lo = max(0, end - span)
+        pad = span - (end - lo)
+        ki, vi = k[:, lo:end], v[:, lo:end]
+        if pad:
+            ki = torch.nn.functional.pad(ki, (0, 0, 0, 0, pad, 0))
+            vi = torch.nn.functional.pad(vi, (0, 0, 0, 0, pad, 0))
+        outs.append(attention(q[:, i * qb:end], ki, vi, causal=True, window=window,
+                              q_offset=span - qb, kv_block=span, kv_valid_start=pad))
+    return torch.cat(outs, dim=1)
 
 
 def decode_attention(q1, k_cache, v_cache, cache_len=None, *, window: int = 0):
@@ -162,10 +198,9 @@ def gqa_forward(p, x, cfg):
     k = apply_rope(k, positions, cfg.rope_theta)
     window = cfg.sliding_window if cfg.attn_variant == "sliding" else 0
     if window and cfg.causal and S > 4 * window:
-        raise NotImplementedError(
-            "block-local sliding_attention (S > 4·window) arrives with the "
-            "slice that ports the sliding-window configs")
-    out = attention(q, k, v, causal=cfg.causal, window=window)
+        out = sliding_attention(q, k, v, window=window)
+    else:
+        out = attention(q, k, v, causal=cfg.causal, window=window)
     return out.reshape(B, S, -1) @ p["wo"].to(x.dtype), (k, v)
 
 

@@ -44,6 +44,43 @@ def test_attention(kv_block, window, causal):
     _close(port, ref)
 
 
+@pytest.mark.parametrize("kv_block", [1024, 16])
+@pytest.mark.parametrize("q_offset,kv_valid_start", [(24, 0), (24, 7), (0, 5)])
+def test_attention_offset_and_front_padding(q_offset, kv_valid_start, kv_block):
+    """A query block placed ``q_offset`` keys in, with front padding masked
+    below ``kv_valid_start``: the form ``sliding_attention`` calls."""
+    q, k, v = _qkv(np.random.default_rng(3), 2, 16, 40, 6, 2, 16)
+    kw = dict(causal=True, window=11, q_offset=q_offset, kv_block=kv_block,
+              kv_valid_start=kv_valid_start)
+    ref = jax_attn.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw)
+    port = attention.attention(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v), **kw)
+    _close(port, ref)
+
+
+@pytest.mark.parametrize("S,W,q_block", [(2048, 128, 256), (1024, 64, 512), (96, 40, 32)])
+def test_sliding_attention(S, W, q_block):
+    """The block-local path against the reference's, as
+    ``test_attention_ssm.py::test_sliding_attention_blockwise_matches_masked``
+    (S 2,048, W 128, q_block 256), and against the port's own masked
+    ``attention``; the last case has span W + q_block < S only from the
+    third block on."""
+    q, k, v = _qkv(np.random.default_rng(4), 1, S, S, 2, 2, 32)
+    ref = jax_attn.sliding_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                     window=W, q_block=q_block)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    port = attention.sliding_attention(tq, tk, tv, window=W, q_block=q_block)
+    _close(port, ref)
+    masked = attention.attention(tq, tk, tv, causal=True, window=W, kv_block=S)
+    torch.testing.assert_close(port, masked, rtol=0, atol=2e-5)
+
+
+def test_sliding_attention_raises_where_the_reference_asserts():
+    z = torch.zeros((1, 1000, 2, 16))
+    with pytest.raises(ValueError, match="divisible"):
+        attention.sliding_attention(z, z, z, window=64, q_block=512)
+
+
 @pytest.mark.parametrize("window", [0, 9])
 def test_decode_attention_ragged(window):
     q, k, v = _qkv(np.random.default_rng(1), 3, 1, 32, 8, 2, 16)

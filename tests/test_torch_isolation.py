@@ -45,6 +45,7 @@ def test_importing_the_port_loads_no_jax_or_reference():
         "import repro_torch.kernels.kd_loss.ops, repro_torch.kernels.weight_avg.ops\n"
         "import repro_torch.core.engine, repro_torch.launch.train\n"
         "import repro_torch.kernels.kd_loss.flash\n"
+        "import repro_torch.kernels.flash_attention.ref, repro_torch.configs.starcoder2_3b\n"
         f"spec = importlib.util.spec_from_file_location('chip_smoke', {str(ROOT / 'chip_smoke.py')!r})\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -11,6 +11,12 @@ that value.  The plain version rounds the scaled query and its
 probabilities to bf16 before P·V, the kernel keeps both in f32, and both
 round the output once.
 
+Tolerances, ``flash_attention`` and ``flash_decode`` (kernels 12 and 11;
+both sides compute in f32 from the same inputs and round the output once):
+f32 at rtol = atol = 1e-5; bf16 within one bf16 ulp of each row's max
+|plain| plus 2e-5.  The backward recomputes through the plain
+``attention`` on both sides, at rtol = atol = 1e-5.
+
 Tolerances, the KD kernels (both sides compute in f32 from the same
 inputs; only the order of summation differs): f32 per row, max
 |kernel - plain| at most 1e-5 of the row's max |plain|; bf16 teacher
@@ -84,7 +90,7 @@ def _paged_case(rng, *, G, dh, Hkv=2, bs=16, lens=(64, 17, 8, 0)):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("G,dh", [(3, 64), (5, 128), (8, 256)])
+@pytest.mark.parametrize("G,dh", [(3, 64), (5, 128), (8, 256), (1, 80), (3, 80)])
 def test_kernel_matches_plain_on_card(dtype, G, dh):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
@@ -395,3 +401,123 @@ def test_flash_kd_refuses_what_the_kernels_do_not_take_on_card():
         kd_ops.flash_kd_fwd(z.half(), z)
     with pytest.raises(ValueError, match="several devices"):
         kd_ops.flash_kd_fwd(z, z.cpu())
+
+
+# ------------------------------------------------- flash attention 11-12
+# the reference sweep (tests/test_kernels.py) and StableLM-3B's dh 80, a
+# ragged Sq below one Pallas block, and Gemma's dh 256
+FWD_SHAPES = [(2, 256, 4, 2, 64), (1, 128, 8, 1, 32), (2, 256, 4, 4, 128),
+              (1, 384, 4, 4, 80), (1, 100, 2, 1, 80), (1, 256, 2, 1, 256)]
+DECODE_SHAPES = [(2, 1024, 4, 2, 64), (1, 512, 8, 1, 32), (2, 512, 4, 4, 128),
+                 (1, 1024, 4, 4, 80), (1, 2048, 8, 1, 256)]
+
+
+def _flash_close(out, ref):
+    if ref.dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    else:
+        out, ref = out.float(), ref.float()
+        bound = _ulp(ref.abs().amax(-1, keepdim=True)) + 2e-5
+        assert bool(((out - ref).abs() <= bound).all()), float((out - ref).abs().max())
+
+
+def _randn(gen, shape, dtype):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64), (False, 0), (False, 50)])
+@pytest.mark.parametrize("shape", FWD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_flash_forward_matches_plain_on_card(dtype, causal, window, shape):
+    _needs_card()
+    B, S, H, Hkv, dh = shape
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(S + H + window)
+    q, k, v = (_randn(gen, (B, S, n, dh), dt) for n in (H, Hkv, Hkv))
+    before = kernels.launches["flash_forward"]
+    out = ops.flash_attention(q, k, v, causal, window)
+    ref = ops.flash_forward_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert kernels.launches["flash_forward"] == before + 1
+    assert out.dtype == dt and out.shape == q.shape
+    _flash_close(out, ref)
+
+
+@pytest.mark.cuda
+def test_flash_forward_rows_without_a_key_on_card():
+    """Sq > Skv + window: rows with no allowed key get what the Pallas
+    kernel gives (the mean of V over the blocks it visits, or zeros)."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q = _randn(gen, (1, 384, 2, 64), torch.float32)
+    k, v = (_randn(gen, (1, 128, 1, 64), torch.float32) for _ in range(2))
+    for causal, window in ((True, 64), (False, 32)):
+        _flash_close(ops.flash_attention(q, k, v, causal, window),
+                     ops.flash_forward_ref(q, k, v, causal=causal, window=window))
+
+
+@pytest.mark.cuda
+def test_flash_attention_grads_match_plain_on_card():
+    """The backward recomputes through the plain ``attention`` (there is no
+    backward kernel), so the kernel's forward enters the gradients only
+    through ``g = 2·out``; this checks that path and the single launch."""
+    _needs_card()
+    from repro_torch.models.attention import attention
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v = (_randn(gen, (1, 256, n, 64), torch.float32) for n in (4, 2, 2))
+    qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = kernels.launches["flash_forward"]
+    (ops.flash_attention(*qkv, True, 64) ** 2).sum().backward()
+    assert kernels.launches["flash_forward"] == before + 1
+    ref = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    (attention(*ref, causal=True, window=64) ** 2).sum().backward()
+    for a, b in zip(qkv, ref):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", DECODE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_flash_decode_matches_plain_on_card(dtype, shape):
+    _needs_card()
+    B, S, H, Hkv, dh = shape
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(S + H)
+    q = _randn(gen, (B, 1, H, dh), dt)
+    k, v = (_randn(gen, (B, S, Hkv, dh), dt) for _ in range(2))
+    for clen in (0, 1, 700, S - 1, S):
+        ref = ops.flash_decode_ref(q, k, v, clen)
+        for cache_len in (clen, torch.tensor(clen, device="cuda")):
+            before = kernels.launches["flash_decode"]
+            out = ops.flash_decode(q, k, v, cache_len)
+            torch.cuda.synchronize()
+            assert kernels.launches["flash_decode"] == before + 1
+            _flash_close(out, ref)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_what_the_kernels_do_not_take_on_card():
+    _needs_card()
+    z = torch.zeros((1, 256, 2, 64), device="cuda")
+    with pytest.raises(ValueError, match="multiples"):
+        ops.flash_attention(z[:, :200].contiguous(), z[:, :200].contiguous(),
+                            z[:, :200].contiguous())
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention(z[..., :48].contiguous(), z[..., :48].contiguous(),
+                            z[..., :48].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(z.transpose(1, 2), z.transpose(1, 2), z.transpose(1, 2))
+    with pytest.raises(ValueError, match="dtypes"):
+        ops.flash_attention(z.half(), z.half(), z.half())
+    q1 = torch.zeros((1, 1, 34, 64), device="cuda")
+    kc = torch.zeros((1, 512, 2, 64), device="cuda")
+    with pytest.raises(ValueError, match="per KV head"):
+        ops.flash_decode(q1, kc, kc, 10)
+    kc700 = torch.zeros((1, 700, 2, 64), device="cuda")
+    with pytest.raises(ValueError, match="multiple"):
+        ops.flash_decode(q1[:, :, :2].contiguous(), kc700, kc700, 10)
+    with pytest.raises(ValueError, match="several devices"):
+        ops.flash_decode(q1[:, :, :2].contiguous(), kc.cpu(), kc, 3)
+    with pytest.raises(TypeError):                      # cache_len is an integer
+        ops.flash_decode(q1[:, :, :2].contiguous(), kc, kc, 3.0)

@@ -141,9 +141,3 @@ def test_unported_families_raise():
         moe=MoEConfig(num_experts=4, top_k=2, d_ff_expert=64))
     with pytest.raises(NotImplementedError, match="MoE"):
         build_model(cfg)
-    cfg = dataclasses.replace(get_config("gemma-2b").reduced(),
-                              attn_variant="sliding", sliding_window=4)
-    model = build_model(cfg)
-    with pytest.raises(NotImplementedError, match="sliding"):
-        model.logits(model.init(0, device="cpu"),
-                     {"tokens": torch.zeros((1, 17), dtype=torch.int32)})
