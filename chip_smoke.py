@@ -9,14 +9,20 @@ JAX package.  Phases, each of which fails the run if it fails:
 
   1. card      name and power limit (nvidia-smi); TF32 off for matmul/cuDNN
   2. build     every kernel under src/repro_torch/kernels/csrc, one nvcc each,
-               all started together
+               all started together; the HGMMA count of each bf16 instance
+               of kernel 12 in the built SASS (cuobjdump -sass from nvcc's
+               toolkit): none, or no cuobjdump, fails the run
   3. kernel    paged_decode against its plain version at the Qwen2.5-14B
                shapes (B=8, Hkv=8, G=5, dh=128, bs=16; ragged lens with 0, 1,
                bs, bs+1 and 2048; a windowed case), Gemma's (Hkv=1, G=8,
                dh=256), StableLM-3B's (Hkv=32, G=1, dh=80) and
                StarCoder2-3B's (Hkv=2, G=12, dh=128, lens 0 to 20,512 on
                both sides of its window, with window 4,096 and without),
-               f32 and bf16, with CUDA-event timings
+               f32 and bf16, with CUDA-event timings; then the edges of its
+               split-K at starcoder2-3b's and qwen2.5-14b's shapes: seq_len
+               0, 1, 16k +- 1, live ranges ending on a split boundary, lo
+               inside a block, first blocks wholly before the window, and
+               tables far longer than every row (empty splits)
   4. f32/2     qwen2.5-14b at full width, 2 layers, f32: ContinuousEngine and
                generate_static give identical greedy tokens
   5. bf16/48   qwen2.5-14b as configured (48 layers, bf16, random weights
@@ -24,7 +30,10 @@ JAX package.  Phases, each of which fails the run if it fails:
                token counts, the drained pool, 48 kernel launches per decode
                micro-step, and one decode step's logits kernel vs plain;
                then one chunk with every lane busy under torch.profiler:
-               wall and device ms per micro-step, idle share, kernel times
+               wall and device ms per micro-step, idle share, kernel times,
+               kernel 1's share of the device time and the kernel launches
+               per micro-step beside the 3,429 of kernel 1's one-CTA-per-
+               head design
   6. KD       ensemble_softmax, kd_loss_fwd and kd_loss_bwd against their
                plain versions, f32 and bf16: at the FedSDD round's own shapes
                (M = K·R = 8 teachers over 8 server batches of 256, V = 10),
@@ -86,9 +95,10 @@ JAX package.  Phases, each of which fails the run if it fails:
  15. flash     kernels 11-12 (flash_attention.cu): first their own path, the
                reference's kernel bench and tests through the public ops
                (counts zeroed before, read after); then against their plain
-               versions: the reference sweep and dh 80, f32 and bf16; the
-               four registered configs' full widths at S = 4,096, causal, f32
-               and bf16; starcoder2-3b's window 4,096 at S = 16,384; one
+               versions: the reference sweep, dh 80 and dh 256, f32 and
+               bf16; the four registered configs' full widths at S =
+               4,096, causal, f32 and bf16; starcoder2-3b's window 4,096 at
+               S = 16,384; one
                backward at qwen2.5-14b's width; decode at the bench shape and
                at qwen2.5-14b's decode_32k per card, cache_len 1, 700, S - 1,
                S; CUDA-event timings beside the bound, the plain version and
@@ -101,10 +111,14 @@ JAX package.  Phases, each of which fails the run if it fails:
                serves 8 requests, prompts 32-2,048 tokens and one of 20,480;
                token counts, the drained pool, 30 launches of kernel 1 per
                decode micro-step; tokens/s, TTFT p50, the long prefill, peak
-               memory
+               memory; a profiled decode chunk as in phase 5 (launches per
+               micro-step beside the earlier design's 2,360)
  18. kernels   one JSON line per the port's kernel contract; kernel 12's
                entry is its bf16 row at qwen2.5-14b's width (the configs'
-               dtype), with the f32 row beside it under "f32"
+               dtype), with the f32 row beside it under "f32"; kernel 1's
+               also gives "starcoder2_ms", its times in the two starcoder2-3b
+               bf16 cases its split-K was designed for; every entry's
+               "host_ms" is its wrapper's host time a call
  19. ok        {"ok": true, "device": {...}} as the last line
 
 Tolerances, paged_decode: f32 kernel vs plain at rtol = atol = 1e-5 (only
@@ -225,16 +239,50 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 25) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` runs, each after a
-    write of 256 MB that evicts the 50 MB L2, as a decode step's attention
-    finds it after the layer's weight reads."""
+HOST_LEAD_MS = 0.2            # the least spin before a timed call
+_CYCLES_PER_MS: list[float] = []
+
+
+def _spin(ms: float) -> None:
+    """Keep the card busy for about ``ms`` (torch.cuda._sleep counts clock
+    cycles; the rate is measured once)."""
+    if not _CYCLES_PER_MS:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(2_000_000)
+        end.record()
+        end.synchronize()
+        _CYCLES_PER_MS.append(2_000_000 / start.elapsed_time(end))
+    torch.cuda._sleep(int(ms * _CYCLES_PER_MS[0]))
+
+
+def time_call(fn, reps: int = 25) -> tuple[float, float]:
+    """(device ms, host ms) of one call of ``fn``.
+
+    Host: the median wall time for ``fn()`` to return on an idle card (its
+    enqueue, or all of it where ``fn`` waits for the card).  Device: the
+    median CUDA-event time over ``reps`` runs, each after a write of 256 MB
+    that evicts the 50 MB L2, as a decode step's attention finds it after
+    the layer's weight reads.  The card then spins for twice the host time
+    (at least ``HOST_LEAD_MS``, at most 20 ms) so that the host has
+    enqueued ``fn``'s launches before the start event runs: the device time
+    holds no gap the wrapper's host work would leave."""
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=DEV)
     fn()
     torch.cuda.synchronize()
+    host = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    host_ms = statistics.median(host)
+    lead = min(max(HOST_LEAD_MS, 2 * host_ms), 20.0)
     times = []
     for _ in range(reps):
         flush.zero_()
+        _spin(lead)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -242,7 +290,47 @@ def time_ms(fn, reps: int = 25) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return statistics.median(times), host_ms
+
+
+def time_ms(fn, reps: int = 25) -> float:
+    return time_call(fn, reps)[0]
+
+
+def kernel_times(fn, reps: int = 25) -> dict:
+    """A kernel wrapper's ``ms`` (device) and ``host_ms`` (its host time a call)."""
+    ms, host_ms = time_call(fn, reps)
+    return {"ms": ms, "host_ms": host_ms}
+
+
+# ---------------------------------------------------------------- phase 2
+def _cuobjdump(build) -> str:
+    """cuobjdump beside the nvcc that built the kernels (the same toolkit)."""
+    tool = Path(build.nvcc_path()).resolve().parent / "cuobjdump"
+    check(tool.exists(), f"cuobjdump not found beside nvcc ({tool})")
+    return str(tool)
+
+
+def sass_phase(build) -> None:
+    """Whether kernel 12's bf16 path runs on the tensor cores: the HGMMA
+    instructions in the SASS of each `flash_fwd_wgmma` instance of the
+    built library (cuobjdump -sass).  Fails the run if an instance holds
+    none, or if cuobjdump is missing from nvcc's toolkit."""
+    tool = _cuobjdump(build)
+    sass = subprocess.run([tool, "-sass", str(build.library_path("flash_attention"))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            if "flash_fwd_wgmma" in fn:
+                counts[fn] = 0
+        elif fn in counts and "HGMMA" in line:
+            counts[fn] += 1
+    print(json.dumps({"phase": "kernel 12 bf16 SASS", "tool": tool,
+                      "hgmma_per_function": counts}), flush=True)
+    check(len(counts) > 0 and all(n > 0 for n in counts.values()),
+          f"kernel 12's bf16 instances hold no HGMMA: {counts}")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -320,7 +408,7 @@ def compare_kernel(ops, args, window: int, label: str, timed: bool):
     row = {"case": label, "max_abs_err": max_err, "max_row_rel_err": row_rel, "tol": tol}
     if timed:
         bound, by = paged_bound(q, args[1], args[3], args[4], window)
-        row.update(ms=time_ms(lambda: ops.paged_decode(*args, window=window)),
+        row.update(**kernel_times(lambda: ops.paged_decode(*args, window=window)),
                    plain_ms=time_ms(lambda: ops.paged_decode_ref(*args, window=window)),
                    library_ms=time_ms(lambda: library_call(*args, window)),
                    bound_ms=bound, bound_by=by)
@@ -332,16 +420,37 @@ def compare_kernel(ops, args, window: int, label: str, timed: bool):
 
 STARCODER_WINDOW = 4096
 STARCODER_LENS = [0, 1, 4095, 4096, 4097, 9000, 16384, 20512]
+QWEN_WINDOW = 256
+# the starcoder2-3b cases kernel 1's split-K was designed for
+STARCODER_TIMED = ("starcoder2 bfloat16 window=4096", "starcoder2 bfloat16")
 
 
-def kernel_phase(ops, seed: int):
+def split_edge_lens(ops, B, Hkv, G, dh, nbmax, window, dtype):
+    """Eight lengths at the edges of kernel 1's split-K at these shapes:
+    seq_len 0, 1 and 16·k ± 1; lengths whose live range ends on a split
+    boundary; with a window, rows whose lo falls inside a block and whose
+    first blocks lie wholly before the window."""
+    meta = lambda *shape: torch.empty(shape, dtype=dtype, device="meta")  # noqa: E731
+    plan = ops.paged_plan(meta(B, 1, Hkv * G, dh), meta(1, 16, Hkv, dh),
+                          torch.empty((B, nbmax), dtype=torch.int32, device="meta"), window)
+    c, top = plan["chunk"], nbmax * 16
+    if window > 0:
+        lens = [0, 1, c, 2 * c - 1, window + 7, window + c + 16, 3 * window + 5, top]
+    else:
+        lens = [0, 1, 16 * 5 - 1, 16 * 5 + 1, c, 2 * c, 3 * c + 1, top]
+    return [min(n, top) for n in lens], plan
+
+
+def kernel_phase(ops, seed: int) -> dict:
+    """Returns the timed starcoder2-3b rows by case."""
     gen = torch.Generator(device=DEV).manual_seed(seed)
     lens = [0, 1, 16, 17, 2048, 300, 777, 1500]
+    timed = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
         qwen = paged_case(gen, B=8, Hkv=8, G=5, dh=128, bs=16, lens=lens, dtype=dtype)
         compare_kernel(ops, qwen, 0, f"qwen {name}", timed=True)
-        compare_kernel(ops, qwen, 256, f"qwen {name} window=256", timed=False)
+        compare_kernel(ops, qwen, QWEN_WINDOW, f"qwen {name} window={QWEN_WINDOW}", timed=False)
         gemma = paged_case(gen, B=8, Hkv=1, G=8, dh=256, bs=16, lens=lens, dtype=dtype)
         compare_kernel(ops, gemma, 0, f"gemma {name}", timed=True)
         stablelm = paged_case(gen, B=8, Hkv=32, G=1, dh=80, bs=16, lens=lens, dtype=dtype)
@@ -350,9 +459,28 @@ def kernel_phase(ops, seed: int):
         # on both sides of its window, up to the long prompt's
         starcoder = paged_case(gen, B=8, Hkv=2, G=12, dh=128, bs=16, lens=STARCODER_LENS,
                                dtype=dtype)
-        compare_kernel(ops, starcoder, STARCODER_WINDOW,
-                       f"starcoder2 {name} window={STARCODER_WINDOW}", timed=True)
-        compare_kernel(ops, starcoder, 0, f"starcoder2 {name}", timed=True)
+        for window in (STARCODER_WINDOW, 0):
+            label = f"starcoder2 {name}" + (f" window={window}" if window else "")
+            timed[label] = compare_kernel(ops, starcoder, window, label, timed=True)
+        # the split-K's edges at starcoder2-3b's and qwen2.5-14b's shapes:
+        # the long prompt's table and qwen's serve-run table, each with a
+        # window and without, and tables far longer than every row (empty
+        # splits)
+        for shape, nbmax, window, sparse in (
+                ((8, 2, 12, 128), 1282, 0, False), ((8, 2, 12, 128), 1282, STARCODER_WINDOW, False),
+                ((8, 2, 12, 128), 1282, 0, True), ((8, 8, 5, 128), 36, 0, False),
+                ((8, 8, 5, 128), 36, QWEN_WINDOW, False), ((8, 8, 5, 128), 400, 0, True)):
+            B, Hkv, G, dh = shape
+            edge, plan = split_edge_lens(ops, B, Hkv, G, dh, nbmax, window, dtype)
+            if sparse:
+                edge = [0, 1, 15, 17, 31, 33, 300, 600]
+            args = paged_case(gen, B=B, Hkv=Hkv, G=G, dh=dh, bs=16, lens=edge, dtype=dtype,
+                              nbmax=nbmax)
+            compare_kernel(ops, args, window,
+                           f"split edges G={G} nbmax={nbmax} window={window} {name} "
+                           f"(chunk {plan['chunk']}, splits {plan['splits']}, lens {edge})",
+                           timed=False)
+    return timed
 
 
 # ------------------------------------------------------------- phases 4-5
@@ -417,11 +545,15 @@ def _kernel_group(name: str) -> str:
     return "other"
 
 
-def profile_chunk(engine, serve, vocab: int, rng) -> dict:
+def profile_chunk(engine, serve, vocab: int, rng, before_launches: int) -> dict:
     """Where a decode micro-step's time goes, with every lane busy: one
     chunk timed on the host clock, then the next chunk under torch.profiler
     for the device time by kernel (the profiler's own host cost would
-    inflate that chunk's wall).  The idle share is 1 - device / wall."""
+    inflate that chunk's wall).  The idle share is 1 - device / wall;
+    kernel 1's share is its device time over the micro-step's.  The kernel
+    launches per micro-step stand beside ``before_launches``, the count
+    with kernel 1's one-CTA-per-head design (one launch a layer then, as
+    now)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     k = engine.chunk_steps
@@ -451,7 +583,9 @@ def profile_chunk(engine, serve, vocab: int, rng) -> dict:
             "device_ms_per_micro_step": busy_ms if kern else None,
             "idle_share": 1 - busy_ms / wall_ms if kern else None,
             "device_ms_by_group": groups,
+            "paged_decode_share_of_device": groups["paged_decode"] / busy_ms if kern else None,
             "kernel_launches_per_micro_step": sum(e.count for e in kern) / k,
+            "kernel_launches_per_micro_step_before": before_launches,
             "top_kernels": [{"name": e.key[:80], "per_micro_step": e.count / k,
                              "ms_per_micro_step": e.self_device_time_total / 1e3 / k}
                             for e in top]}
@@ -506,9 +640,10 @@ def serve_phase(serve, zoo, ops, get_config, seed: int, card: str):
                "ttft_p50_ms": ttft[len(ttft) // 2] * 1e3,
                "latency_p50_ms": lat[len(lat) // 2] * 1e3,
                "micro_steps": micro, "paged_decode_launches": launches,
+               "paged_decode_launches_per_micro_step": launches / micro,
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     print(json.dumps(summary), flush=True)
-    print(json.dumps(profile_chunk(engine, serve, cfg.vocab_size, rng)), flush=True)
+    print(json.dumps(profile_chunk(engine, serve, cfg.vocab_size, rng, 3429)), flush=True)
 
     # one decode step's logits through the kernel vs the plain version, on
     # four fresh requests scattered into a small pool
@@ -557,7 +692,7 @@ def serve_phase(serve, zoo, ops, get_config, seed: int, card: str):
     return {"name": "paged_decode", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
             "replaces": PAGED_DECODE_TPU, "launches": launches,
-            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"], "host_ms": row["host_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
 
@@ -635,7 +770,8 @@ def kd_check(kd_ops, kd_ref, label: str, x, s, t, g, tau: float, timed: bool) ->
         if timed:
             bound, by = kd_bound(name, M, B, V, a[0].element_size())
             library, library_fn = LIBRARY[name]
-            row.update(ms=time_ms(lambda: kern(*a)), plain_ms=time_ms(lambda: plain[name](*a)),
+            row.update(**kernel_times(lambda: kern(*a)),
+                       plain_ms=time_ms(lambda: plain[name](*a)),
                        library_ms=time_ms(lambda: library_fn(*a)), library=library,
                        bound_ms=bound, bound_by=by)
         print(json.dumps(row), flush=True)
@@ -846,7 +982,7 @@ def resnet56_phase(fed, kd_ops, kd_ref, seed: int, card: str) -> list[dict]:
     rows = (np.arange(640) % sizes[cid]).reshape(10, 64)
     pipe = runner._kd_pipeline()
     batches = pipe.batches_for(task.server_batches)
-    teachers = state.ensemble.members()
+    teachers = state.ensemble.member_views()
     cache = pipe.precompute_cache(teachers, batches)
     pipe10 = KDPipeline(task.logits_fn, steps=10, lr=0.05, temperature=tau, device=DEV)
     for label, fn in (
@@ -869,8 +1005,8 @@ def resnet56_phase(fed, kd_ops, kd_ref, seed: int, card: str) -> list[dict]:
     rows = kd_check(kd_ops, kd_ref, "ResNet-56 round inputs", x, s, t, g, tau, timed=True)
     return [{"name": name, "route": "cuda", "source": KD_SOURCE, "replaces": KD_TPU[name],
              "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-             "library_ms": r["library_ms"]} for name, r in rows.items()], rounds
+             "host_ms": r["host_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+             "bound_by": r["bound_by"], "library_ms": r["library_ms"]} for name, r in rows.items()], rounds
 
 
 # ---------------------------------------------------------------- phase 9
@@ -918,7 +1054,7 @@ def wa_check(wa_ops, wa_ref, label: str, x, w, timed: bool) -> dict:
     if timed:
         bound, by = wa_bound(G, N, D, x.element_size())
         lib = (lambda: wa_library(x3, w2)[0]) if single else (lambda: wa_library(x, w))
-        row.update(ms=time_ms(lambda: kern(x, w)), plain_ms=time_ms(lambda: plain(x, w)),
+        row.update(**kernel_times(lambda: kern(x, w)), plain_ms=time_ms(lambda: plain(x, w)),
                    library_ms=time_ms(lib), bound_ms=bound, bound_by=by)
     print(json.dumps(row), flush=True)
     check(ok, f"{row['kernel']} disagrees with its plain version ({label}): {row}")
@@ -1113,7 +1249,7 @@ def resnet56_vectorized_phase(fed, wa_ops, wa_ref, seed: int, card: str,
     bound = sum(wa_bound(K, n, x.shape[2], 4)[0] for x in flat)
     row = {"case": "ResNet-56 round inputs, one launch per leaf", "leaves": len(flat),
            "max_abs_err": worst,
-           "ms": time_ms(lambda: [wa_ops.group_weighted_average(x, w) for x in flat]),
+           **kernel_times(lambda: [wa_ops.group_weighted_average(x, w) for x in flat]),
            "plain_ms": time_ms(lambda: [wa_ref.group_weighted_average_ref(x, w) for x in flat]),
            "library_ms": time_ms(lambda: [wa_library(x, w) for x in flat]),
            "bound_ms": bound, "bound_by": "bytes"}
@@ -1121,7 +1257,8 @@ def resnet56_vectorized_phase(fed, wa_ops, wa_ref, seed: int, card: str,
     return {"name": "multi_weighted_average", "route": "cuda", "source": WA_SOURCE,
             "replaces": WA_TPU["multi_weighted_average"],
             "launches": launches["multi_weighted_average"], "max_abs_err": row["max_abs_err"],
-            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "ms": row["ms"], "host_ms": row["host_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]}, launches
 
 
@@ -1255,9 +1392,9 @@ def flash_check(kd_ops, flash, label, s=None, h=None, w=None, b=None, z=None, ta
                   "lse_max_abs_err": lse_err},
             bwd: {**case, "kernel": bwd, "max_abs_err": bwd_err}}
     if timed:
-        rows[fwd].update(ms=time_ms(lambda: getattr(kd_ops, fwd)(*fargs, teacher_lse=tl)),
+        rows[fwd].update(**kernel_times(lambda: getattr(kd_ops, fwd)(*fargs, teacher_lse=tl)),
                          plain_ms=time_ms(lambda: plain[fwd](*fargs, teacher_lse=tl)))
-        rows[bwd].update(ms=time_ms(lambda: getattr(kd_ops, bwd)(*bargs)),
+        rows[bwd].update(**kernel_times(lambda: getattr(kd_ops, bwd)(*bargs)),
                          plain_ms=time_ms(lambda: plain[bwd](*bargs)))
         leaves = [x.detach().requires_grad_(True) for x in ((h, w) if head else (s,))]
         if head and b is not None:
@@ -1505,7 +1642,7 @@ def gemma_phase(fed, seed: int, card: str) -> dict:
     print(json.dumps({"phase": "gemma-2b FedSDD run", "card": card, "rounds": 2,
                       "launches": launches, "teachers": state.ensemble.num_members,
                       "teacher_bank_gb": state.ensemble.nbytes() / 1e9,
-                      "cache_mb": pipe.cache_nbytes(state.ensemble.members(),
+                      "cache_mb": pipe.cache_nbytes(state.ensemble.member_views(),
                                                     pipe.batches_for(task.server_batches)) / 1e6,
                       "peak_mem_gb": max(r["peak_mem_gb"] for r in rounds)}), flush=True)
     check(len(state.history) == 2, "gemma-2b: two history records")
@@ -1525,7 +1662,7 @@ def gemma_phase(fed, seed: int, card: str) -> dict:
 
     # where a KD step's time goes: 5 head-fused steps over the last round's cache
     batches = pipe.batches_for(task.server_batches)
-    cache = pipe.precompute_cache(state.ensemble.members(), batches)
+    cache = pipe.precompute_cache(state.ensemble.member_views(), batches)
     pipe5 = KDPipeline(task.logits_fn, steps=5, lr=0.01, temperature=tau, device=DEV,
                        kd_kernel="flash", features_fn=task.features_fn, head_fn=task.head_fn,
                        head_fusion=True)
@@ -1568,6 +1705,10 @@ FA_CONFIGS = [("qwen2.5-14b", 40, 8, 128), ("gemma-2b", 8, 1, 256),
 FA_SWEEP = [(2, 256, 4, 2, 64), (1, 128, 8, 1, 32), (2, 256, 4, 4, 128)]
 FA_MODES = [(True, 0), (True, 64), (False, 0)]
 FA_DECODE_SWEEP = [(2, 1024, 4, 2, 64, 700), (1, 512, 8, 1, 32, 512), (2, 512, 4, 4, 128, 1)]
+# dh 80 (stablelm-3b: the bf16 kernel pads it to 128) and dh 256 (gemma-2b),
+# a ragged Sq below one Pallas block for each
+FA_WIDE_HEADS = [(1, 384, 4, 4, 80), (1, 100, 2, 1, 80), (1, 256, 4, 2, 256),
+                 (1, 100, 2, 1, 256)]
 FA_FULL_S = 4096                      # the configs' forward at full width
 FA_WINDOW_CASE = (16384, 4096)        # starcoder2-3b: S, its window
 FA_BWD = (4096, 40, 8, 128)           # S, H, Hkv, dh: qwen2.5-14b's width
@@ -1645,7 +1786,7 @@ def fa_check(label: str, fn, plain, *, bound=None, library=None, plain_reps: int
     del out, ref
     row = {"case": label, "max_abs_err": err}
     if bound is not None:
-        row.update(ms=time_ms(fn), plain_ms=time_ms(plain, reps=plain_reps),
+        row.update(**kernel_times(fn), plain_ms=time_ms(plain, reps=plain_reps),
                    library_ms=time_ms(library) if library else None,
                    bound_ms=bound[0], bound_by=bound[1])
     print(json.dumps(row), flush=True)
@@ -1713,7 +1854,7 @@ def flash_attention_phase(ops, seed: int) -> tuple[dict, dict, dict]:
     launches = flash_path(ops, gen)
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
-        for B, S, H, Hkv, dh in FA_SWEEP + [(1, 384, 4, 4, 80), (1, 100, 2, 1, 80)]:
+        for B, S, H, Hkv, dh in FA_SWEEP + FA_WIDE_HEADS:
             q = _rand(gen, (B, S, H, dh), dtype)
             k, v = (_rand(gen, (B, S, Hkv, dh), dtype) for _ in range(2))
             for causal, window in FA_MODES:
@@ -1785,8 +1926,9 @@ def flash_attention_phase(ops, seed: int) -> tuple[dict, dict, dict]:
         del q1, kc, vc, kt, vt
     torch.cuda.empty_cache()
     # kernel 12's entry: the bf16 row (every config's dtype), f32 beside it
-    fwd_row = {**rows["bfloat16"], "f32": {key: rows["float32"][key] for key in
-                                           ("ms", "plain_ms", "library_ms", "bound_ms")}}
+    fwd_row = {**rows["bfloat16"],
+               "f32": {key: rows["float32"][key] for key in
+                       ("ms", "plain_ms", "library_ms", "bound_ms")}}
     return launches, fwd_row, dec_row
 
 
@@ -1908,7 +2050,7 @@ def starcoder_serve_phase(serve, zoo, get_config, seed: int, card: str) -> None:
                       "micro_steps": micro, "paged_decode_launches": launches,
                       "launches_per_micro_step": launches / micro,
                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}), flush=True)
-    print(json.dumps(profile_chunk(engine, serve, cfg.vocab_size, rng)), flush=True)
+    print(json.dumps(profile_chunk(engine, serve, cfg.vocab_size, rng, 2360)), flush=True)
 
     spent = [0.0]
     real = zoo.attn.sliding_attention
@@ -1977,15 +2119,18 @@ def main() -> int:
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 print("  " + line.strip(), flush=True)
+    sass_phase(build)
 
     phase("3. paged_decode vs plain")
-    kernel_phase(ops, args.seed)
+    starcoder_rows = kernel_phase(ops, args.seed)
 
     phase("4. qwen2.5-14b full width, f32, 2 layers: engine == static")
     f32_depth2_phase(serve, zoo, get_config, args.seed)
 
     phase("5. qwen2.5-14b full width, bf16, 48 layers: serve 16 requests")
     entry = serve_phase(serve, zoo, ops, get_config, args.seed, card)
+    # kernel 1 at the starcoder2-3b cases its split-K was designed for
+    entry["starcoder2_ms"] = {case: starcoder_rows[case]["ms"] for case in STARCODER_TIMED}
 
     torch.cuda.empty_cache()
 
@@ -2011,6 +2156,7 @@ def main() -> int:
                     "replaces": WA_TPU["weighted_average"],
                     "launches": vec_launches.get("weighted_average", 0),
                     "max_abs_err": single["max_abs_err"], "ms": single["ms"],
+                    "host_ms": single["host_ms"],
                     "plain_ms": single["plain_ms"], "bound_ms": single["bound_ms"],
                     "bound_by": single["bound_by"], "library_ms": single["library_ms"]}
 
@@ -2026,7 +2172,8 @@ def main() -> int:
     path_launches = {**unfused_launches, **fused_launches}
     flash_entries = [{"name": name, "route": "cuda", "source": FLASH_SOURCE,
                       "replaces": FLASH_TPU[name], "launches": path_launches.get(name, 0),
-                      "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                      "max_abs_err": r["max_abs_err"], "ms": r["ms"], "host_ms": r["host_ms"],
+                      "plain_ms": r["plain_ms"],
                       "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                       "library_ms": r["library_ms"]} for name, r in flash_rows.items()]
     check(all(e["launches"] > 0 for e in flash_entries),
@@ -2036,9 +2183,11 @@ def main() -> int:
     fa_launches, fwd_row, dec_row = flash_attention_phase(ops, args.seed)
     fa_entries = [{"name": name, "route": "cuda", "source": FA_SOURCE, "replaces": FA_TPU[name],
                    "launches": fa_launches[name], "max_abs_err": r["max_abs_err"],
-                   "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                   "ms": r["ms"], "host_ms": r["host_ms"], "plain_ms": r["plain_ms"],
+                   "bound_ms": r["bound_ms"],
                    "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                   "case": r["case"], **({"f32": r["f32"]} if "f32" in r else {})}
+                   "case": r["case"],
+                   **({"f32": r["f32"]} if "f32" in r else {})}
                   for name, r in (("flash_forward", fwd_row), ("flash_decode", dec_row))]
 
     phase("16. starcoder2-3b full width, f32, 2 layers: engine == static, long prompt")

@@ -510,7 +510,8 @@ class _SequentialRoundOps:
         runner, state = self.runner, self.state
         if runner.cfg.ensemble_source == "clients":
             return runner._distill_models(new_globals, list(self.models))
-        return runner._distill_models(new_globals, state.ensemble.members())
+        # the views are read before the next push
+        return runner._distill_models(new_globals, state.ensemble.member_views())
 
 
 class _VectorizedRoundOps:
@@ -581,7 +582,7 @@ class _VectorizedRoundOps:
         if runner.cfg.ensemble_source == "clients":
             teachers = unstack_models(self.stacked)  # FedDF: the client models
         else:
-            teachers = state.ensemble.members()
+            teachers = state.ensemble.member_views()   # read before the next push
         return runner._distill_models(new_globals, teachers,
                                       stacked_students=self.stacked_globals)
 

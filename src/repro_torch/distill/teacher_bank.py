@@ -6,8 +6,11 @@ last R rounds, held as ONE stacked tree on the device (leaves
 ``(R, K, ...)``).  ``push`` copies a round's K models into the oldest
 slot: a copy, never a reference, since the round goes on to distil its
 own main model and must not change the teacher it just pushed.
-``members`` lists the teachers as views into the ring, newest round first;
-``members_stacked`` gathers the same members into one ``(M, ...)`` copy.
+``members`` lists the teachers newest round first as gathered copies
+that survive a later ``push``, as the reference's do;
+``member_views`` lists the same members as views into the ring for the KD
+pipeline, which reads them before the next ``push``; ``members_stacked``
+gathers them into one ``(M, ...)`` copy.
 Spilling evicted rounds to disk is not ported.
 """
 from __future__ import annotations
@@ -97,9 +100,16 @@ class TeacherBank:
         return tree_map(lambda b: b.index_select(0, index).flatten(0, 1), self._bank)
 
     def members(self) -> list[PyTree]:
-        """Flat teacher list {w_{t-r,k}}, newest round first, as views into
-        the ring: no copy, valid until the next ``push``.  The KD pipeline
-        reads them a member at a time (a model-zoo ring of 8 is tens of GB)."""
+        """Flat teacher list {w_{t-r,k}}, newest round first, as gathered
+        copies: holding them across a later ``push`` is safe."""
+        stacked = self.members_stacked()
+        return [] if stacked is None else tree_unstack(stacked)
+
+    def member_views(self) -> list[PyTree]:
+        """The members of ``members()`` as views into the ring: no copy,
+        valid only until the next ``push``.  The KD pipeline reads them a
+        member at a time before that push, because a model-zoo ring of 8 is
+        tens of GB and a gathered copy would double it."""
         if self._bank is None:
             return []
         return [tree_map(lambda b, s=s, k=k: b[s, k], self._bank)

@@ -35,7 +35,7 @@ def sources() -> list[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def _nvcc() -> str:
+def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
@@ -61,7 +61,7 @@ def build_all(names=None) -> dict[str, float]:
     secs = dict.fromkeys(names, 0.0)
     if not todo:
         return secs
-    nvcc = _nvcc()
+    nvcc = nvcc_path()
     build_dir().mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}
@@ -83,6 +83,11 @@ def build_all(names=None) -> dict[str, float]:
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return secs
+
+
+def library_path(name: str) -> Path:
+    """Where the shared library for ``csrc/<name>.cu`` is (or will be) built."""
+    return _target(name)
 
 
 def build_log(name: str) -> str:

@@ -32,6 +32,7 @@ _MAX_G = 16
 FWD_TILE = 128           # the Pallas kernel's q and kv blocks (kernel.py:32-33)
 DECODE_TILE = 512        # the Pallas flash_decode's kv block (kernel.py:151)
 _PLAIN_SCORE_ELEMS = 2 ** 27     # f32 scores one plain-forward chunk holds
+_SM_COUNT = 132          # H100 SXM; the split-K launches aim at a few CTAs per SM
 
 
 def _device(name: str, *tensors) -> torch.device:
@@ -224,6 +225,67 @@ def paged_decode(q1, k_pool, v_pool, block_tables, seq_lens, *,
     return _launch(q1, k_pool, v_pool, block_tables, seq_lens, window)
 
 
+_PAGED_CTAS = 4 * _SM_COUNT  # the split aims at four CTAs per SM in all
+_PAGED_CHUNK_MIN = 128       # positions per split-K CTA at least (four tiles of 32)
+_PAGED_MAX_SPLITS = 128      # the kernel's kMaxSplits
+_PAGED_GB = (1, 2, 4, 8, 12, 16)   # query rows per CTA the kernel is built for
+
+
+def paged_groups(G: int, dh: int) -> tuple[int, int]:
+    """(gb, ng): the kernel's query rows per CTA (the smallest it is built
+    for that holds G, since rows past G are computed all the same; at most
+    8 at dh 256, where the accumulators of more rows would not fit the
+    registers) and the CTAs ``ng = ceil(G / gb)`` that share one (request,
+    KV head) and split."""
+    cap = 8 if dh == 256 else 16
+    gb = next((g for g in _PAGED_GB if g >= min(G, cap)), cap)
+    return gb, -(-G // gb)
+
+
+def paged_splits(rows: int, span: int, bs: int) -> tuple[int, int]:
+    """(chunk, splits) of kernel 1's split-K, from shapes alone: ``rows``
+    CTAs' worth of (request, KV head, row group) triples, each walking at
+    most ``span`` positions (``nbmax·bs``, or the window when it is
+    shorter), in chunks of whole pool blocks of ``bs`` positions, aiming at
+    ``_PAGED_CTAS`` CTAs in all with at least ``_PAGED_CHUNK_MIN``
+    positions each.  Never reads ``seq_lens``: a CTA whose chunk starts past
+    its row's end exits."""
+    blocks = max(1, -(-span // bs))
+    want = min(_PAGED_MAX_SPLITS, max(1, -(-_PAGED_CTAS // rows)))
+    splits = max(1, min(want, blocks // max(1, _PAGED_CHUNK_MIN // bs)))
+    chunk_blocks = -(-blocks // splits)
+    return chunk_blocks * bs, -(-blocks // chunk_blocks)
+
+
+def paged_plan(q1, k_pool, block_tables, window: int) -> dict:
+    """Kernel 1's launch shape for these inputs: the row groups, the split
+    and the workspace, from the tensors' shapes only (no device read)."""
+    B, _, H, dh = q1.shape
+    _, bs, Hkv, _ = k_pool.shape
+    nbmax = block_tables.shape[1]
+    G = H // Hkv
+    gb, ng = paged_groups(G, dh)
+    span = min(window, nbmax * bs) if window > 0 else nbmax * bs
+    rows = B * Hkv * ng
+    chunk, splits = paged_splits(rows, span, bs)
+    return {"G": G, "gb": gb, "ng": ng, "rows": rows, "chunk": chunk, "splits": splits,
+            "part_floats": rows * splits * gb * (dh + 2) if splits > 1 else 0}
+
+
+_COUNTERS: dict = {}
+
+
+def _arrival_counters(device, stream: int, rows: int) -> torch.Tensor:
+    """Kernel 1's per-row arrival counters on this device and stream:
+    zeroed once here, and reset to 0 by the CTA that merges each row, so
+    they stay zero between launches."""
+    key = (device, stream)
+    cnt = _COUNTERS.get(key)
+    if cnt is None or cnt.numel() < rows:
+        cnt = _COUNTERS[key] = torch.zeros(rows, dtype=torch.int32, device=device)
+    return cnt
+
+
 def _launch(q1, k_pool, v_pool, block_tables, seq_lens, window):
     B, one, H, dh = q1.shape
     nb, bs, Hkv, dh_pool = k_pool.shape
@@ -249,15 +311,24 @@ def _launch(q1, k_pool, v_pool, block_tables, seq_lens, window):
             raise ValueError(f"paged_decode: {name} must be contiguous")
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError("paged_decode: pools must be 16-byte aligned "
-                         "(the kernel stages K/V rows with 16-byte loads)")
+                         "(the kernel stages K/V rows with 16-byte copies)")
+    plan = paged_plan(q1, k_pool, block_tables, int(window))
+    if plan["rows"] > 65535:
+        raise ValueError(f"paged_decode: {plan['rows']} (request, KV head, row group) "
+                         f"triples exceed the grid's 65,535")
     lib = _lib()
     out = torch.empty_like(q1)
     stream = torch.cuda.current_stream(q1.device).cuda_stream
+    part = cnt = None
+    if plan["splits"] > 1:
+        part = torch.empty((plan["part_floats"],), dtype=torch.float32, device=q1.device)
+        cnt = _arrival_counters(q1.device, stream, plan["rows"])
     code = lib.paged_decode(
         q1.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-        B, Hkv, H // Hkv, dh, bs, block_tables.shape[1], int(window),
-        _DTYPES[q1.dtype], stream)
+        None if part is None else part.data_ptr(), None if cnt is None else cnt.data_ptr(),
+        B, Hkv, plan["G"], dh, plan["gb"], bs, block_tables.shape[1], int(window),
+        plan["chunk"], plan["splits"], _DTYPES[q1.dtype], stream)
     build.check(lib, code, "paged_decode")
     kernels.launches["paged_decode"] += 1
     return out
@@ -266,7 +337,7 @@ def _launch(q1, k_pool, v_pool, block_tables, seq_lens, window):
 def _lib():
     lib = build.load("paged_decode")
     if lib.paged_decode.argtypes is None:
-        lib.paged_decode.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+        lib.paged_decode.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
                                      + [ctypes.c_void_p])
         lib.paged_decode.restype = ctypes.c_int
     return lib
@@ -275,7 +346,6 @@ def _lib():
 # =====================================================================
 # launches of csrc/flash_attention.cu
 # =====================================================================
-_SM_COUNT = 132          # H100 SXM; the split below aims at a few CTAs per SM
 _DECODE_CHUNK_MIN = 256  # keys per split-K CTA at least (amortises its partial)
 
 

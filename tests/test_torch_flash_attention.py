@@ -12,9 +12,19 @@ bf16 results by several ulps, so it is held against in f32 only.  The
 dense oracles (``ref.py``) of both packages, the gradient of
 ``(flash_attention(q, k, v) ** 2).sum()`` (atol 1e-4, as
 ``tests/test_kernels.py``) and the NEG_INF corner cases (rows with no
-allowed key, ``cache_len <= 0``) complete the file.  The CUDA kernels
+allowed key, ``cache_len <= 0``) complete that part.  The CUDA kernels
 themselves are held against these plain versions on the card by
 ``tests/test_torch_kernels.py`` and ``chip_smoke.py``.
+
+Two emulations in plain torch stand for what the CUDA kernels compute
+differently from their plain versions.  Kernel 1 (``paged_decode``):
+its host split of each row's live range into chunks and the in-order
+merge of the chunks' (m, l, acc) partials, held against
+``paged_decode_ref`` and the Pallas kernel at f32 rtol = atol = 1e-5
+(only the order of summation differs).  Kernel 12 (``flash_attention``
+in bf16, the ``wgmma`` kernel): Q·Kᵀ from the unscaled bf16 inputs with
+the scale after, P split into bf16 hi and lo for P·V, held against the
+plain version and the Pallas kernel at the bf16 rule above.
 """
 import jax
 import jax.numpy as jnp
@@ -199,3 +209,227 @@ def test_decode_splits_cover_the_valid_positions():
         chunk, splits = ops.decode_splits(rows, live)
         assert chunk % 32 == 0 and splits >= 1
         assert (splits - 1) * chunk < live <= splits * chunk
+
+
+# =====================================================================
+# kernel 1's split-K partition and merge, emulated in plain torch
+# =====================================================================
+def _paged_splitk(q1, k_pool, v_pool, bt, sl, window, *, merge_empty=False):
+    """What ``csrc/paged_decode.cu`` computes, in f32: the host's split of
+    each row's live range [lo, hi) into ``chunk``-position partials (m, l,
+    acc), merged in split order with weights exp(m_c - M).  A row with no
+    live position is zeros.  ``merge_empty`` also merges the empty partials
+    (m = NEG_INF, l = 0, acc = 0) of the splits past the row's end, which
+    the kernel skips: they must weigh exactly 0."""
+    plan = ops.paged_plan(q1, k_pool, bt, window)
+    chunk, splits = plan["chunk"], plan["splits"]
+    B, _, H, dh = q1.shape
+    nb, bs, Hkv, _ = k_pool.shape
+    nbmax, G = bt.shape[1], H // Hkv
+    qg = q1.reshape(B, Hkv, G, dh).float() * dh ** -0.5
+    kf, vf = k_pool.reshape(nb * bs, Hkv, dh).float(), v_pool.reshape(nb * bs, Hkv, dh).float()
+    out = torch.zeros((B, Hkv, G, dh))
+    for b in range(B):
+        n = int(sl[b])
+        lo, hi = (max(0, n - window) if window > 0 else 0), min(n, nbmax * bs)
+        n_live = -(-max(0, hi - lo) // chunk)
+        assert n_live <= splits
+        parts = []
+        for c in range(splits if merge_empty else n_live):
+            p0, p1 = lo + c * chunk, min(lo + (c + 1) * chunk, hi)
+            if p0 >= p1:
+                parts.append((torch.full((Hkv, G), NEG_INF), torch.zeros((Hkv, G)),
+                              torch.zeros((Hkv, G, dh))))
+                continue
+            pos = torch.arange(p0, p1)
+            slots = bt[b].long()[pos // bs] * bs + pos % bs
+            s = torch.einsum("hgd,nhd->hgn", qg[b], kf[slots])
+            m = s.amax(-1)
+            p = torch.exp(s - m[..., None])
+            parts.append((m, p.sum(-1), torch.einsum("hgn,nhd->hgd", p, vf[slots])))
+        if not parts:
+            continue
+        M = torch.stack([m for m, _, _ in parts]).amax(0)
+        L, A = torch.zeros((Hkv, G)), torch.zeros((Hkv, G, dh))
+        for m, l_c, a in parts:
+            w = torch.exp(m - M)
+            L, A = L + l_c * w, A + a * w[..., None]
+        out[b] = A / L.clamp(min=1e-30)[..., None]
+    return out.reshape(B, 1, H, dh).to(q1.dtype)
+
+
+NEG_INF = -1e30
+# (nbmax, window, lens) at bs 16, B = 8, Hkv 2, G 3: seq_len 0, 1 and 16k ± 1;
+# lengths on a split boundary (chunk 128 here); nbmax·bs far above every
+# length (empty splits); windows (chunk 144) whose lo falls inside a block, rows whose
+# first blocks lie wholly before the window (the Pallas kernel visits
+# them with p = 1 until a real score resets its sum)
+PAGED_SPLIT_CASES = [
+    (40, 0, [0, 1, 15, 17, 128, 256, 257, 640]),
+    (40, 260, [0, 1, 15, 17, 128, 256, 300, 640]),
+    (200, 0, [0, 1, 33, 129, 300, 511, 512, 513]),
+    (64, 300, [0, 1, 299, 300, 301, 777, 1000, 1024]),
+    (64, 272, [0, 17, 143, 144, 145, 288, 289, 1023]),
+]
+
+
+def _paged_split_case(seed, nbmax, lens, Hkv=2, G=3, dh=32, bs=16):
+    """A shuffled pool: request b's blocks are distinct pool blocks, the
+    rest of its table points at block 0 (as the engine leaves it)."""
+    rng = np.random.default_rng(seed)
+    B = len(lens)
+    need = [-(-n // bs) for n in lens]
+    nb = 1 + sum(need)
+    ids = 1 + rng.permutation(nb - 1)
+    bt = np.zeros((B, nbmax), np.int32)
+    at = 0
+    for b, n in enumerate(need):
+        bt[b, :n] = ids[at:at + n]
+        at += n
+    q = rng.normal(0, 1, (B, 1, Hkv * G, dh)).astype(np.float32)
+    pk = rng.normal(0, 1, (nb, bs, Hkv, dh)).astype(np.float32)
+    pv = rng.normal(0, 1, (nb, bs, Hkv, dh)).astype(np.float32)
+    return q, pk, pv, bt, np.asarray(lens, np.int32)
+
+
+@pytest.mark.parametrize("nbmax,window,lens", PAGED_SPLIT_CASES,
+                         ids=lambda x: str(x) if not isinstance(x, list) else "lens")
+def test_paged_splitk_matches_plain_and_pallas_interpret(nbmax, window, lens, force_pallas):
+    args = _paged_split_case(nbmax + window, nbmax, lens)
+    targs = [torch.from_numpy(a) for a in args]
+    plan = ops.paged_plan(targs[0], targs[1], targs[3], window)
+    assert plan["splits"] > 1                       # the merge is exercised
+    got = _paged_splitk(*targs, window)
+    torch.testing.assert_close(got, ops.paged_decode_ref(*targs, window=window),
+                               rtol=1e-5, atol=1e-5)
+    want = jax_ops.paged_decode(*map(jnp.asarray, args), window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    assert not got[np.asarray(lens) == 0].any()     # seq_len 0: zeros
+
+
+@pytest.mark.parametrize("nbmax,window,lens", PAGED_SPLIT_CASES[:3],
+                         ids=lambda x: str(x) if not isinstance(x, list) else "lens")
+def test_paged_splitk_empty_partials_weigh_nothing(nbmax, window, lens):
+    """Merging the empty partials (m = NEG_INF) beside the live ones changes
+    no bit: exp(NEG_INF - M) is 0 beside a real score."""
+    targs = [torch.from_numpy(a) for a in _paged_split_case(7, nbmax, lens)]
+    torch.testing.assert_close(_paged_splitk(*targs, window, merge_empty=True),
+                               _paged_splitk(*targs, window), rtol=0, atol=0)
+
+
+def test_paged_split_plan_reads_only_shapes():
+    """The host's choice takes shapes alone: it runs on tensors of the
+    `meta` device (which hold no values) and gives the CPU tensors' plan."""
+    args = [torch.from_numpy(a) for a in _paged_split_case(0, 40, [0, 1, 15, 17, 128, 256,
+                                                                   257, 640])]
+    for window in (0, 100, 5000):
+        plan = ops.paged_plan(args[0], args[1], args[3], window)
+        meta = ops.paged_plan(*(t.to("meta") for t in (args[0], args[1], args[3])), window)
+        assert plan == meta
+
+
+@pytest.mark.parametrize("rows,span,bs", [(16, 20512, 16), (16, 4096, 16), (64, 576, 16),
+                                          (256, 2048, 16), (1, 16, 16), (64, 1, 16),
+                                          (8, 1000, 8), (600, 32768, 16), (1, 65536, 16)])
+def test_paged_splits_cover_the_span_in_whole_blocks(rows, span, bs):
+    chunk, splits = ops.paged_splits(rows, span, bs)
+    assert chunk % bs == 0 and splits >= 1
+    assert (splits - 1) * chunk < max(span, 1) <= splits * chunk
+    assert splits == 1 or chunk >= ops._PAGED_CHUNK_MIN
+    assert splits <= ops._PAGED_MAX_SPLITS
+    assert rows * splits <= max(rows, 2 * ops._PAGED_CTAS)
+
+
+@pytest.mark.parametrize("G,dh,want", [(1, 80, (1, 1)), (5, 128, (8, 1)), (12, 128, (12, 1)),
+                                       (8, 256, (8, 1)), (16, 256, (8, 2)), (9, 256, (8, 2)),
+                                       (16, 32, (16, 1)), (3, 64, (4, 1)), (13, 128, (16, 1))])
+def test_paged_groups_fit_the_kernel(G, dh, want):
+    assert ops.paged_groups(G, dh) == want
+
+
+# =====================================================================
+# kernel 12's bf16 arithmetic (the wgmma kernel), emulated in plain torch
+# =====================================================================
+def _flash_bf16_emulation(q, k, v, causal, window):
+    """What the bf16 path of ``csrc/flash_attention.cu`` computes: per
+    128-row query tile, the 64-key tiles of the Pallas band; S = Q·Kᵀ from
+    the unscaled bf16 inputs in f32, scaled by dh^-0.5 after; the online
+    (m, l) in f32; O += P_hi·V + P_lo·V with P_hi = bf16(p), P_lo =
+    bf16(p - P_hi); the output rounded once."""
+    qb, kb = ops._fwd_tiles(q, k, v)
+    B, Sq, H, dh = q.shape
+    _, Skv, Hkv, _ = k.shape
+    G = H // Hkv
+    scale = torch.tensor(dh ** -0.5, dtype=torch.float32)
+    kf = k.float().permute(0, 2, 1, 3).repeat_interleave(G, 1)     # (B, H, Skv, dh)
+    vf = v.float().permute(0, 2, 1, 3).repeat_interleave(G, 1)
+    qf = q.float().permute(0, 2, 1, 3)
+    out = torch.empty((B, H, Sq, dh))
+    for q0 in range(0, Sq, 128):
+        rows = torch.arange(q0, min(q0 + 128, Sq))
+        iq = q0 // qb
+        lo_p, hi_p = 0, Skv // kb - 1
+        if causal:
+            hi_p = min(hi_p, (iq * qb + qb - 1) // kb)
+        if window > 0 and iq * qb - window + 1 > 0:
+            lo_p = (iq * qb - window + 1) // kb
+        m = torch.full((B, H, len(rows)), NEG_INF)
+        l = torch.zeros((B, H, len(rows)))
+        acc = torch.zeros((B, H, len(rows), dh))
+        for k0 in range(lo_p * kb, min(Skv, (hi_p + 1) * kb), 64):
+            keys = torch.arange(k0, k0 + 64)
+            kin = keys < Skv
+            kt, vt = kf[:, :, keys.clamp(max=Skv - 1)], vf[:, :, keys.clamp(max=Skv - 1)]
+            s = (qf[:, :, rows] @ kt.transpose(-1, -2)) * scale
+            rel = rows[:, None] - keys[None, :]
+            bad = torch.zeros_like(rel, dtype=torch.bool)
+            if causal:
+                bad |= rel < 0
+            if window > 0:
+                bad |= rel >= window
+            s = torch.where(bad, NEG_INF, s)
+            s = torch.where(kin, s, float("-inf"))
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            hi = p.to(torch.bfloat16).float()
+            lo = (p - hi).to(torch.bfloat16).float()
+            vt = torch.where(kin[:, None], vt, 0.0)
+            acc = acc * corr[..., None] + hi @ vt + lo @ vt
+            m = m_new
+        out[:, :, rows] = acc / l.clamp(min=1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+@pytest.mark.parametrize("amp", [1.0, 3.0])
+@pytest.mark.parametrize("causal,window", MODES)
+@pytest.mark.parametrize("shape", FWD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_flash_bf16_kernel_arithmetic_within_the_bf16_rule(shape, causal, window, amp,
+                                                           force_pallas):
+    """The wgmma kernel's arithmetic against the plain version and the
+    Pallas kernel in interpret mode, at the bf16 rule of phase 15's
+    ``fa_close`` (one bf16 ulp of each row's max plus 2e-5)."""
+    rng = np.random.default_rng(sum(shape) + window + int(amp))
+    arrs = [(rng.normal(0, 1, s) * amp).astype(np.float32) for s in _fwd_shapes(*shape)]
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in arrs)
+    got = _flash_bf16_emulation(q, k, v, causal, window)
+    assert got.dtype == torch.bfloat16
+    _close(got, ops.flash_forward_ref(q, k, v, causal=causal, window=window).float().numpy(),
+           "bfloat16")
+    want = jax_ops.flash_attention(*(jnp.asarray(a).astype(jnp.bfloat16) for a in arrs),
+                                   causal, window)
+    _close(got, want, "bfloat16")
+
+
+@pytest.mark.parametrize("Sq,Skv,causal,window", [(384, 128, True, 64), (256, 100, True, 20)])
+def test_flash_bf16_kernel_arithmetic_rows_without_a_key(Sq, Skv, causal, window):
+    """Rows with no allowed key in the visited blocks: NEG_INF scores give
+    p = 1, so the emulated kernel averages V over those blocks as the plain
+    version does."""
+    rng = np.random.default_rng(Sq + Skv)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, s).astype(np.float32)).to(torch.bfloat16)
+               for s in [(1, Sq, 2, 64), (1, Skv, 1, 64), (1, Skv, 1, 64)])
+    _close(_flash_bf16_emulation(q, k, v, causal, window),
+           ops.flash_forward_ref(q, k, v, causal=causal, window=window).float().numpy(),
+           "bfloat16")

@@ -1,7 +1,7 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package, and the port's entry points run on CUDA
-unless the caller asks for the CPU — with no GPU they raise instead of
-carrying on quietly on the CPU.
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and
+``tools/kernel_ab.py`` import neither JAX nor the JAX package, and the
+port's entry points run on CUDA unless the caller asks for the CPU — with
+no GPU they raise instead of carrying on quietly on the CPU.
 """
 import ast
 import os
@@ -30,7 +30,10 @@ def _imported_roots(path: Path) -> set[str]:
     return roots
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "tools" / "kernel_ab.py"]
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + SCRIPTS,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_sources_import_no_jax_or_reference(path):
     assert not _imported_roots(path) & set(FORBIDDEN)

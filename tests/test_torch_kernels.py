@@ -112,6 +112,60 @@ def test_kernel_matches_plain_on_card(dtype, G, dh):
     assert kernels.launches["paged_decode"] == before + 2
 
 
+# kernel 1's split-K edges (nbmax, window, lens) at bs 16, chunk 144 or
+# 128 here: seq_len 0, 1 and 16k ± 1, lengths on a split boundary, nbmax·bs
+# far above every length (empty splits), windows whose lo falls inside a
+# block, rows whose first blocks lie wholly before the window
+PAGED_SPLIT_CASES = [
+    (40, 0, (0, 1, 15, 17, 128, 256, 257, 640)),
+    (40, 260, (0, 1, 15, 17, 128, 256, 300, 640)),
+    (200, 0, (0, 1, 33, 129, 300, 511, 512, 513)),
+    (64, 300, (0, 1, 299, 300, 301, 777, 1000, 1024)),
+    (64, 272, (0, 17, 143, 144, 145, 288, 289, 1023)),
+]
+
+
+def _paged_split_case(rng, nbmax, lens, *, G, dh, Hkv=2, bs=16):
+    q, pk, pv, bt, sl = _paged_case(rng, G=G, dh=dh, Hkv=Hkv, bs=bs, lens=lens)
+    wide = np.zeros((len(lens), nbmax), np.int32)
+    wide[:, :bt.shape[1]] = bt
+    return q, pk, pv, wide, sl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G,dh", [(12, 128), (5, 128), (16, 256), (1, 80)])
+@pytest.mark.parametrize("nbmax,window,lens", PAGED_SPLIT_CASES,
+                         ids=lambda x: str(x) if not isinstance(x, tuple) else "lens")
+def test_paged_splitk_edges_match_plain_on_card(nbmax, window, lens, G, dh, dtype):
+    """Kernel 1's split-K partition and last-arriving merge at the edges
+    of its chunks, against the plain version; two launches give the same
+    bits (the merge runs in split order, and the arrival counters are back
+    at zero after each launch)."""
+    _needs_card()
+    dt = getattr(torch, dtype)
+    q, pk, pv, bt, sl = (torch.from_numpy(a).cuda() for a in
+                         _paged_split_case(np.random.default_rng(nbmax + G), nbmax, lens,
+                                           G=G, dh=dh))
+    args = (q.to(dt), pk.to(dt), pv.to(dt), bt, sl)
+    assert ops.paged_plan(args[0], args[1], bt, window)["splits"] > 1
+    before = kernels.launches["paged_decode"]
+    out = ops.paged_decode(*args, window=window)
+    again = ops.paged_decode(*args, window=window)
+    ref = ops.paged_decode_ref(*args, window=window).float()
+    torch.cuda.synchronize()
+    assert kernels.launches["paged_decode"] == before + 2
+    assert torch.equal(out, again)
+    out = out.float()
+    if dtype == "float32":
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    else:
+        row_err, row_scale = (out - ref).abs().amax(-1), ref.abs().amax(-1)
+        assert bool((row_err <= BF16_ROW_TOL * row_scale).all()), \
+            float((row_err / row_scale.clamp(min=1e-30)).max())
+    assert not out[torch.tensor(lens) == 0].any()    # seq_len 0: zeros
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape,tau", list(zip(KD_SHAPES, KD_TEMPS)),
