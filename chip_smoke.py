@@ -10,8 +10,9 @@ JAX package.  Phases, each of which fails the run if it fails:
   1. card      name and power limit (nvidia-smi); TF32 off for matmul/cuDNN
   2. build     every kernel under src/repro_torch/kernels/csrc, one nvcc each,
                all started together; the HGMMA count of each bf16 instance
-               of kernel 12 in the built SASS (cuobjdump -sass from nvcc's
-               toolkit): none, or no cuobjdump, fails the run
+               of kernel 12 and of each GEMM instance of kernel 10 in the
+               built SASS (cuobjdump -sass from nvcc's toolkit): none, or no
+               cuobjdump, fails the run
   3. kernel    paged_decode against its plain version at the Qwen2.5-14B
                shapes (B=8, Hkv=8, G=5, dh=128, bs=16; ragged lens with 0, 1,
                bs, bs+1 and 2048; a windowed case), Gemma's (Hkv=1, G=8,
@@ -73,7 +74,10 @@ JAX package.  Phases, each of which fails the run if it fails:
                V with gemma-2b's tied head, and every option (untied, bias, f32
                cache, no lse) at (5, 50,304) and (512, 517), a bf16 head at two
                shapes; CUDA-event timings at 512 x 2,048 x 256,000 beside the
-               bound, the plain version and a library composition
+               bound, the plain version and a library composition; kernel 10's
+               bound counts the bf16 tensor-core products it runs (9 with an
+               f32 head: each product as hi·hi + hi·lo + lo·hi), with the
+               f32 CUDA-core bound and the one-product bound beside it
  13. LM f32    gemma-2b reduced with V = 50,304, lm_task (8 clients, 512 KD
                rows), fedsdd K=4 R=2, 2 rounds from the same weights made on
                the card, deterministic algorithms on: head-fused and unfused
@@ -91,7 +95,8 @@ JAX package.  Phases, each of which fails the run if it fails:
                K=4 R=2, distill_steps 20, head-fused Flash-KD with the default
                bf16 cache, the teacher ring stored in bf16; per round t_local,
                t_kd, the cache build, peak memory and kernels 9/10's launches
-               (20 each); then 5 KD steps under torch.profiler
+               (20 each); then 5 KD steps under torch.profiler, kernels 9
+               and 10's device time and share of the step
  15. flash     kernels 11-12 (flash_attention.cu): first their own path, the
                reference's kernel bench and tests through the public ops
                (counts zeroed before, read after); then against their plain
@@ -100,9 +105,9 @@ JAX package.  Phases, each of which fails the run if it fails:
                4,096, causal, f32 and bf16; starcoder2-3b's window 4,096 at
                S = 16,384; one
                backward at qwen2.5-14b's width; decode at the bench shape and
-               at qwen2.5-14b's decode_32k per card, cache_len 1, 700, S - 1,
-               S; CUDA-event timings beside the bound, the plain version and
-               scaled_dot_product_attention
+               at qwen2.5-14b's decode_32k per card, cache_len 0 (the mean of
+               V), 1, 700, S - 1, S; CUDA-event timings beside the bound, the
+               plain version and scaled_dot_product_attention
  16. sc2 f32   starcoder2-3b at full width, 2 layers, f32: ContinuousEngine
                == generate_static within the window; a 20,480-token prompt
                (block-local sliding_attention prefill) served through kernel
@@ -311,26 +316,32 @@ def _cuobjdump(build) -> str:
     return str(tool)
 
 
+SASS_WGMMA = {"flash_attention": "flash_fwd_wgmma",   # kernel 12, bf16
+              "flash_kd": "k105gemm3"}                # kernel 10 (k10::gemm3, mangled)
+
+
 def sass_phase(build) -> None:
-    """Whether kernel 12's bf16 path runs on the tensor cores: the HGMMA
-    instructions in the SASS of each `flash_fwd_wgmma` instance of the
-    built library (cuobjdump -sass).  Fails the run if an instance holds
-    none, or if cuobjdump is missing from nvcc's toolkit."""
+    """Whether kernel 12's bf16 path and kernel 10's GEMM passes run on the
+    tensor cores: the HGMMA instructions in the SASS of each of their
+    instances in the built libraries (cuobjdump -sass).  Fails the run if
+    an instance holds none, if a library has no instance, or if cuobjdump
+    is missing from nvcc's toolkit."""
     tool = _cuobjdump(build)
-    sass = subprocess.run([tool, "-sass", str(build.library_path("flash_attention"))],
-                          capture_output=True, text=True, check=True, timeout=300).stdout
-    counts, fn = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :", 1)[1].strip()
-            if "flash_fwd_wgmma" in fn:
-                counts[fn] = 0
-        elif fn in counts and "HGMMA" in line:
-            counts[fn] += 1
-    print(json.dumps({"phase": "kernel 12 bf16 SASS", "tool": tool,
-                      "hgmma_per_function": counts}), flush=True)
-    check(len(counts) > 0 and all(n > 0 for n in counts.values()),
-          f"kernel 12's bf16 instances hold no HGMMA: {counts}")
+    for lib, pattern in SASS_WGMMA.items():
+        sass = subprocess.run([tool, "-sass", str(build.library_path(lib))],
+                              capture_output=True, text=True, check=True, timeout=300).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :", 1)[1].strip()
+                if pattern in fn:
+                    counts[fn] = 0
+            elif fn in counts and "HGMMA" in line:
+                counts[fn] += 1
+        print(json.dumps({"phase": f"{lib} tensor-core SASS", "tool": tool,
+                          "hgmma_per_function": counts}), flush=True)
+        check(len(counts) > 0 and all(n > 0 for n in counts.values()),
+              f"{lib}'s tensor-core instances hold no HGMMA: {counts}")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -538,7 +549,7 @@ def f32_depth2_phase(serve, zoo, get_config, seed: int):
 
 def _kernel_group(name: str) -> str:
     low = name.lower()
-    if "paged_decode" in low:
+    if "pagedrows" in low:              # kernel 1: splitk::decode_kernel<..., PagedRows>
         return "paged_decode"
     if any(s in low for s in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
         return "matmul"
@@ -577,6 +588,8 @@ def profile_chunk(engine, serve, vocab: int, rng, before_launches: int) -> dict:
     groups = dict.fromkeys(("matmul", "paged_decode", "other"), 0.0)
     for e in kern:
         groups[_kernel_group(e.key)] += e.self_device_time_total / 1e3 / k
+    check(not kern or groups["paged_decode"] > 0,
+          f"profile: no device time found for kernel 1 (paged_decode): {groups}")
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
     return {"phase": "decode micro-step profile", "lanes": engine.max_batch,
             "wall_ms_per_micro_step": wall_ms,
@@ -1291,16 +1304,27 @@ def plain_flash(kd_ops, flash):
     return stack
 
 
-def _bound(nbytes: float, ops: float):
+def _bound(nbytes: float, ops: float, peak: float = PEAK_FLOPS[torch.float32]):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FLOPS[torch.float32] * 1e3
+    t_ops = ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def head_bwd_products(es: int) -> int:
+    """bf16 tensor-core products kernel 10 runs per 2·B·D·V: each f32
+    operand is split into bf16 hi and lo and a product runs as hi·hi +
+    hi·lo + lo·hi, 3 for each of its 3 GEMMs; a bf16 head has no lo half
+    (logits 1, dW 2, dh 2)."""
+    return 9 if es == 4 else 5
 
 
 def flash_bound(name: str, B: int, V: int, D: int, es: int, et: int, bias: bool, lse: bool):
     """(bound_ms, bound_by): every input read once and every output written
-    once over HBM, vs the f32 operations over the f32 peak (the products
-    2·B·D·V each, about 10 per (row, column) for the streaming epilogue)."""
+    once over HBM, vs the operations over their peak: kernels 7-9 in f32 on
+    the CUDA cores (the products 2·B·D·V each, about 10 per (row, column)
+    for the streaming epilogue); kernel 10 the bf16 tensor-core products it
+    runs at this accuracy (``head_bwd_products``) at the bf16 dense peak.
+    ``head_bwd_bounds`` gives kernel 10's other two for comparison."""
     rows = B * 4 * (2 if name.endswith("bwd") else 1) + (B * 4 if lse else 0) + 12
     if name == "flash_kd_fwd":                  # s, t -> loss, lse_s, lse_t
         return _bound(B * V * (es + et) + rows, 10 * B * V)
@@ -1310,7 +1334,16 @@ def flash_bound(name: str, B: int, V: int, D: int, es: int, et: int, bias: bool,
     if name == "flash_kd_head_fwd":             # h, W, b, t -> loss, lse_s, lse_t
         return _bound(head, 2 * B * D * V + 10 * B * V)
     return _bound(head + D * V * es + B * D * es + (V * es if bias else 0),   # + dh, dW, db
-                  3 * 2 * B * D * V + 10 * B * V)
+                  head_bwd_products(es) * 2 * B * D * V, PEAK_FLOPS[torch.bfloat16])
+
+
+def head_bwd_bounds(B: int, V: int, D: int) -> dict:
+    """Kernel 10's operation bounds that its design does not run at: its
+    three GEMMs as one bf16 product each (below phase 12's accuracy), and
+    in f32 on the CUDA cores (the kernel's earlier CUDA-core design)."""
+    return {"bound_one_bf16_product_ms": 3 * 2 * B * D * V / PEAK_FLOPS[torch.bfloat16] * 1e3,
+            "bound_f32_cuda_cores_ms": (3 * 2 * B * D * V + 10 * B * V)
+            / PEAK_FLOPS[torch.float32] * 1e3}
 
 
 FLASH_LIBRARY = {   # yardsticks only, never called by the port
@@ -1415,6 +1448,8 @@ def flash_check(kd_ops, flash, label, s=None, h=None, w=None, b=None, z=None, ta
             rows[name]["bound_ms"], rows[name]["bound_by"] = flash_bound(
                 name, B, V, D, es, z.element_size(), b is not None, lse)
             rows[name]["library"] = FLASH_LIBRARY[name]
+        if head:
+            rows[bwd].update(head_bwd_bounds(B, V, D))
     for name in (fwd, bwd):
         print(json.dumps(rows[name]), flush=True)
     check(fwd_ok, f"{fwd} disagrees with its plain version ({label}): {rows[fwd]}")
@@ -1565,10 +1600,16 @@ def _kd_group(name: str) -> str:
     low = name.lower()
     if "head_fwd_kernel" in low or "flash_combine" in low:
         return "flash_kd_head_fwd"
-    if any(k in low for k in ("head_d_kernel", "head_gw_kernel", "head_gh_kernel",
-                              "head_gb_kernel")):
+    if "k10::" in low:                  # kernel 10's split, GEMM, bias and reduce passes
         return "flash_kd_head_bwd"
     return "backbone"
+
+
+# the same profile with kernel 10 on the f32 CUDA cores (PERF.md §5; NVIDIA
+# H100 80GB HBM3, 700 W): kernels 9 and 10 of a 140 ms head-fused KD step,
+# printed beside this run's for comparison only
+CUDA_CORE_KD_STEP = {"device_ms_per_step": 140, "flash_kd_head_fwd": 27 / 140,
+                "flash_kd_head_bwd": 82 / 140}
 
 
 def gemma_phase(fed, seed: int, card: str) -> dict:
@@ -1682,11 +1723,14 @@ def gemma_phase(fed, seed: int, card: str) -> dict:
     for e in kern:
         groups[_kd_group(e.key)] += e.self_device_time_total / 1e3 / 5
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    share = {k: groups[k] / busy_ms for k in ("flash_kd_head_fwd", "flash_kd_head_bwd")} \
+        if kern else None
     print(json.dumps({"phase": "profile: 5 head-fused KD steps, gemma-2b full width, 512 rows",
                       "card": card, "wall_ms_per_step": wall_ms,
                       "device_ms_per_step": busy_ms if kern else None,
                       "idle_share": 1 - busy_ms / wall_ms if kern else None,
-                      "device_ms_by_group": groups,
+                      "device_ms_by_group": groups, "device_share": share,
+                      "device_share_cuda_core_kernel_10": CUDA_CORE_KD_STEP,
                       "kernel_launches_per_step": sum(e.count for e in kern) / 5,
                       "top_kernels": [{"name": e.key[:80], "per_step": e.count / 5,
                                        "ms_per_step": e.self_device_time_total / 1e3 / 5}
@@ -1912,7 +1956,7 @@ def flash_attention_phase(ops, seed: int) -> tuple[dict, dict, dict]:
         q1 = _rand(gen, (B, 1, H, dh), dtype)
         kc, vc = (_rand(gen, (B, S, Hkv, dh), dtype) for _ in range(2))
         kt, vt = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
-        for clen in (1, 700, S - 1, S):
+        for clen in (0, 1, 700, S - 1, S):             # 0: no valid position, the mean of V
             timed = clen == S
             row = fa_check(f"flash_decode {label} B={B} S={S} H={H} Hkv={Hkv} dh={dh} "
                            f"cache_len={clen} {name}",

@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels at first use and load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
-with ``nvcc`` for ``sm_90a`` into a shared library.  The library's file name
-carries a hash of the source and the flags, so an edited source rebuilds
-and an unchanged one is reused.  Libraries go to ``build/repro_torch/`` at
+with ``nvcc`` for ``sm_90a`` into a shared library (``csrc/*.cuh`` holds
+device code that several sources include).  The library's file name
+carries a hash of the source, the headers and the flags, so an edited
+source or header rebuilds and an unchanged one is reused.  Libraries go to ``build/repro_torch/`` at
 the root of the checkout (git-ignored).
 
 A missing ``nvcc`` or a failed build raises: nothing gives way to the
@@ -48,7 +49,8 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return build_dir() / f"{name}-{digest}.so"
 
 

@@ -62,35 +62,35 @@
 // flash_decode replaces kernel.py:151 (`flash_decode`, body
 // `_flash_decode_kernel` at :120-148): one query token (G rows per KV
 // head) attends a contiguous cache (B, S, Hkv, dh) of which the first
-// `cache_len` positions are valid.
-//
-//   * Split-K: grid (splits, B·Hkv).  Each CTA walks one chunk of the
-//     valid positions in tiles of 32 keys staged with 16-byte loads, keeps
-//     an online (m, l, acc) per query row, and writes that partial state;
-//     a second kernel merges each head's partials in chunk order (no
-//     atomics, so the result is bit-stable).  At B = 8, Hkv = 8 a CTA per
-//     head would fill 64 of the 132 SMs.
-//   * Positions at or past cache_len are skipped.  cache_len <= 0 leaves
-//     no valid position: every score is NEG_INF and the result is the mean
-//     of V over all S, as the Pallas kernel returns.
-//
-// Bound on this card: memory.  2·B·S_valid·Hkv·dh·sizeof(dtype) bytes of
-// K and V at 3.35 TB/s; the 4·G·dh operations per key are far below the
-// f32 rate.  The split gives every SM several CTAs whose loads overlap one
-// another's math; within a CTA the loads of a tile are not overlapped.
+// `cache_len` positions are valid.  It runs kernel 1's split-K body
+// (decode_splitk.cuh: double-buffered `cp.async` tiles of 32 positions, a
+// quarter of dh per lane, rows without branches, the last-arriving CTA's
+// in-order merge, one launch) with the contiguous addressing
+// `splitk::ContiguousRows`: position t of (b, h) at ((b·S + t)·Hkv + h)·dh.
+// What kernel 11 keeps of the Pallas kernel: q cast to f32, then scaled by
+// dh^-0.5 (rounded from double, as the plain version's `dh ** -0.5`);
+// positions at or past cache_len are skipped (Pallas scores them NEG_INF,
+// which weighs 0 beside a real score); cache_len <= 0 leaves no valid
+// position, so every score is NEG_INF and the result is the mean of V over
+// all S (an explicit branch of the addressing, not of the merge).  Bound on
+// this card: bytes, 2·B·S_valid·Hkv·dh·sizeof(dtype) of K and V at
+// 3.35 TB/s; the host's split (whole 32-position tiles, from shapes and
+// the host int cache_len alone) aims at four CTAs per SM.
 //
 // Types: float32 and bfloat16 (all inputs and the output of one type); dh
 // in {32, 64, 80, 128, 256} as a template parameter; G <= 16 for decode.
 // The caller checks shapes, types, alignment (16 bytes) and contiguity;
 // the launches run on the given stream, allocate nothing (the decode
-// partials live in a caller-allocated f32 workspace) and do not
-// synchronise.
+// partials and arrival counters are the caller's) and do not synchronise.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "decode_splitk.cuh"
+#include "hopper_tma.cuh"
 
 namespace {
 
@@ -106,35 +106,6 @@ __device__ __forceinline__ float4 load4(const float* src) {
   return *reinterpret_cast<const float4*>(src);
 }
 
-// One 16-byte load (4 floats or 8 bfloat16s) widened into shared memory.
-__device__ __forceinline__ void stage16(const float* src, float* dst) {
-  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
-}
-__device__ __forceinline__ void stage16(const __nv_bfloat16* src, float* dst) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-  const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
-  reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
-  reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
-}
-template <typename T>
-__device__ __forceinline__ void zero16(float* dst) {
-#pragma unroll
-  for (int i = 0; i < 16 / (int)sizeof(T); i += 4)
-    reinterpret_cast<float4*>(dst)[i / 4] = make_float4(0.f, 0.f, 0.f, 0.f);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 // Over the 16 lanes that share bit 4 of the lane index.
 __device__ __forceinline__ float half_sum(float v) {
 #pragma unroll
@@ -316,83 +287,13 @@ constexpr int kBN = 64;                // keys per tile
 constexpr int kPanel = 64;             // bf16 elements in one 128-byte swizzled row
 constexpr int kPanelRows = 128;        // bytes per panel row
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+using namespace hopper;
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ bool mbar_try(uint64_t* bar, uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok)
-      : "r"(smem_u32(bar)), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  while (!mbar_try(bar, parity)) {
-  }
-}
-
-// One box of a 4-d tensor map into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1,
-                                         int c2, int c3, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
-      "r"(smem_u32(bar))
-      : "memory");
-}
-
-// Shared-memory matrix descriptor, 128-byte swizzle: start address, the
-// leading and stride byte offsets (16-byte units).
-__device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
-// Keeps the compiler from moving reads or writes of wgmma registers across
-// the asynchronous instructions.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
 // D (64 x 64, f32) = A·B (+ D if accumulate): A and B K-major in shared memory.
 __device__ __forceinline__ void mma_ss(float* d, uint64_t da, uint64_t db, int accumulate) {
   asm volatile(
@@ -786,30 +687,6 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tmq,   // q (B, Sq, H, dh)
   }
 }
 
-// cuTensorMapEncodeTiled from the driver, found at run time (no -lcuda).
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr,
-                                                             12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
 // A (B, S, heads, dh) bf16 tensor as a 4-d map (dh, heads, S, B) read in
 // boxes of 64 elements of dh x `rows` positions of one head.
 inline bool encode(CUtensorMap* map, const void* ptr, int B, int S, int heads, int dh,
@@ -831,6 +708,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
            int H, int Hkv, int dh, int causal, int window, int qb_p, int kb_p,
            cudaStream_t stream) {
   constexpr int kBM = 64 * KC;
+  if (const cudaError_t err = bind_context()) return (int)err;
   CUtensorMap tq, tk, tv;
   if (!encode(&tq, q, B, Sq, H, dh, kBM) || !encode(&tk, k, B, Skv, Hkv, dh, kBN) ||
       !encode(&tv, v, B, Skv, Hkv, dh, kBN))
@@ -868,152 +746,6 @@ int forward(int dh, const void* q, const void* k, const void* v, void* out, int 
 
 }  // namespace wg
 
-// ------------------------------------------------------------------- decode
-constexpr int kDecThreads = 128;
-constexpr int kDecWarps = kDecThreads / 32;
-constexpr int kDecTile = 32;        // keys per tile: one per lane in the softmax
-constexpr int kMaxG = 16;           // query rows per KV head
-
-template <typename T, int DH>
-__global__ void __launch_bounds__(kDecThreads)
-flash_decode_split(const T* __restrict__ q,    // (B, Hkv, G, DH)
-                   const T* __restrict__ k,    // (B, S, Hkv, DH)
-                   const T* __restrict__ v,    // (B, S, Hkv, DH)
-                   float* __restrict__ part,   // (B·Hkv, splits, G·(DH + 2))
-                   int len, int S, int Hkv, int G, int chunk, float scale) {
-  extern __shared__ float4 smem4[];
-  constexpr int kLdK = DH + 4;                  // padded K rows: conflict-free float4 reads
-  float* Qs = reinterpret_cast<float*>(smem4);  // G x DH scaled queries
-  float* Ks = Qs + G * DH;                      // kDecTile x kLdK
-  float* Vs = Ks + kDecTile * kLdK;             // kDecTile x DH
-  float* Ss = Vs + kDecTile * DH;               // G x kDecTile probabilities
-  float* Ms = Ss + G * kDecTile;                // G running max
-  float* Ls = Ms + G;                           // G running sum
-  float* Cs = Ls + G;                           // G rescale of this tile
-
-  constexpr int kVec = 16 / sizeof(T);          // elements per 16-byte load
-  constexpr int kChunks = DH / kVec;
-  constexpr int kPerThread = (kMaxG * DH + kDecThreads - 1) / kDecThreads;
-
-  const int split = blockIdx.x, row = blockIdx.y;   // row = b·Hkv + hk
-  const int b = row / Hkv, hk = row % Hkv;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const bool none = len <= 0;                   // no valid position at all
-  const int hi = none ? S : min(len, S);
-  const int lo = split * chunk, end = min(lo + chunk, hi);
-  const size_t kv_row = (size_t)Hkv * DH;
-  const T* kp = k + ((size_t)b * S * Hkv + hk) * DH;
-  const T* vp = v + ((size_t)b * S * Hkv + hk) * DH;
-  const T* qp = q + (size_t)row * G * DH;
-
-  for (int e = tid; e < G * DH; e += kDecThreads) Qs[e] = to_float(qp[e]) * scale;
-  for (int g = tid; g < G; g += kDecThreads) {
-    Ms[g] = kNegInf;
-    Ls[g] = 0.f;
-  }
-  float acc[kPerThread];
-#pragma unroll
-  for (int i = 0; i < kPerThread; ++i) acc[i] = 0.f;
-  __syncthreads();
-
-  for (int t0 = lo; t0 < end; t0 += kDecTile) {
-    // 1. stage the tile's K and V rows; rows at or past `end` are zeros
-    for (int c = tid; c < kDecTile * kChunks; c += kDecThreads) {
-      const int r = c / kChunks, col = (c % kChunks) * kVec, t = t0 + r;
-      float* kd = Ks + r * kLdK + col;
-      float* vd = Vs + r * DH + col;
-      if (t < end) {
-        stage16(kp + (size_t)t * kv_row + col, kd);
-        stage16(vp + (size_t)t * kv_row + col, vd);
-      } else {
-        zero16<T>(kd);
-        zero16<T>(vd);
-      }
-    }
-    __syncthreads();
-
-    // 2. scores and the online softmax: one warp per query row, a lane per key
-    for (int g = warp; g < G; g += kDecWarps) {
-      const float* kr = Ks + lane * kLdK;
-      const float* qr = Qs + g * DH;
-      float s = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < DH; d += 4) {
-        const float4 kk = *reinterpret_cast<const float4*>(kr + d);
-        const float4 qq = *reinterpret_cast<const float4*>(qr + d);
-        s = fmaf(qq.x, kk.x, s);
-        s = fmaf(qq.y, kk.y, s);
-        s = fmaf(qq.z, kk.z, s);
-        s = fmaf(qq.w, kk.w, s);
-      }
-      const float x = t0 + lane < end ? (none ? kNegInf : s) : -CUDART_INF_F;
-      const float m_prev = Ms[g];
-      const float m_new = fmaxf(m_prev, warp_max(x));
-      const float p = expf(x - m_new);
-      const float psum = warp_sum(p);
-      Ss[g * kDecTile + lane] = p;
-      __syncwarp();
-      if (lane == 0) {
-        const float corr = expf(m_prev - m_new);
-        Cs[g] = corr;
-        Ls[g] = Ls[g] * corr + psum;
-        Ms[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // 3. acc = acc * corr + P·V; a thread owns elements tid + i·kDecThreads
-#pragma unroll
-    for (int i = 0; i < kPerThread; ++i) {
-      const int e = tid + i * kDecThreads;
-      if (e < G * DH) {
-        const int g = e / DH, d = e % DH;
-        float a = acc[i] * Cs[g];
-#pragma unroll 8
-        for (int r = 0; r < kDecTile; ++r) a = fmaf(Ss[g * kDecTile + r], Vs[r * DH + d], a);
-        acc[i] = a;
-      }
-    }
-    __syncthreads();
-  }
-
-  // the partial state of this chunk: G maxima, G sums, G x DH accumulators
-  float* pp = part + ((size_t)row * gridDim.x + split) * G * (DH + 2);
-  for (int g = tid; g < G; g += kDecThreads) {
-    pp[g] = Ms[g];
-    pp[G + g] = Ls[g];
-  }
-#pragma unroll
-  for (int i = 0; i < kPerThread; ++i) {
-    const int e = tid + i * kDecThreads;
-    if (e < G * DH) pp[2 * G + e] = acc[i];
-  }
-}
-
-// Merges each head's partials in chunk order: out = Σ acc·w / Σ l·w with
-// w = exp(m_c - max_c m_c).
-template <typename T>
-__global__ void __launch_bounds__(kDecThreads)
-flash_decode_merge(const float* __restrict__ part, T* __restrict__ out, int G, int dh,
-                   int splits) {
-  const int row = blockIdx.x;
-  const size_t stride = (size_t)G * (dh + 2);
-  const float* base = part + (size_t)row * splits * stride;
-  for (int e = threadIdx.x; e < G * dh; e += kDecThreads) {
-    const int g = e / dh;
-    float M = kNegInf;
-    for (int c = 0; c < splits; ++c) M = fmaxf(M, base[c * stride + g]);
-    float L = 0.f, A = 0.f;
-    for (int c = 0; c < splits; ++c) {
-      const float* pc = base + c * stride;
-      const float w = expf(pc[g] - M);
-      L = fmaf(pc[G + g], w, L);
-      A = fmaf(pc[2 * G + e], w, A);
-    }
-    store(out + (size_t)row * G * dh + e, A / fmaxf(L, 1e-30f));
-  }
-}
-
 inline float inv_sqrt(int dh) { return (float)(1.0 / sqrt((double)dh)); }
 
 template <typename Kernel>
@@ -1037,24 +769,6 @@ int launch_forward(const void* q, const void* k, const void* v, void* out, int B
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DH>
-int launch_decode(const void* q, const void* k, const void* v, void* out, float* part,
-                  int len, int B, int S, int Hkv, int G, int chunk, int splits,
-                  cudaStream_t stream) {
-  constexpr int kLdK = DH + 4;
-  const size_t smem = sizeof(float) * ((size_t)G * DH + (size_t)kDecTile * kLdK +
-                                       (size_t)kDecTile * DH + (size_t)G * kDecTile + 3 * G);
-  auto kernel = flash_decode_split<T, DH>;
-  if (const int err = allow_smem(kernel, smem)) return err;
-  kernel<<<dim3(splits, B * Hkv), kDecThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), part,
-      len, S, Hkv, G, chunk, inv_sqrt(DH));
-  if (const cudaError_t err = cudaGetLastError()) return (int)err;
-  flash_decode_merge<T><<<B * Hkv, kDecThreads, 0, stream>>>(part, static_cast<T*>(out), G,
-                                                              DH, splits);
-  return (int)cudaGetLastError();
-}
-
 template <typename T>
 int forward_dh(int dh, const void* q, const void* k, const void* v, void* out, int B, int Sq,
                int Skv, int H, int Hkv, int causal, int window, int qb, int kb,
@@ -1065,20 +779,6 @@ int forward_dh(int dh, const void* q, const void* k, const void* v, void* out, i
     case 80: return launch_forward<T, 80>(q, k, v, out, B, Sq, Skv, H, Hkv, causal, window, qb, kb, s);
     case 128: return launch_forward<T, 128>(q, k, v, out, B, Sq, Skv, H, Hkv, causal, window, qb, kb, s);
     case 256: return launch_forward<T, 256>(q, k, v, out, B, Sq, Skv, H, Hkv, causal, window, qb, kb, s);
-    default: return -1;
-  }
-}
-
-template <typename T>
-int decode_dh(int dh, const void* q, const void* k, const void* v, void* out, float* part,
-              int len, int B, int S, int Hkv, int G, int chunk, int splits,
-              cudaStream_t s) {
-  switch (dh) {
-    case 32: return launch_decode<T, 32>(q, k, v, out, part, len, B, S, Hkv, G, chunk, splits, s);
-    case 64: return launch_decode<T, 64>(q, k, v, out, part, len, B, S, Hkv, G, chunk, splits, s);
-    case 80: return launch_decode<T, 80>(q, k, v, out, part, len, B, S, Hkv, G, chunk, splits, s);
-    case 128: return launch_decode<T, 128>(q, k, v, out, part, len, B, S, Hkv, G, chunk, splits, s);
-    case 256: return launch_decode<T, 256>(q, k, v, out, part, len, B, S, Hkv, G, chunk, splits, s);
     default: return -1;
   }
 }
@@ -1108,22 +808,25 @@ int flash_forward(const void* q, const void* k, const void* v, void* out, int B,
 }
 
 // q (B, 1, Hkv·G, dh), caches (B, S, Hkv, dh), out like q; the first
-// cache_len positions are valid; part holds B·Hkv·splits·G·(dh + 2)
-// floats; CTA c covers positions [c·chunk, (c + 1)·chunk) of the valid ones.
+// cache_len positions are valid (cache_len <= 0: none, and the output is the
+// mean of V over all S).  gb: query rows per CTA (1, 2, 4, 8, 12 or 16; at
+// most 8 for dh 256; 5 too), ng = ceil(G / gb) CTAs per (request, KV head) and
+// split; chunk: positions per split, a multiple of 32; splits: CTAs per
+// row, at most 128.  With splits > 1, part holds B·Hkv·ng·splits·gb·(dh + 2)
+// floats and counters B·Hkv·ng zeros, which the merging CTAs leave zero.
 int flash_decode(const void* q, const void* k, const void* v, void* out, void* part,
-                 int cache_len, int B, int S, int Hkv, int G, int dh,
+                 void* counters, int cache_len, int B, int S, int Hkv, int G, int dh, int gb,
                  int chunk, int splits, int dtype, void* stream) {
-  if (B < 1 || S < 1 || Hkv < 1 || G < 1 || G > kMaxG || chunk < 1 || splits < 1 ||
-      B * Hkv > 65535)
-    return -1;
-  float* pw = static_cast<float*>(part);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return decode_dh<float>(dh, q, k, v, out, pw, cache_len, B, S, Hkv, G, chunk, splits, s);
-  if (dtype == 1)
-    return decode_dh<__nv_bfloat16>(dh, q, k, v, out, pw, cache_len, B, S, Hkv, G, chunk,
-                                    splits, s);
-  return -1;
+  if (S < 1 || chunk % splitk::kTile) return -1;
+  const splitk::ContiguousRows addr{S, Hkv, cache_len};
+  return splitk::run(dtype, dh, gb, q, k, v, addr, out, part, counters, B, Hkv, G, chunk,
+                     splits, inv_sqrt, static_cast<cudaStream_t>(stream));
+}
+
+// CTAs of kernel 11's (dtype, dh, gb) instance that one SM holds at once;
+// -1 for an instance that is not built, below -1 for a failed query.
+int flash_decode_resident(int dtype, int dh, int gb) {
+  return splitk::resident_ctas<splitk::ContiguousRows>(dtype, dh, gb);
 }
 
 const char* cuda_error_string(int code) {

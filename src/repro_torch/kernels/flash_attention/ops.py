@@ -231,14 +231,14 @@ _PAGED_MAX_SPLITS = 128      # the kernel's kMaxSplits
 _PAGED_GB = (1, 2, 4, 8, 12, 16)   # query rows per CTA the kernel is built for
 
 
-def paged_groups(G: int, dh: int) -> tuple[int, int]:
-    """(gb, ng): the kernel's query rows per CTA (the smallest it is built
-    for that holds G, since rows past G are computed all the same; at most
-    8 at dh 256, where the accumulators of more rows would not fit the
+def paged_groups(G: int, dh: int, sizes: tuple = _PAGED_GB) -> tuple[int, int]:
+    """(gb, ng): the kernel's query rows per CTA (the smallest of ``sizes``
+    that holds G, since rows past G are computed all the same; at most 8 at
+    dh 256, where the accumulators of more rows would not fit the
     registers) and the CTAs ``ng = ceil(G / gb)`` that share one (request,
     KV head) and split."""
     cap = 8 if dh == 256 else 16
-    gb = next((g for g in _PAGED_GB if g >= min(G, cap)), cap)
+    gb = next((g for g in sizes if g >= min(G, cap)), cap)
     return gb, -(-G // gb)
 
 
@@ -276,9 +276,9 @@ _COUNTERS: dict = {}
 
 
 def _arrival_counters(device, stream: int, rows: int) -> torch.Tensor:
-    """Kernel 1's per-row arrival counters on this device and stream:
-    zeroed once here, and reset to 0 by the CTA that merges each row, so
-    they stay zero between launches."""
+    """The split-K decode's per-row arrival counters on this device and
+    stream (kernels 1 and 11 share them): zeroed once here, and reset to 0
+    by the CTA that merges each row, so they stay zero between launches."""
     key = (device, stream)
     cnt = _COUNTERS.get(key)
     if cnt is None or cnt.numel() < rows:
@@ -346,9 +346,6 @@ def _lib():
 # =====================================================================
 # launches of csrc/flash_attention.cu
 # =====================================================================
-_DECODE_CHUNK_MIN = 256  # keys per split-K CTA at least (amortises its partial)
-
-
 def _check_common(name: str, tensors: dict, dh: int) -> None:
     first = next(iter(tensors.values()))
     if dh not in _HEAD_DIMS:
@@ -379,36 +376,79 @@ def _launch_forward(q, k, v, causal: bool, window: int):
     return out
 
 
-def decode_splits(rows: int, live: int) -> tuple[int, int]:
-    """(chunk, splits): split-K over the ``live`` >= 1 leading cache
-    positions for ``rows`` = B·Hkv (KV head, request) pairs, into chunks of
-    a multiple of 32 keys, aiming at four CTAs per SM in all."""
-    want = max(1, -(-4 * _SM_COUNT // rows))
-    splits = max(1, min(want, live // _DECODE_CHUNK_MIN))
-    chunk = -(-live // splits)
-    chunk = -(-chunk // 32) * 32
-    return chunk, -(-live // chunk)
+_DECODE_TILE = 32        # the split-K body's positions per pipeline stage
+_DECODE_GB = (1, 2, 4, 5, 8, 12, 16)   # kernel 11's query rows per CTA (5: qwen2.5-14b)
+
+
+def decode_splits(rows: int, live: int, resident: int = 4) -> tuple[int, int]:
+    """(chunk, splits) of kernel 11's split-K over the ``live`` >= 1 leading
+    cache positions for ``rows`` = B·Hkv·ng CTA rows: as many CTAs as the
+    card holds at once (``resident`` a SM, from the instance's occupancy),
+    so that no second wave runs a few CTAs alone; whole 32-position tiles,
+    at least ``_PAGED_CHUNK_MIN`` positions a split when split."""
+    tiles = max(1, -(-live // _DECODE_TILE))
+    want = max(1, min(_PAGED_MAX_SPLITS, resident * _SM_COUNT // rows))
+    splits = max(1, min(want, tiles // max(1, _PAGED_CHUNK_MIN // _DECODE_TILE)))
+    chunk_tiles = -(-tiles // splits)
+    return chunk_tiles * _DECODE_TILE, -(-tiles // chunk_tiles)
+
+
+def decode_plan(q1, k_cache, cache_len: int, resident: int = 4) -> dict:
+    """Kernel 11's launch shape: kernel 1's row groups (with 5 rows a CTA
+    too) and the split over the valid positions (all S when ``cache_len <=
+    0``), from the shapes, the host int ``cache_len`` and the instance's
+    ``resident`` CTAs a SM alone."""
+    B, _, H, dh = q1.shape
+    _, S, Hkv, _ = k_cache.shape
+    G = H // Hkv
+    gb, ng = paged_groups(G, dh, _DECODE_GB)
+    rows = B * Hkv * ng
+    live = S if cache_len <= 0 else min(cache_len, S)
+    chunk, splits = decode_splits(rows, live, resident)
+    return {"G": G, "gb": gb, "ng": ng, "rows": rows, "chunk": chunk, "splits": splits,
+            "part_floats": rows * splits * gb * (dh + 2) if splits > 1 else 0}
+
+
+_RESIDENT: dict = {}
+
+
+def _resident(lib, dtype: int, dh: int, gb: int) -> int:
+    """CTAs of kernel 11's instance one SM holds (the occupancy API, asked
+    once per instance)."""
+    key = (dtype, dh, gb)
+    if key not in _RESIDENT:
+        n = lib.flash_decode_resident(dtype, dh, gb)
+        if n < 1:
+            raise RuntimeError(f"flash_decode: no resident CTA for {key} ({n})")
+        _RESIDENT[key] = n
+    return _RESIDENT[key]
 
 
 def _launch_decode(q1, k_cache, v_cache, cache_len):
     _decode_shapes(q1, k_cache, v_cache)
     B, _, H, dh = q1.shape
     _, S, Hkv, _ = k_cache.shape
-    G = H // Hkv
-    if G > _MAX_G:
-        raise ValueError(f"flash_decode: {G} query heads per KV head "
+    if H // Hkv > _MAX_G:
+        raise ValueError(f"flash_decode: {H // Hkv} query heads per KV head "
                          f"(the kernel takes 1..{_MAX_G})")
     _check_common("flash_decode", {"q1": q1, "k_cache": k_cache, "v_cache": v_cache}, dh)
-    live = S if cache_len <= 0 else min(cache_len, S)
-    chunk, splits = decode_splits(B * Hkv, live)
     lib = _flash_lib()
+    gb = paged_groups(H // Hkv, dh, _DECODE_GB)[0]
+    plan = decode_plan(q1, k_cache, cache_len, _resident(lib, _DTYPES[q1.dtype], dh, gb))
+    if plan["rows"] > 65535:
+        raise ValueError(f"flash_decode: {plan['rows']} (request, KV head, row group) "
+                         f"triples exceed the grid's 65,535")
     out = torch.empty_like(q1)
-    part = torch.empty((B * Hkv * splits * G * (dh + 2),), dtype=torch.float32,
-                       device=q1.device)
     stream = torch.cuda.current_stream(q1.device).cuda_stream
+    part = cnt = None
+    if plan["splits"] > 1:
+        part = torch.empty((plan["part_floats"],), dtype=torch.float32, device=q1.device)
+        cnt = _arrival_counters(q1.device, stream, plan["rows"])
     code = lib.flash_decode(q1.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                            out.data_ptr(), part.data_ptr(), cache_len,
-                            B, S, Hkv, G, dh, chunk, splits, _DTYPES[q1.dtype], stream)
+                            out.data_ptr(), None if part is None else part.data_ptr(),
+                            None if cnt is None else cnt.data_ptr(), cache_len,
+                            B, S, Hkv, plan["G"], dh, plan["gb"], plan["chunk"],
+                            plan["splits"], _DTYPES[q1.dtype], stream)
     build.check(lib, code, "flash_decode")
     kernels.launches["flash_decode"] += 1
     return out
@@ -419,7 +459,9 @@ def _flash_lib():
     if lib.flash_forward.argtypes is None:
         lib.flash_forward.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         lib.flash_forward.restype = ctypes.c_int
-        lib.flash_decode.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+        lib.flash_decode.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
                                      + [ctypes.c_void_p])
         lib.flash_decode.restype = ctypes.c_int
+        lib.flash_decode_resident.argtypes = [ctypes.c_int] * 3
+        lib.flash_decode_resident.restype = ctypes.c_int
     return lib

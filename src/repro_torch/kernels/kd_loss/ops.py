@@ -186,15 +186,17 @@ def _flash_lib():
 def bind_flash(lib) -> None:
     """Declare the C signatures of ``csrc/flash_kd.cu``."""
     vp, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-    for name in ("flash_kd_fwd_chunks", "flash_kd_head_fwd_chunks", "flash_kd_head_bwd_chunk"):
+    for name in ("flash_kd_fwd_chunks", "flash_kd_head_fwd_chunks"):
         getattr(lib, name).argtypes = [i]
         getattr(lib, name).restype = ctypes.c_int
+    lib.flash_kd_head_bwd_workspace.argtypes = [i, i, i]
+    lib.flash_kd_head_bwd_workspace.restype = ll
     lib.flash_kd_fwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, f, f, i, i, vp]
     lib.flash_kd_bwd.argtypes = [vp, vp, vp, vp, vp, vp, i, i, f, f, i, i, vp]
     lib.flash_kd_head_fwd.argtypes = [vp, vp, ll, ll, vp, vp, vp, vp, vp, vp, vp,
                                       i, i, i, f, f, i, i, vp]
     lib.flash_kd_head_bwd.argtypes = [vp, vp, ll, ll, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-                                      i, i, i, i, f, f, i, i, vp]
+                                      i, i, i, f, f, i, i, vp]
     for fn in (lib.flash_kd_fwd, lib.flash_kd_bwd, lib.flash_kd_head_fwd,
                lib.flash_kd_head_bwd):
         fn.restype = ctypes.c_int
@@ -294,18 +296,20 @@ def flash_head_fwd_launch(lib, stream: int, h, w, b, t, lse_t, temperature: floa
 
 
 def flash_head_bwd_launch(lib, stream: int, h, w, b, t, lse_s, lse_t, g, temperature: float):
-    """Kernel 10: ``(∂h, ∂W, ∂b)``; ∂W has W's strides, ∂h is summed in f32."""
+    """Kernel 10: ``(∂h, ∂W, ∂b)``; ∂W has W's strides, ∂h is summed in f32.
+    The workspace holds the bf16 hi/lo planes of h, of one chunk of W and
+    of d, and the split partials of ∂h (``csrc/flash_kd.cu``, k10::plan)."""
     B, D = h.shape
     V = t.shape[1]
-    C = lib.flash_kd_head_bwd_chunk(V)
-    f32 = dict(dtype=torch.float32, device=h.device)
-    gh, dws = torch.empty((B, D), **f32), torch.empty((B, C), **f32)
+    gh = torch.empty((B, D), dtype=torch.float32, device=h.device)
+    ws = torch.empty((lib.flash_kd_head_bwd_workspace(B, D, V),), dtype=torch.uint8,
+                     device=h.device)
     gw = torch.empty_strided(tuple(w.shape), w.stride(), dtype=w.dtype, device=w.device)
     gb = None if b is None else torch.empty_like(b)
     code = lib.flash_kd_head_bwd(h.data_ptr(), w.data_ptr(), w.stride(0), w.stride(1), _ptr(b),
                                  t.data_ptr(), lse_s.data_ptr(), lse_t.data_ptr(), g.data_ptr(),
-                                 gh.data_ptr(), gw.data_ptr(), _ptr(gb), dws.data_ptr(), B, D,
-                                 V, C, 1.0 / temperature, temperature / B, _DTYPES[h.dtype],
+                                 gh.data_ptr(), gw.data_ptr(), _ptr(gb), ws.data_ptr(), B, D,
+                                 V, 1.0 / temperature, temperature / B, _DTYPES[h.dtype],
                                  _DTYPES[t.dtype], stream)
     build.check(lib, code, "flash_kd_head_bwd")
     return gh.to(h.dtype), gw, gb

@@ -16,12 +16,17 @@ allowed key, ``cache_len <= 0``) complete that part.  The CUDA kernels
 themselves are held against these plain versions on the card by
 ``tests/test_torch_kernels.py`` and ``chip_smoke.py``.
 
-Two emulations in plain torch stand for what the CUDA kernels compute
+Three emulations in plain torch stand for what the CUDA kernels compute
 differently from their plain versions.  Kernel 1 (``paged_decode``):
 its host split of each row's live range into chunks and the in-order
 merge of the chunks' (m, l, acc) partials, held against
 ``paged_decode_ref`` and the Pallas kernel at f32 rtol = atol = 1e-5
-(only the order of summation differs).  Kernel 12 (``flash_attention``
+(only the order of summation differs).  Kernel 11 (``flash_decode``,
+which now runs kernel 1's split-K body over a contiguous cache): the
+same partition in whole 32-position tiles and merge, with
+``cache_len <= 0`` as its own branch (every position scores NEG_INF),
+held against ``flash_decode_ref`` and the Pallas kernel at the sweep's
+f32 atol.  Kernel 12 (``flash_attention``
 in bf16, the ``wgmma`` kernel): Q·Kᵀ from the unscaled bf16 inputs with
 the scale after, P split into bf16 hi and lo for P·V, held against the
 plain version and the Pallas kernel at the bf16 rule above.
@@ -345,6 +350,84 @@ def test_paged_splits_cover_the_span_in_whole_blocks(rows, span, bs):
                                        (16, 32, (16, 1)), (3, 64, (4, 1)), (13, 128, (16, 1))])
 def test_paged_groups_fit_the_kernel(G, dh, want):
     assert ops.paged_groups(G, dh) == want
+
+
+# =====================================================================
+# kernel 11's split-K partition and merge (kernel 1's body), emulated
+# =====================================================================
+def _decode_splitk(q1, k, v, cache_len, resident=4):
+    """What ``csrc/flash_attention.cu`` computes for ``flash_decode`` with
+    the split-K body of ``csrc/decode_splitk.cuh``, in f32: the host's plan
+    (whole 32-position tiles, ``resident`` CTAs a SM), a partial (m, l, acc)
+    per live chunk of [0, min(cache_len, S)), merged in split order with
+    weights exp(m_c - M).  ``cache_len <= 0`` is its own branch: every
+    position of the cache is live and scores NEG_INF (p = 1)."""
+    plan = ops.decode_plan(q1, k, cache_len, resident)
+    chunk, splits = plan["chunk"], plan["splits"]
+    B, _, H, dh = q1.shape
+    _, S, Hkv, _ = k.shape
+    G = H // Hkv
+    qg = q1.reshape(B, Hkv, G, dh).float() * dh ** -0.5
+    none = cache_len <= 0
+    hi = S if none else min(cache_len, S)
+    n_live = -(-hi // chunk)
+    assert n_live <= splits
+    parts = []
+    for c in range(n_live):
+        p0, p1 = c * chunk, min((c + 1) * chunk, hi)
+        s = torch.einsum("bhgd,bkhd->bhgk", qg, k[:, p0:p1].float())
+        if none:
+            s = torch.full_like(s, NEG_INF)
+        m = s.amax(-1)
+        p = torch.exp(s - m[..., None])
+        parts.append((m, p.sum(-1), torch.einsum("bhgk,bkhd->bhgd", p, v[:, p0:p1].float())))
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    L, A = torch.zeros_like(M), torch.zeros((B, Hkv, G, dh))
+    for m, l_c, a in parts:
+        w = torch.exp(m - M)
+        L, A = L + l_c * w, A + a * w[..., None]
+    return (A / L.clamp(min=1e-30)[..., None]).reshape(B, 1, H, dh).to(q1.dtype)
+
+
+@pytest.mark.parametrize("G", [1, 5, 8])
+@pytest.mark.parametrize("clen", [-3, 0, 1, 700, 1023, 1024])
+def test_decode_splitk_matches_plain_and_pallas_interpret(G, clen, force_pallas):
+    """Kernel 11's split-K over a contiguous cache (G rows a KV head,
+    qwen2.5-14b's 5 among them) at cache lengths with no valid position,
+    one, inside a chunk, S - 1 and S: f32 at the sweep's atol against the
+    plain version and the Pallas kernel."""
+    B, S, Hkv, dh = 2, 1024, 2, 64
+    (jq, jk, jv), (q, k, v) = _inputs(G * 31 + clen, _decode_shapes(B, S, G * Hkv, Hkv, dh),
+                                      "float32")
+    got = _decode_splitk(q, k, v, clen)
+    if clen != 1:                                         # one live tile: no merge
+        assert ops.decode_plan(q, k, clen)["splits"] > 1  # the merge is exercised
+    _close(got, ops.flash_decode_ref(q, k, v, clen), "float32")
+    _close(got, jax_ops.flash_decode(jq, jk, jv, jnp.int32(clen)), "float32")
+    if clen <= 0:                                         # the mean of V over all S
+        torch.testing.assert_close(got, v.mean(1).repeat_interleave(G, 1)[:, None],
+                                   rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("resident", [1, 3, 5, 8])
+def test_decode_splitk_plan_fills_one_wave(resident):
+    """The host's plan for kernel 11 reads shapes and the host int alone
+    (it runs on `meta` tensors), covers the valid positions in whole tiles
+    and launches no more CTAs than the card holds at once (``resident`` a
+    SM on 132 SMs), so no second wave runs a few CTAs alone."""
+    for B, S, H, Hkv, dh, clen in [(8, 32768, 40, 8, 128, 32768), (8, 4096, 8, 8, 64, 4096),
+                                   (1, 2048, 16, 1, 256, 0), (2, 1024, 10, 2, 64, 700),
+                                   (64, 512, 8, 8, 64, 1)]:
+        q = torch.empty((B, 1, H, dh), device="meta")
+        k = torch.empty((B, S, Hkv, dh), device="meta")
+        plan = ops.decode_plan(q, k, clen, resident)
+        live = S if clen <= 0 else min(clen, S)
+        assert plan["chunk"] % 32 == 0
+        assert (plan["splits"] - 1) * plan["chunk"] < live <= plan["splits"] * plan["chunk"]
+        assert plan["rows"] * plan["splits"] <= max(plan["rows"], resident * 132)
+        assert plan["gb"] >= min(plan["G"], 8 if dh == 256 else 16)
+    assert ops.decode_plan(torch.empty((8, 1, 40, 128), device="meta"),
+                           torch.empty((8, 32768, 8, 128), device="meta"), 32768, 5)["gb"] == 5
 
 
 # =====================================================================

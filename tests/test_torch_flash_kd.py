@@ -12,6 +12,12 @@
   (d) a hypothesis property over the same space, derandomized.
   (e) a tied head (the embedding's transposed view) gives the same ∂embed
       as the untied head holding the same numbers.
+  (f) kernel 10's tensor-core arithmetic emulated in plain torch (bf16
+      hi/lo halves, three products with f32 sums, the chunked split of
+      ∂h's depth summed in order) against the plain version, the
+      reference's tiled oracle and its Pallas kernel, within the card's
+      bound (2⁻¹⁴ of the summed magnitudes); and, at the LM path's
+      magnitudes, one bf16 product a GEMM outside that bound.
 
 Tolerances.  Values: rtol 1e-5, the reference's own kernel tolerance
 (``tests/test_flash_kd.py``).  The loss also gets an absolute
@@ -342,3 +348,164 @@ def test_plain_defaults_match_reference():
     assert flash.DEFAULT_TILE_V == jflash.DEFAULT_TILE_V
     assert flash.DEFAULT_TILE_V_HOST == jflash.DEFAULT_TILE_V_HOST
     assert flash.FLASH_PAD == jflash.FLASH_PAD
+
+
+# ------------------------------------- (f) kernel 10's tensor-core arithmetic
+# csrc/flash_kd.cu runs kernel 10's three products on bf16 tensor cores with
+# each f32 operand split into hi = bf16(x) and lo = bf16(x − hi), a product
+# as hi·hi + hi·lo + lo·hi with f32 sums; dh's depth is split inside each
+# chunk and the partials are added in split order, chunks in order.  The
+# emulation below computes that in plain torch; it is held against the
+# plain version, the reference's tiled oracle and its Pallas kernel within
+# the card's own bound (chip_smoke.py's SUM_TOL: 2⁻¹⁴ of the summed
+# magnitudes, plus one bf16 ulp for a bf16 result).
+SUM_TOL = 2.0 ** -14
+K10_CHUNK = 16384         # columns per pass (k10::kChunk)
+
+
+def _halves(x):
+    """x as its bf16 halves (hi, lo), each held in f32."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _split_product(a, b, products=3):
+    """a @ b from the operands' bf16 halves, f32 sums: hi·hi + hi·lo + lo·hi
+    (``products=1``: hi·hi alone).  A bf16 operand's lo half is 0."""
+    (ah, al), (bh, bl) = _halves(a), _halves(b)
+    out = ah @ bh
+    return out + ah @ bl + al @ bh if products == 3 else out
+
+
+def _k10_depth_splits(B, D, V, chunk=K10_CHUNK):
+    """Pass (c)'s splits of a chunk's depth, as k10::plan picks them: about
+    one wave of 132 CTAs over the (128 x 128) output tiles, at least 4
+    steps of 64 a split, at most 8, whole steps each."""
+    pad = lambda x: -(-x // 128) * 128                         # noqa: E731
+    tiles = (pad(B) // 128) * (pad(D) // 128)
+    steps = pad(min(V, chunk)) // 64
+    ks = max(1, min(132 // tiles, steps // 4, 8))
+    while steps % ks:
+        ks -= 1
+    return ks, steps // ks
+
+
+def _head_bwd_emulation(h, w, b, z, lse_s, lse_t, g, tau, chunk=K10_CHUNK, products=3):
+    """What kernel 10 computes, in plain torch (see the section's note)."""
+    B, D = h.shape
+    V = z.shape[1]
+    hf, wf = h.float(), w.float()
+    coef = float(g) * tau / B
+    ks, per = _k10_depth_splits(B, D, V, chunk)
+    gh = torch.zeros((B, D))
+    gw = torch.empty((D, V))
+    gb = None if b is None else torch.empty((V,))
+    for v0 in range(0, V, chunk):
+        n = min(chunk, V - v0)
+        wc = wf[:, v0:v0 + n]
+        s = _split_product(hf, wc, products) + (0 if b is None else b.float()[v0:v0 + n])
+        d = coef * (torch.exp(s / tau - lse_s[:, None])
+                    - torch.exp(z[:, v0:v0 + n].float() / tau - lse_t[:, None]))
+        gw[:, v0:v0 + n] = _split_product(hf.T, d, products)
+        for z_ in range(ks):                                   # in split order
+            k0, k1 = z_ * per * 64, min((z_ + 1) * per * 64, n)
+            if k0 < k1:
+                gh = gh + _split_product(d[:, k0:k1], wc[:, k0:k1].T, products)
+        if gb is not None:
+            dh_, dl_ = _halves(d)
+            gb[v0:v0 + n] = (dh_ + dl_).sum(0)
+    out_b = None if gb is None else gb.to(b.dtype)
+    return gh.to(h.dtype), gw.to(w.dtype), out_b
+
+
+def _head_bwd_bounds(h, w, b, z, lse_s, lse_t, g, tau):
+    """Each head gradient's SUM_TOL bound: 2⁻¹⁴ of the summed magnitudes of
+    its products, from (|q| + |p|)·|g|·τ/B."""
+    s = h.double() @ w.double() + (0 if b is None else b.double())
+    mag = (torch.exp(s / tau - lse_s.double()[:, None])
+           + torch.exp(z.double() / tau - lse_t.double()[:, None])) * abs(float(g)) * tau / h.shape[0]
+    return [SUM_TOL * (mag @ w.double().abs().T), SUM_TOL * (h.double().abs().T @ mag),
+            SUM_TOL * mag.sum(0)]
+
+
+def _assert_within(got, ref, bounds):
+    for x, y, bound in zip(got, ref, bounds):
+        if x is None:
+            continue
+        y = torch.from_numpy(np.array(_np(y), np.float64))
+        if x.dtype == torch.bfloat16:
+            bound = bound + 2.0 ** (torch.floor(torch.log2(y.abs().clamp(min=2.0 ** -126))) - 7)
+        assert bool(((x.double() - y).abs() <= bound).all()), float((x.double() - y).abs().max())
+
+
+SPLIT_CASES = [  # B, D, V, chunk, bias, tied, bf16 cache, bf16 head
+    (4, 8, 1000, 256, True, False, False, False),     # a ragged last chunk
+    (5, 64, 1100, 512, True, True, True, False),      # tied, bias, bf16 cache
+    (3, 40, 517, K10_CHUNK, False, False, True, False),   # one ragged chunk, untied
+    (6, 16, 640, 128, False, True, False, False),     # whole 128-column chunks
+    (70, 40, 1100, 256, True, False, True, False),    # more rows than one step
+    (5, 16, 500, 128, True, False, True, True),       # bf16 head and cache
+]
+
+
+def _split_case(B, D, V, bias, tied, bf16_cache, bf16_head, seed):
+    (jh, h), (jw, w), (jb, b), (jz, z) = _head_inputs(B, D, V, bias, seed, bf16_head,
+                                                       bf16_cache)
+    if tied:                      # the embedding's transposed view, as the tied LM head
+        w = w.T.contiguous().T
+    return (jh, h), (jw, w), (jb, b), (jz, z)
+
+
+@pytest.mark.parametrize("B,D,V,chunk,bias,tied,bf16_cache,bf16_head", SPLIT_CASES)
+def test_head_bwd_split_arithmetic_matches_plain_and_reference(B, D, V, chunk, bias, tied,
+                                                               bf16_cache, bf16_head):
+    tau, g = 4.0, 0.7
+    (jh, h), (jw, w), (jb, b), (jz, z) = _split_case(B, D, V, bias, tied, bf16_cache,
+                                                     bf16_head, B * V + D)
+    _, lse_s, lse_t = ops.flash_kd_head_fwd(h, w, b, z, tau)
+    got = _head_bwd_emulation(h, w, b, z, lse_s, lse_t, g, tau, chunk)
+    bounds = _head_bwd_bounds(h, w, b, z, lse_s, lse_t, g, tau)
+    _assert_within(got, ops.flash_kd_head_bwd(h, w, b, z, lse_s, lse_t, torch.tensor(g), tau),
+                   bounds)
+    want = jflash.flash_kd_head_bwd_tiled(jh, jw, jb, jz, jnp.asarray(lse_s.numpy()),
+                                          jnp.asarray(lse_t.numpy()), g, tau, 128)
+    _assert_within(got, want, bounds)
+
+
+@pytest.mark.parametrize("B,D,V,chunk,bias", [(4, 8, 512, 256, True), (3, 40, 1000, 512, False)])
+def test_head_bwd_split_arithmetic_matches_pallas_interpret(B, D, V, chunk, bias):
+    tau, g = 4.0, 1.3
+    (jh, h), (jw, w), (jb, b), (jz, z) = _split_case(B, D, V, bias, True, True, False, 5 * V)
+    _, lse_s, lse_t = ops.flash_kd_head_fwd(h, w, b, z, tau)
+    got = _head_bwd_emulation(h, w, b, z, lse_s, lse_t, g, tau, chunk)
+    want = jflash.flash_kd_head_bwd(jh, jw, jb, jz, jnp.asarray(lse_s.numpy()),
+                                    jnp.asarray(lse_t.numpy()), jnp.float32(g), tau,
+                                    block_v=128, interpret=True)
+    _assert_within(got, want, _head_bwd_bounds(h, w, b, z, lse_s, lse_t, g, tau))
+
+
+def test_head_bwd_needs_the_split_at_the_paths_magnitudes():
+    """Why kernel 10 splits its operands: at gemma-2b's KD-step magnitudes
+    (512 rows of N(0, 1) features, D = 2,048, a tied head of 0.02·N(0, 1), a
+    bf16 cache of 3·N(0, 1), τ = 4; a V slice of 4,096), one bf16 product
+    per GEMM misses the bound on ∂W (and ∂h), while the three-product split
+    holds it with a wide margin.  Errors against a float64 oracle."""
+    B, D, V, tau, g = 512, 2048, 4096, 4.0, 1.5
+    r = np.random.default_rng(0)
+    h = torch.from_numpy(r.normal(0, 1, (B, D)).astype(np.float32))
+    w = torch.from_numpy((r.normal(0, 1, (V, D)) * 0.02).astype(np.float32)).T
+    z = torch.from_numpy(r.normal(0, 3, (B, V)).astype(np.float32)).to(torch.bfloat16)
+    s64 = h.double() @ w.double()
+    lse_s = torch.logsumexp(s64 / tau, -1).float()
+    lse_t = ops.teacher_cache_lse(z, tau)
+    d64 = g * tau / B * (torch.exp(s64 / tau - lse_s.double()[:, None])
+                         - torch.exp(z.double() / tau - lse_t.double()[:, None]))
+    oracle = (d64 @ w.double().T, h.double().T @ d64)
+    bounds = _head_bwd_bounds(h, w, None, z, lse_s, lse_t, g, tau)
+    ratio = {}
+    for products in (1, 3):
+        gh, gw, _ = _head_bwd_emulation(h, w, None, z, lse_s, lse_t, g, tau, V, products)
+        ratio[products] = [float(((x.double() - y).abs() / bd).max())
+                           for x, y, bd in zip((gh, gw), oracle, bounds)]
+    assert max(ratio[3]) < 0.1, ratio           # the split: within a tenth of the bound
+    assert max(ratio[1]) > 1.5, ratio           # one bf16 product: outside it

@@ -442,6 +442,69 @@ def test_flash_kd_losses_backward_through_the_kernels_on_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mdtype", ["float32", "bfloat16"])
+def test_flash_kd_head_bwd_bit_stable_on_card(mdtype):
+    """Kernel 10 twice on the same inputs gives the same bits: its split-K
+    partials of dh are summed in split order and chunks in order, with no
+    atomics on data."""
+    _needs_card()
+    from repro_torch.kernels.kd_loss import flash
+    B, D, V, tau = 300, 256, 20000, 4.0
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    h, w, b, z = _head_case(gen, B, D, V, getattr(torch, mdtype), torch.bfloat16, True, True)
+    _, lse_s, lse_t = flash.flash_kd_head_fwd_tiled(h, w, b, z, tau)
+    g = torch.tensor(0.7, device="cuda")
+    first = kd_ops.flash_kd_head_bwd(h, w, b, z, lse_s, lse_t, g, tau)
+    second = kd_ops.flash_kd_head_bwd(h, w, b, z, lse_s, lse_t, g, tau)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+def _in_fresh_thread(fn):
+    """fn() on a new host thread, whose first CUDA work it is (as an autograd
+    worker's can be): its tensors come from the caching allocator, so no
+    runtime call has bound the device's context to the thread."""
+    import threading
+    out = {}
+
+    def run():
+        try:
+            out["value"] = fn()
+            torch.cuda.synchronize()
+        except Exception as e:                 # noqa: BLE001 (re-raised below)
+            out["error"] = e
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    if "error" in out:
+        raise out["error"]
+    return out["value"]
+
+
+@pytest.mark.cuda
+def test_tensor_map_kernels_launch_from_a_fresh_thread_on_card():
+    """Kernels 10 and 12 (bf16) encode TMA maps through the driver, which
+    needs a current context: launched from a thread that has none they give
+    the bits they give on the main thread."""
+    _needs_card()
+    from repro_torch.kernels.kd_loss import flash
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    h, w, _, z = _head_case(gen, 8, 32, 1000, torch.float32, torch.bfloat16, False, True)
+    _, lse_s, lse_t = flash.flash_kd_head_fwd_tiled(h, w, None, z, 4.0)
+    g = torch.tensor(1.0, device="cuda")
+    q, k, v = (_randn(gen, (1, 256, n, 64), torch.bfloat16) for n in (4, 2, 2))
+    calls = [lambda: kd_ops.flash_kd_head_bwd(h, w, None, z, lse_s, lse_t, g, 4.0)[:2],
+             lambda: (ops.flash_attention(q, k, v, True, 0),)]
+    for call in calls:
+        want = call()
+        torch.cuda.synchronize()
+        got = _in_fresh_thread(call)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.cuda
 def test_flash_kd_refuses_what_the_kernels_do_not_take_on_card():
     _needs_card()
     h = torch.zeros((2, 8), device="cuda")
@@ -548,6 +611,33 @@ def test_flash_decode_matches_plain_on_card(dtype, shape):
             torch.cuda.synchronize()
             assert kernels.launches["flash_decode"] == before + 1
             _flash_close(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(8, 8192, 40, 8, 128), (1, 4096, 16, 1, 256),
+                                   (2, 4096, 24, 2, 128)], ids=lambda s: "x".join(map(str, s)))
+def test_flash_decode_splitk_on_card(dtype, shape):
+    """Kernel 11 on the split-K body: qwen2.5-14b's heads (G 5), G 16 at dh
+    256 (two row groups) and starcoder2-3b's G 12, at cache lengths that
+    end inside, on and past a chunk, and none (the mean of V); one launch
+    a call, and two calls give the same bits (the last-arriving CTA merges
+    in split order)."""
+    _needs_card()
+    B, S, H, Hkv, dh = shape
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(S + H + dh)
+    q = _randn(gen, (B, 1, H, dh), dt)
+    k, v = (_randn(gen, (B, S, Hkv, dh), dt) for _ in range(2))
+    assert ops.decode_plan(q, k, S)["splits"] > 1
+    for clen in (-3, 0, 1, 129, S // 3, S - 1, S):
+        before = kernels.launches["flash_decode"]
+        out = ops.flash_decode(q, k, v, clen)
+        again = ops.flash_decode(q, k, v, clen)
+        torch.cuda.synchronize()
+        assert kernels.launches["flash_decode"] == before + 2
+        _flash_close(out, ops.flash_decode_ref(q, k, v, clen))
+        assert torch.equal(out, again)
 
 
 @pytest.mark.cuda

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Kernels 1 (paged_decode) and 12 (flash_forward) of two checkouts, timed
-with one timer on one card.
+"""Kernels 1 (paged_decode), 10 (flash_kd_head_bwd), 11 (flash_decode) and
+12 (flash_forward) of two checkouts, timed with one timer on one card.
 
     python3 tools/kernel_ab.py --parent DIR   # DIR, this checkout, this checkout, DIR
     python3 tools/kernel_ab.py --tree DIR     # one checkout's times
@@ -12,8 +12,11 @@ Each tree runs in a process of its own, which imports ``repro_torch`` from
 cases are chip_smoke.py's: kernel 1 at starcoder2-3b's decode shape with
 its window and without and at qwen2.5-14b's serve lengths, bf16; kernel 12
 at qwen2.5-14b's width, S 4,096, causal, bf16 and f32, and starcoder2-3b's
-window at S 16,384, bf16.  Prints the card's name and power limit, then one
-JSON line per tree.  Needs one NVIDIA GPU.
+window at S 16,384, bf16; kernel 11 at qwen2.5-14b's `decode_32k` (B 8, S
+32,768, 40 heads over 8 of 128, bf16) and the reference bench's decode (B
+8, S 4,096, 8 heads of 64, f32); kernel 10 at gemma-2b's KD step (512 x
+2,048 x 256,000, tied head, f32, bf16 cache).  Prints the card's name and
+power limit, then one JSON line per tree.  Needs one NVIDIA GPU.
 """
 from __future__ import annotations
 
@@ -35,8 +38,9 @@ def time_tree(tree: Path, seed: int) -> dict:
     import chip_smoke as cs
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.kd_loss import ops as kd_ops
     assert Path(ops.__file__).resolve().is_relative_to(tree.resolve()), ops.__file__
-    build.build_all(["paged_decode", "flash_attention"])
+    build.build_all(["paged_decode", "flash_attention", "flash_kd"])
     gen = torch.Generator(device="cuda").manual_seed(seed)
     bf16 = torch.bfloat16
     out = {"tree": str(tree)}
@@ -64,6 +68,23 @@ def time_tree(tree: Path, seed: int) -> dict:
     k, v = (cs._rand(gen, (1, S, 2, 128), bf16) for _ in range(2))
     record(f"k12 starcoder2 S={S} window={W} bfloat16",
            lambda: ops.flash_attention(q, k, v, True, W))
+    del q, k, v
+    for label, B, S, H, Hkv, dh, dtype in cs.FA_DECODE:
+        q1 = cs._rand(gen, (B, 1, H, dh), dtype)
+        kc, vc = (cs._rand(gen, (B, S, Hkv, dh), dtype) for _ in range(2))
+        record(f"k11 {label} {str(dtype).removeprefix('torch.')}",
+               lambda: ops.flash_decode(q1, kc, vc, S))
+        del q1, kc, vc
+    torch.cuda.empty_cache()
+    B, D, V, tau = 512, 2048, 256000, 4.0
+    embed = torch.randn((V, D), generator=gen, device="cuda") * 0.02
+    h = torch.randn((B, D), generator=gen, device="cuda")
+    z = (torch.randn((B, V), generator=gen, device="cuda") * 3).to(bf16)
+    _, lse_s, lse_t = kd_ops.flash_kd_head_fwd(h, embed.T, None, z, tau,
+                                               teacher_lse=kd_ops.teacher_cache_lse(z, tau))
+    g = torch.tensor(1.5, device="cuda")
+    record(f"k10 {B}x{D}x{V} tied bf16 cache",
+           lambda: kd_ops.flash_kd_head_bwd(h, embed.T, None, z, lse_s, lse_t, g, tau))
     return out
 
 
