@@ -10,9 +10,10 @@ JAX package.  Phases, each of which fails the run if it fails:
   1. card      name and power limit (nvidia-smi); TF32 off for matmul/cuDNN
   2. build     every kernel under src/repro_torch/kernels/csrc, one nvcc each,
                all started together; the HGMMA count of each bf16 instance
-               of kernel 12 and of each GEMM instance of kernel 10 in the
-               built SASS (cuobjdump -sass from nvcc's toolkit): none, or no
-               cuobjdump, fails the run
+               of kernel 12 and of each instance of kernels 9 and 10's
+               shared GEMM in the built SASS (cuobjdump -sass from nvcc's
+               toolkit): an instance with none, a kernel with no instance,
+               or no cuobjdump fails the run
   3. kernel    paged_decode against its plain version at the Qwen2.5-14B
                shapes (B=8, Hkv=8, G=5, dh=128, bs=16; ragged lens with 0, 1,
                bs, bs+1 and 2048; a windowed case), Gemma's (Hkv=1, G=8,
@@ -74,10 +75,11 @@ JAX package.  Phases, each of which fails the run if it fails:
                V with gemma-2b's tied head, and every option (untied, bias, f32
                cache, no lse) at (5, 50,304) and (512, 517), a bf16 head at two
                shapes; CUDA-event timings at 512 x 2,048 x 256,000 beside the
-               bound, the plain version and a library composition; kernel 10's
-               bound counts the bf16 tensor-core products it runs (9 with an
-               f32 head: each product as hi·hi + hi·lo + lo·hi), with the
-               f32 CUDA-core bound and the one-product bound beside it
+               bound, the plain version and a library composition; kernels
+               9 and 10's bounds count the bf16 tensor-core products they
+               run (3 and 9 with an f32 head: each product as hi·hi + hi·lo
+               + lo·hi), with the f32 CUDA-core bound and the one-product
+               bound beside each
  13. LM f32    gemma-2b reduced with V = 50,304, lm_task (8 clients, 512 KD
                rows), fedsdd K=4 R=2, 2 rounds from the same weights made on
                the card, deterministic algorithms on: head-fused and unfused
@@ -96,7 +98,8 @@ JAX package.  Phases, each of which fails the run if it fails:
                bf16 cache, the teacher ring stored in bf16; per round t_local,
                t_kd, the cache build, peak memory and kernels 9/10's launches
                (20 each); then 5 KD steps under torch.profiler, kernels 9
-               and 10's device time and share of the step
+               and 10's device time and share of the step, beside the same
+               profile with kernel 9 on the f32 CUDA cores
  15. flash     kernels 11-12 (flash_attention.cu): first their own path, the
                reference's kernel bench and tests through the public ops
                (counts zeroed before, read after); then against their plain
@@ -316,32 +319,40 @@ def _cuobjdump(build) -> str:
     return str(tool)
 
 
-SASS_WGMMA = {"flash_attention": "flash_fwd_wgmma",   # kernel 12, bf16
-              "flash_kd": "k105gemm3"}                # kernel 10 (k10::gemm3, mangled)
+# library: {kernel: the substrings that each of its tensor-core instances'
+# mangled names holds}.  Kernels 9 and 10 share split_gemm::gemm3; an
+# instance's epilogue (k9::EpiState, or one of k10's) says whose it is.
+SASS_WGMMA = {"flash_attention": {"flash_forward": ("flash_fwd_wgmma",)},
+              "flash_kd": {"flash_kd_head_fwd": ("10split_gemm5gemm3", "2k98EpiState"),
+                           "flash_kd_head_bwd": ("10split_gemm5gemm3", "3k10")}}
 
 
 def sass_phase(build) -> None:
-    """Whether kernel 12's bf16 path and kernel 10's GEMM passes run on the
-    tensor cores: the HGMMA instructions in the SASS of each of their
+    """Whether kernel 12's bf16 path and kernels 9 and 10's GEMM passes run
+    on the tensor cores: the HGMMA instructions in the SASS of each of their
     instances in the built libraries (cuobjdump -sass).  Fails the run if
-    an instance holds none, if a library has no instance, or if cuobjdump
-    is missing from nvcc's toolkit."""
+    an instance holds none, if a kernel has no instance, or if cuobjdump is
+    missing from nvcc's toolkit."""
     tool = _cuobjdump(build)
-    for lib, pattern in SASS_WGMMA.items():
+    for lib, kernels in SASS_WGMMA.items():
         sass = subprocess.run([tool, "-sass", str(build.library_path(lib))],
                               capture_output=True, text=True, check=True, timeout=300).stdout
-        counts, fn = {}, None
+        counts, fn = {k: {} for k in kernels}, None
         for line in sass.splitlines():
             if "Function :" in line:
                 fn = line.split("Function :", 1)[1].strip()
-                if pattern in fn:
-                    counts[fn] = 0
-            elif fn in counts and "HGMMA" in line:
-                counts[fn] += 1
+                for k, parts in kernels.items():
+                    if all(p in fn for p in parts):
+                        counts[k][fn] = 0
+            elif fn is not None and "HGMMA" in line:
+                for per_fn in counts.values():
+                    if fn in per_fn:
+                        per_fn[fn] += 1
         print(json.dumps({"phase": f"{lib} tensor-core SASS", "tool": tool,
                           "hgmma_per_function": counts}), flush=True)
-        check(len(counts) > 0 and all(n > 0 for n in counts.values()),
-              f"{lib}'s tensor-core instances hold no HGMMA: {counts}")
+        for k, per_fn in counts.items():
+            check(len(per_fn) > 0 and all(n > 0 for n in per_fn.values()),
+                  f"{lib}: {k}'s tensor-core instances hold no HGMMA: {per_fn}")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1310,40 +1321,51 @@ def _bound(nbytes: float, ops: float, peak: float = PEAK_FLOPS[torch.float32]):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def head_bwd_products(es: int) -> int:
-    """bf16 tensor-core products kernel 10 runs per 2·B·D·V: each f32
-    operand is split into bf16 hi and lo and a product runs as hi·hi +
-    hi·lo + lo·hi, 3 for each of its 3 GEMMs; a bf16 head has no lo half
-    (logits 1, dW 2, dh 2)."""
+def head_products(name: str, es: int) -> int:
+    """bf16 tensor-core products per 2·B·D·V that kernels 9 and 10's
+    functions need to hold phase 12's bounds.  Kernel 10 splits each f32
+    operand into bf16 hi and lo and runs a product as hi·hi + hi·lo +
+    lo·hi, 3 for each of its 3 GEMMs, since one product misses its bound; a
+    bf16 head has no lo half (dW 2, dh 2, logits 1).  Kernel 9 runs the
+    same three for its logits, but one product holds its bounds and, through
+    lse_s, kernel 10's (tests/test_torch_flash_kd.py, section (g)), so its
+    bound counts one."""
+    if name == "flash_kd_head_fwd":
+        return 1
     return 9 if es == 4 else 5
 
 
 def flash_bound(name: str, B: int, V: int, D: int, es: int, et: int, bias: bool, lse: bool):
     """(bound_ms, bound_by): every input read once and every output written
-    once over HBM, vs the operations over their peak: kernels 7-9 in f32 on
-    the CUDA cores (the products 2·B·D·V each, about 10 per (row, column)
-    for the streaming epilogue); kernel 10 the bf16 tensor-core products it
-    runs at this accuracy (``head_bwd_products``) at the bf16 dense peak.
-    ``head_bwd_bounds`` gives kernel 10's other two for comparison."""
+    once over HBM, vs the operations over their peak: kernels 7 and 8 in
+    f32 on the CUDA cores (about 10 per (row, column) for the streaming
+    epilogue); kernels 9 and 10 the bf16 tensor-core products their
+    functions need (``head_products``) at the bf16 dense peak.
+    ``head_bounds`` gives the others for comparison."""
     rows = B * 4 * (2 if name.endswith("bwd") else 1) + (B * 4 if lse else 0) + 12
     if name == "flash_kd_fwd":                  # s, t -> loss, lse_s, lse_t
         return _bound(B * V * (es + et) + rows, 10 * B * V)
     if name == "flash_kd_bwd":                  # s, t, lse_s, lse_t, g -> ds
         return _bound(B * V * (2 * es + et) + rows, 8 * B * V)
     head = D * V * es + B * D * es + (V * es if bias else 0) + B * V * et + rows
+    ops = head_products(name, es) * 2 * B * D * V
     if name == "flash_kd_head_fwd":             # h, W, b, t -> loss, lse_s, lse_t
-        return _bound(head, 2 * B * D * V + 10 * B * V)
+        return _bound(head, ops, PEAK_FLOPS[torch.bfloat16])
     return _bound(head + D * V * es + B * D * es + (V * es if bias else 0),   # + dh, dW, db
-                  head_bwd_products(es) * 2 * B * D * V, PEAK_FLOPS[torch.bfloat16])
+                  ops, PEAK_FLOPS[torch.bfloat16])
 
 
-def head_bwd_bounds(B: int, V: int, D: int) -> dict:
-    """Kernel 10's operation bounds that its design does not run at: its
-    three GEMMs as one bf16 product each (below phase 12's accuracy), and
-    in f32 on the CUDA cores (the kernel's earlier CUDA-core design)."""
-    return {"bound_one_bf16_product_ms": 3 * 2 * B * D * V / PEAK_FLOPS[torch.bfloat16] * 1e3,
-            "bound_f32_cuda_cores_ms": (3 * 2 * B * D * V + 10 * B * V)
-            / PEAK_FLOPS[torch.float32] * 1e3}
+def head_bounds(name: str, B: int, V: int, D: int, es: int) -> dict:
+    """Kernel 9's or 10's operation bounds beside the one it reports: kernel
+    9's logits as the products it runs (three on an f32 head), kernel 10's
+    GEMMs as one bf16 product each (which misses its bound), and both in
+    f32 on the CUDA cores (their earlier design)."""
+    gemms = 1 if name == "flash_kd_head_fwd" else 3
+    one = gemms * 2 * B * D * V / PEAK_FLOPS[torch.bfloat16] * 1e3
+    f32 = (gemms * 2 * B * D * V + 10 * B * V) / PEAK_FLOPS[torch.float32] * 1e3
+    if name == "flash_kd_head_fwd":
+        return {"bound_as_run_ms": one * (3 if es == 4 else 1), "bound_f32_cuda_cores_ms": f32}
+    return {"bound_one_bf16_product_ms": one, "bound_f32_cuda_cores_ms": f32}
 
 
 FLASH_LIBRARY = {   # yardsticks only, never called by the port
@@ -1449,7 +1471,8 @@ def flash_check(kd_ops, flash, label, s=None, h=None, w=None, b=None, z=None, ta
                 name, B, V, D, es, z.element_size(), b is not None, lse)
             rows[name]["library"] = FLASH_LIBRARY[name]
         if head:
-            rows[bwd].update(head_bwd_bounds(B, V, D))
+            for name in (fwd, bwd):
+                rows[name].update(head_bounds(name, B, V, D, es))
     for name in (fwd, bwd):
         print(json.dumps(rows[name]), flush=True)
     check(fwd_ok, f"{fwd} disagrees with its plain version ({label}): {rows[fwd]}")
@@ -1596,20 +1619,37 @@ def lm_round_phase(fed, kd_ops, flash, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------- phase 14
-def _kd_group(name: str) -> str:
-    low = name.lower()
-    if "head_fwd_kernel" in low or "flash_combine" in low:
-        return "flash_kd_head_fwd"
-    if "k10::" in low:                  # kernel 10's split, GEMM, bias and reduce passes
-        return "flash_kd_head_bwd"
-    return "backbone"
+def _kd_groups(kern) -> dict:
+    """Device ms of the profiled kernels ``kern`` by group: kernels 9 and 10
+    own their GEMM and reduction passes through their namespaces (k9::,
+    k10::; the GEMM through its epilogue's type).  The W/h split pass
+    (split_gemm::split_planes) is shared, and each of its launches goes to
+    the kernel whose pass runs next on the stream."""
+    groups = dict.fromkeys(("flash_kd_head_fwd", "flash_kd_head_bwd", "backbone"), 0.0)
+    pending = 0.0
+    for e in sorted(kern, key=lambda e: e.time_range.start):
+        low = e.name.lower()
+        ms = e.self_device_time_total / 1e3
+        if "split_planes" in low:
+            pending += ms
+        elif "k9::" in low or "flash_combine" in low:   # kernel 7's combine is not on this path
+            groups["flash_kd_head_fwd"] += ms + pending
+            pending = 0.0
+        elif "k10::" in low:
+            groups["flash_kd_head_bwd"] += ms + pending
+            pending = 0.0
+        else:
+            groups["backbone"] += ms
+    groups["backbone"] += pending
+    return groups
 
 
-# the same profile with kernel 10 on the f32 CUDA cores (PERF.md §5; NVIDIA
-# H100 80GB HBM3, 700 W): kernels 9 and 10 of a 140 ms head-fused KD step,
-# printed beside this run's for comparison only
-CUDA_CORE_KD_STEP = {"device_ms_per_step": 140, "flash_kd_head_fwd": 27 / 140,
-                "flash_kd_head_bwd": 82 / 140}
+# the same profile with kernel 9 on the f32 CUDA cores and kernel 10 on its
+# bf16 GEMM (PERF.md §5, the profile before kernel 9's redesign; NVIDIA H100
+# 80GB HBM3, 700 W): device ms of a head-fused KD step and kernels 9 and
+# 10's shares of it, printed beside this run's for comparison only
+CUDA_CORE_KERNEL_9_KD_STEP = {"device_ms_per_step": 67.2, "flash_kd_head_fwd": 27.4 / 67.2,
+                              "flash_kd_head_bwd": 9.32 / 67.2}
 
 
 def gemma_phase(fed, seed: int, card: str) -> dict:
@@ -1719,9 +1759,8 @@ def gemma_phase(fed, seed: int, card: str) -> dict:
         torch.cuda.synchronize()
     kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / 5
-    groups = dict.fromkeys(("flash_kd_head_fwd", "flash_kd_head_bwd", "backbone"), 0.0)
-    for e in kern:
-        groups[_kd_group(e.key)] += e.self_device_time_total / 1e3 / 5
+    groups = {k: ms / 5 for k, ms in _kd_groups(
+        [e for e in prof.events() if e.device_type == DeviceType.CUDA]).items()}
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
     share = {k: groups[k] / busy_ms for k in ("flash_kd_head_fwd", "flash_kd_head_bwd")} \
         if kern else None
@@ -1730,7 +1769,7 @@ def gemma_phase(fed, seed: int, card: str) -> dict:
                       "device_ms_per_step": busy_ms if kern else None,
                       "idle_share": 1 - busy_ms / wall_ms if kern else None,
                       "device_ms_by_group": groups, "device_share": share,
-                      "device_share_cuda_core_kernel_10": CUDA_CORE_KD_STEP,
+                      "device_share_cuda_core_kernel_9": CUDA_CORE_KERNEL_9_KD_STEP,
                       "kernel_launches_per_step": sum(e.count for e in kern) / 5,
                       "top_kernels": [{"name": e.key[:80], "per_step": e.count / 5,
                                        "ms_per_step": e.self_device_time_total / 1e3 / 5}

@@ -30,31 +30,37 @@
 //     combine kernel merges each row's partials in chunk order and sums the
 //     rows' kl in a fixed order into the loss.  No atomics: bit-stable.
 //   * kernel 8: elementwise over (B, V), one thread per element.
-//   * kernel 9: the student tile h @ W[:, tile] is a 64 x 64 output tile of
-//     an f32 CUDA-core GEMM (shared-memory tiles of depth 16, 4 x 4 outputs a
-//     thread) formed inside the kernel; each CTA walks kHeadChunkTiles such
-//     tiles of its 64 rows, feeding every value straight into the thread's
-//     online state, then merges the 16 lanes of each row and writes partials
-//     for the same combine kernel.  The (B, V) student row never exists.
-//   * kernel 10: three GEMM passes per chunk of 16,384 columns on the
-//     tensor cores (`wgmma` m64n128k16, bf16 operands, f32 accumulators,
-//     fed by TMA; namespace k10 below).  f32 operands do not fit one bf16
+//   * kernels 9 and 10 run their products on the tensor cores (`wgmma`
+//     m64n128k16, bf16 operands, f32 accumulators, fed by TMA; one GEMM for
+//     both, namespace split_gemm below).  f32 operands do not fit one bf16
 //     product: at the path's magnitudes one bf16 product misses the head
 //     gradients' bound (2^-14 of the summed magnitudes) by up to 8x, one
 //     TF32 product by 1.3x.  So each f32 operand x is split into
 //     hi = bf16(x) and lo = bf16(x - hi), and each product runs as
 //     hi·hi + hi·lo + lo·hi (within 0.024 of the bound on the CPU; the
 //     lo·lo term is below f32's own rounding).  A bf16 head has no lo half,
-//     so its products take one (logits) or two bf16 products.  Per chunk:
-//     (0) a split pass reads W[:, chunk] through W's strides, via a
-//     shared-memory tile so that the read runs along W's unit-stride axis
-//     and the write along d, and writes its hi/lo planes as (chunk, D)
-//     rows into a workspace (h and h^T are split once a call); every
-//     workspace dimension is padded to 128 with zeros, so the TMA maps
-//     never see the caller's strides (an untied head at V = 517 has a
-//     2,068-byte row pitch, which TMA cannot map) and no tile is ragged;
-//     (a) S = h W[:, chunk], its epilogue forming d = g tau/B (e^{s - lse_s}
-//     - e^{t - lse_t}) (0 past V, as FLASH_PAD gives) and writing d's hi/lo
+//     so its products take one (logits) or two bf16 products.  Both walk V
+//     in chunks of 16,384 columns; per chunk (0) a split pass reads
+//     W[:, chunk] through W's strides, via a shared-memory tile so that the
+//     read runs along W's unit-stride axis and the write along d, and
+//     writes its hi/lo planes as (chunk, D) rows into a workspace (h, and
+//     for kernel 10 h^T, are split once a call); every workspace dimension
+//     is padded to 128 with zeros, so the TMA maps never see the caller's
+//     strides (an untied head at V = 517 has a 2,068-byte row pitch, which
+//     TMA cannot map) and no tile is ragged; then (a) S = h W[:, chunk].
+//   * kernel 9: pass (a)'s epilogue feeds S into online states and never
+//     stores it.  A thread holds rows r0 and r0 + 8 and 32 columns of each;
+//     per row it takes the max over its 32 values, then sums their
+//     exponentials and the cross term (one rescale a row, as the Pallas
+//     body's per-block update), merges the four lanes of the row (xor 1,
+//     then 2) and writes one partial (ms, ls, mt, lt, x) per (row,
+//     128-column tile).  The teacher's tile and the bias are read before
+//     the mainloop, so their latency hides behind it.  A row's partials
+//     (2,000 at V = 256,000) are merged by one warp, lane i taking tiles i,
+//     i + 32, ... in order and the lanes merged in a fixed tree, and kernel
+//     7's combine turns the rows' states into lse_s, lse_t and the loss.
+//   * kernel 10: pass (a)'s epilogue forms d = g tau/B (e^{s - lse_s}
+//     - e^{t - lse_t}) (0 past V, as FLASH_PAD gives) and writes d's hi/lo
 //     planes; (b) dW[:, chunk] = h^T d, written once from the accumulators
 //     in W's own layout and type (eight lanes hold eight consecutive rows,
 //     so the f32 stores fill whole sectors in either layout); (c) dh +=
@@ -62,35 +68,37 @@
 //     would fill half the card, so the chunk's depth is split (in two
 //     there; shapes alone decide), each split writes an f32 partial and a
 //     reduction adds them to dh in split order, chunks in order; (d) with
-//     a bias, db[chunk] = sum_b d, rows in order.  No atomics on data:
-//     bit-stable from call to call.  A stays K-major everywhere and B is
-//     K-major (a) or MN-major (b, c), the two forms kernel 12 runs; the
-//     scaffolding (TMA, mbarrier ring, descriptors, 128-byte swizzle) is
-//     shared with kernel 12 through hopper_tma.cuh.
+//     a bias, db[chunk] = sum_b d, rows in order.
+//   No atomics on data anywhere: bit-stable from call to call.  A stays
+//   K-major everywhere and B is K-major (a) or MN-major (b, c), the two
+//   forms kernel 12 runs; the scaffolding (TMA, mbarrier ring, descriptors,
+//   128-byte swizzle) is shared with kernel 12 through hopper_tma.cuh.
 //
 // W is read through its strides, so the tied head (embed^T, a (D, V) view
 // with strides (1, D)) is used in place and its gradient is written with the
 // same strides: autograd's transpose back to the embedding copies nothing.
 //
-// Bound on this card (H100 SXM: HBM 3.35 TB/s; f32 outside the tensor cores
-// 67 TFLOP/s) at the LM path's shapes, B = 512 rows, D = 2048, V = 256,000:
+// Bound on this card (H100 SXM: HBM 3.35 TB/s; 989 TFLOP/s bf16 dense) at
+// the LM path's shapes, B = 512 rows, D = 2048, V = 256,000:
 //   kernel 7: bytes, s f32 and z_mean bf16 read once: 0.79 GB, 0.235 ms;
 //   kernel 8: bytes, s and z_mean read, the f32 gradient written: 1.3 GB,
 //   0.39 ms;
-//   kernel 9: operations, 2 B D V = 537 GFLOP: 8.0 ms (bytes alone 0.70 ms);
-//   kernel 10: operations, 3 GEMMs x 3 bf16 products x 2 B D V = 4.83 TFLOP
-//   at 989 TFLOP/s, 4.9 ms (the bytes alone, 1.33 ms).  A one-product
-//   bound (1.6 ms) is out of reach at this accuracy; the f32 CUDA-core
-//   bound of the same three GEMMs is 24 ms.
+//   kernel 9: operations, 3 bf16 products x 2 B D V = 1.61 TFLOP, 1.63 ms
+//   (the bytes alone, 0.70 ms).  One bf16 product (0.54 ms) holds the
+//   forward's own bounds with less margin, and kernel 10, which uses these
+//   normalisers with its own three-product logits, would carry the
+//   difference; the f32 CUDA-core bound is 8.0 ms;
+//   kernel 10: operations, 3 GEMMs x 3 bf16 products x 2 B D V = 4.83 TFLOP,
+//   4.9 ms (the bytes alone, 1.33 ms).  A one-product bound (1.6 ms) is out
+//   of reach at this accuracy; the f32 CUDA-core bound of the same three
+//   GEMMs is 24 ms.
 // Kernels 7 and 8 stream every byte once (kernel 7's partials are 20 B per
-// 4096 columns).  Kernel 9 runs its product on the CUDA cores in f32, the
-// TPU kernel's precision, which caps it at the 67 TFLOP/s peak; a simple
-// 64 x 64 tile without double buffering reaches a fraction of it.  Kernel
-// 10's 128 x 128 tiles, three stages deep, read their operands from L2.
+// 4096 columns).  The GEMMs' 128 x 128 tiles, three stages deep, read
+// their operands from L2; the W split moves W's bytes three times.
 //
-// What a later version changes: kernel 9 on kernel 10's split GEMM;
-// persistent CTAs and 128 x 256 tiles for kernel 10; 16-byte vector loads
-// in 7 and 8.
+// What a later version changes: W's hi/lo planes kept from kernel 9 for
+// kernel 10, or the split folded into the producer's loads; persistent
+// CTAs and 128 x 256 tiles; 16-byte vector loads in 7 and 8.
 //
 // Types: s, z_mean, h, W and b f32 or bf16 (h, W and b share one type); the
 // accumulation is f32 throughout.  The caller checks shapes, types and
@@ -113,10 +121,6 @@ constexpr float kPad = -1e30f;          // FLASH_PAD
 constexpr int kThreads = 256;
 constexpr int kParts = 5;               // floats per partial: ms, ls, mt, lt, x
 constexpr int kRowChunk = 4096;         // kernel 7: columns of one row per CTA
-constexpr int kTile = 64;               // GEMM output tile, rows and columns
-constexpr int kDepth = 16;              // GEMM k-slab in shared memory
-constexpr int kLd = kTile + 4;          // shared-memory row pitch
-constexpr int kHeadChunkTiles = 16;     // kernel 9: 64-column tiles per CTA
 constexpr int kCombineThreads = 256;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -224,7 +228,7 @@ flash_fwd_rows(const TS* __restrict__ s, const TT* __restrict__ t,
   }
 }
 
-// Kernels 7 and 9, second launch: each row's partials merged in chunk order,
+// Kernels 7 and 9, last launch: each row's partials merged in chunk order,
 // the rows' kl summed in a fixed order; loss = sum kl * tau^2 / B.
 template <bool kLse>
 __global__ void __launch_bounds__(kCombineThreads)
@@ -277,126 +281,9 @@ flash_bwd_kernel(const TS* __restrict__ s, const TT* __restrict__ t,
   }
 }
 
-// ------------------------------------------------------------ the GEMM tile
-struct Slabs {
-  float a[kDepth][kLd];
-  float b[kDepth][kLd];
-};
-
-// dst[k][x] = src[(k0 + k) * sk + (x0 + x) * sx], 0 past (K, X).  Neighbouring
-// threads take neighbouring x where x is the unit-stride axis, else
-// neighbouring k, so a warp reads contiguous runs either way.
-template <typename T>
-__device__ __forceinline__ void load_slab(float (*dst)[kLd], const T* __restrict__ src,
-                                          long long sk, long long sx, int k0, int x0, int K,
-                                          int X) {
-#pragma unroll
-  for (int r = 0; r < kDepth * kTile / kThreads; ++r) {
-    const int e = threadIdx.x + r * kThreads;
-    int k, x;
-    if (sx == 1) {
-      k = e / kTile;
-      x = e % kTile;
-    } else {
-      k = e % kDepth;
-      x = e / kDepth;
-    }
-    const int gk = k0 + k, gx = x0 + x;
-    dst[k][x] = (gk < K && gx < X) ? to_float(src[gk * sk + gx * sx]) : 0.f;
-  }
-}
-
-// acc[i][j] = sum_{k < K} A(k, m0 + 4 ty + i) * B(k, n0 + 4 tx + j), summed in
-// k order, with A(k, m) = A[k * a_sk + m * a_sx] (M rows) and
-// B(k, n) = B[k * b_sk + n * b_sx] (N columns); ty = tid / 16, tx = tid % 16.
-template <typename TA, typename TB>
-__device__ __forceinline__ void gemm_tile(float (&acc)[4][4], Slabs& sm, const TA* A,
-                                          long long a_sk, long long a_sx, int M, const TB* Bm,
-                                          long long b_sk, long long b_sx, int N, int K, int m0,
-                                          int n0) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < K; k0 += kDepth) {
-    load_slab(sm.a, A, a_sk, a_sx, k0, m0, K, M);
-    load_slab(sm.b, Bm, b_sk, b_sx, k0, n0, K, N);
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kDepth; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sm.a[k][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = sm.b[k][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
-
-// ---------------------------------------------------------------- kernel 9
-// grid (n_chunks, ceil(B / 64)); h (B, D) row-major, W (D, V) at strides
-// (sw_d, sw_v), bias (V,) or null, t (B, V) row-major.
-template <typename TM, typename TT, bool kLse>
-__global__ void __launch_bounds__(kThreads)
-head_fwd_kernel(const TM* __restrict__ h, const TM* __restrict__ W, long long sw_d,
-                long long sw_v, const TM* __restrict__ bias, const TT* __restrict__ t,
-                const float* __restrict__ lse_t, float* __restrict__ part, int B, int D, int V,
-                int n_chunks, float inv_temp) {
-  __shared__ Slabs sm;
-  const int chunk = blockIdx.x, m0 = blockIdx.y * kTile;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  State st[4];
-  float lt[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty * 4 + i;
-    st[i] = empty_state();
-    lt[i] = (kLse && row < B) ? lse_t[row] : 0.f;
-  }
-  for (int tile = 0; tile < kHeadChunkTiles; ++tile) {
-    const int n0 = (chunk * kHeadChunkTiles + tile) * kTile;
-    if (n0 >= V) break;                                  // the same for every thread
-    float acc[4][4];
-    gemm_tile(acc, sm, h, 1, D, B, W, sw_d, sw_v, V, D, m0, n0);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = m0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = n0 + tx * 4 + j;
-        float sv = kPad, tv = kPad;
-        if (col < V) {
-          sv = acc[i][j] + (bias != nullptr ? to_float(bias[col]) : 0.f);
-          tv = row < B ? to_float(t[(size_t)row * V + col]) : 0.f;
-        }
-        push<kLse>(st[i], sv * inv_temp, tv * inv_temp, lt[i]);
-      }
-    }
-  }
-  // the 16 lanes tx = 0..15 of a half-warp hold the same four rows
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) st[i] = shfl_merge<kLse>(st[i], o);
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = m0 + ty * 4 + i;
-      if (row < B) write_state(part + ((size_t)row * n_chunks + chunk) * kParts, st[i]);
-    }
-  }
-}
-
 // ---------------------------------------------------------------- launches
 inline int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
 inline int fwd_chunks(int V) { return cdiv(V, kRowChunk); }
-inline int head_chunks(int V) { return cdiv(cdiv(V, kTile), kHeadChunkTiles); }
 
 template <typename TS, typename TT>
 void launch_fwd(const void* s, const void* t, const float* lse_t_in, float* part, float* lse_s,
@@ -426,34 +313,10 @@ void launch_bwd(const void* s, const void* t, const float* lse_s, const float* l
       static_cast<TS*>(out), B, V, inv_temp, tau_over_b);
 }
 
-template <typename TM, typename TT>
-void launch_head_fwd(const void* h, const void* W, long long sw_d, long long sw_v,
-                     const void* bias, const void* t, const float* lse_t_in, float* part,
-                     float* lse_s, float* lse_t, float* loss, int B, int D, int V,
-                     float inv_temp, float loss_scale, cudaStream_t st) {
-  const int n = head_chunks(V);
-  const dim3 grid(n, cdiv(B, kTile));
-  const TM* hp = static_cast<const TM*>(h);
-  const TM* wp = static_cast<const TM*>(W);
-  const TM* bp = static_cast<const TM*>(bias);
-  const TT* tp = static_cast<const TT*>(t);
-  if (lse_t_in != nullptr) {
-    head_fwd_kernel<TM, TT, true><<<grid, kThreads, 0, st>>>(hp, wp, sw_d, sw_v, bp, tp, lse_t_in,
-                                                             part, B, D, V, n, inv_temp);
-    flash_combine<true><<<1, kCombineThreads, 0, st>>>(part, lse_t_in, lse_s, lse_t, loss, B, n,
-                                                       loss_scale);
-  } else {
-    head_fwd_kernel<TM, TT, false><<<grid, kThreads, 0, st>>>(hp, wp, sw_d, sw_v, bp, tp, nullptr,
-                                                              part, B, D, V, n, inv_temp);
-    flash_combine<false><<<1, kCombineThreads, 0, st>>>(part, nullptr, lse_s, lse_t, loss, B, n,
-                                                        loss_scale);
-  }
-}
-
-// --------------------------------------------------------------- kernel 10
-// Three GEMM passes per chunk of kChunk columns on the tensor cores, each
-// product as hi·hi + hi·lo + lo·hi of bf16 halves (see the file's header).
-namespace k10 {
+// ------------------------------------------------------- the split GEMM
+// The tensor-core GEMM of kernels 9 and 10, each product as hi·hi + hi·lo +
+// lo·hi of bf16 halves (see the file's header), and its split pass.
+namespace split_gemm {
 
 using namespace hopper;
 
@@ -469,7 +332,6 @@ constexpr size_t kGemmSmem = 1024 + (size_t)kStages * kStageBytes + 2 * kStages 
 constexpr int kChunk = 16384;            // columns of V per pass
 constexpr int kRound = 128;              // every workspace dimension is a multiple of this
 constexpr int kSplitTile = 64;           // the split passes' shared-memory tile
-constexpr int kMaxKSplits = 8;           // pass (c): partial sums per output tile at most
 
 inline long long pad(long long x) { return (x + kRound - 1) / kRound * kRound; }
 
@@ -637,6 +499,259 @@ __device__ __forceinline__ void store_split(__nv_bfloat16* hi, __nv_bfloat16* lo
   *reinterpret_cast<__nv_bfloat162*>(lo) = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
 }
 
+// dst (2, Rp, Cp): the bf16 hi/lo planes of src(r, c) = src[r·s_r + c·s_c]
+// for r < R, c < Cc, zeros elsewhere; with dst_t, the same transposed into
+// (2, Cp, Rp).  A 64 x 64 tile goes through shared memory, read along src's
+// unit-stride axis and written along the rows of each destination, so both
+// sides coalesce.  grid (Cp / 64, Rp / 64).
+template <typename TM>
+__global__ void __launch_bounds__(256)
+split_planes(const TM* __restrict__ src, long long s_r, long long s_c, int R, int Cc,
+             __nv_bfloat16* __restrict__ dst, __nv_bfloat16* __restrict__ dst_t, int Rp,
+             int Cp) {
+  __shared__ float tile[kSplitTile][kSplitTile + 1];
+  const int r0 = blockIdx.y * kSplitTile, c0 = blockIdx.x * kSplitTile;
+  const bool c_unit = s_c == 1;
+  for (int e = threadIdx.x; e < kSplitTile * kSplitTile; e += 256) {
+    const int a = e / kSplitTile, z = e % kSplitTile;    // z along the unit-stride axis
+    const int r = c_unit ? a : z, c = c_unit ? z : a;
+    const int gr = r0 + r, gc = c0 + c;
+    tile[r][c] = (gr < R && gc < Cc) ? to_float(src[gr * s_r + gc * s_c]) : 0.f;
+  }
+  __syncthreads();
+  const size_t plane = (size_t)Rp * Cp;
+  for (int e = threadIdx.x; e < kSplitTile * kSplitTile / 2; e += 256) {
+    const int r = e / (kSplitTile / 2), c = 2 * (e % (kSplitTile / 2));
+    __nv_bfloat16* hi = dst + (size_t)(r0 + r) * Cp + c0 + c;
+    store_split(hi, hi + plane, tile[r][c], tile[r][c + 1]);
+  }
+  if (dst_t == nullptr) return;
+  for (int e = threadIdx.x; e < kSplitTile * kSplitTile / 2; e += 256) {
+    const int c = e / (kSplitTile / 2), r = 2 * (e % (kSplitTile / 2));
+    __nv_bfloat16* hi = dst_t + (size_t)(c0 + c) * Rp + r0 + r;
+    store_split(hi, hi + plane, tile[r][c], tile[r + 1][c]);
+  }
+}
+
+// A (2, rows, cols) bf16 workspace as a 3-d map read in boxes of 64 columns
+// x box_rows rows of one plane, 128-byte swizzle.
+inline bool encode3(CUtensorMap* map, const void* ptr, long long rows, long long cols,
+                    int box_rows) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, 2};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)(rows * cols * 2)};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+inline size_t align256(size_t x) { return (x + 255) / 256 * 256; }
+
+template <bool LA, bool LB, int TB, typename Epi>
+cudaError_t launch_gemm(const CUtensorMap& ma, const CUtensorMap& mb, dim3 grid, int k_steps,
+                        const Epi& epi, cudaStream_t st) {
+  auto kernel = gemm3<LA, LB, TB, Epi>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kGemmSmem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kGemmThreads, kGemmSmem, st>>>(ma, mb, k_steps, epi);
+  return cudaGetLastError();
+}
+
+}  // namespace split_gemm
+
+// ---------------------------------------------------------------- kernel 9
+// Per chunk of kChunk columns the split pass and pass (a), whose epilogue
+// writes one online state per (row, 128-column tile); then a warp per row
+// merges its tiles' states and kernel 7's combine finishes.
+namespace k9 {
+
+using namespace split_gemm;
+
+// (a) rows b, columns c of the chunk, s = (h W + b) / tau and t = z_mean / tau,
+// FLASH_PAD / tau past N: one State per (row, tile) into part (B, tiles,
+// kParts).  The teacher's tile, its lse and the bias are read before the
+// mainloop.
+template <typename TM, typename TT, bool kLse>
+struct EpiState {
+  const TM* bias;
+  const TT* t;
+  const float* lse_t;
+  float* part;
+  int B, V, v0, N, tiles;
+  float inv_temp;
+
+  struct Pre {
+    float t[2][kBN / 8][2];   // t / tau, FLASH_PAD / tau past (B, N)
+    float b[kBN / 8][2];      // the bias, 0 past N
+    float lt[2];              // the teacher's lse (kLse)
+  };
+  __device__ __forceinline__ void load(Pre& pre, int r0, int c0) const {
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = c0 + 8 * j + e;
+        pre.b[j][e] = (bias != nullptr && c < N) ? to_float(bias[v0 + c]) : 0.f;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int b = r0 + 8 * r;
+      const bool row = b < B;
+      pre.lt[r] = (kLse && row) ? lse_t[b] : 0.f;
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = c0 + 8 * j + e;
+          pre.t[r][j][e] = (row && c < N) ? to_float(t[(size_t)b * V + v0 + c]) * inv_temp
+                                          : kPad * inv_temp;
+        }
+    }
+  }
+  // Per row: the max over the thread's 32 values first, then their
+  // exponentials, then the row's four lanes merged (xor 1, then 2).
+  __device__ __forceinline__ void write(const Pre& pre, const float (&acc)[64], int r0,
+                                        int c0) const {
+    const float pad_s = kPad * inv_temp;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float s[kBN / 8][2];
+      float ms = -INFINITY, mt = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s[j][e] = c0 + 8 * j + e < N ? (acc[4 * j + 2 * r + e] + pre.b[j][e]) * inv_temp
+                                       : pad_s;
+          ms = fmaxf(ms, s[j][e]);
+          if (!kLse) mt = fmaxf(mt, pre.t[r][j][e]);
+        }
+      State a = {ms, 0.f, kLse ? 0.f : mt, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float sv = s[j][e], tv = pre.t[r][j][e];
+          a.ls += expf(sv - ms);
+          if (kLse) {
+            a.x += expf(tv - pre.lt[r]) * (tv - sv);
+          } else {
+            const float p = expf(tv - mt);
+            a.lt += p;
+            a.x += p * (tv - sv);
+          }
+        }
+      a = shfl_merge<kLse>(a, 1);
+      a = shfl_merge<kLse>(a, 2);
+      const int b = r0 + 8 * r;
+      if ((threadIdx.x & 3) == 0 && b < B)
+        write_state(part + ((size_t)b * tiles + v0 / kBN + blockIdx.y) * kParts, a);
+    }
+  }
+};
+
+// rows (B, kParts) = each row's tile states merged: warp w of a CTA takes
+// row 8·blockIdx.x + w, lane i its tiles i, i + 32, ... in order, and the
+// lanes merge in a fixed tree.
+template <bool kLse>
+__global__ void __launch_bounds__(256)
+combine_rows(const float* __restrict__ part, float* __restrict__ rows, int B, int tiles) {
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= B) return;                                  // the whole warp
+  const float* p = part + (size_t)row * tiles * kParts;
+  State a = empty_state();
+#pragma unroll 4
+  for (int i = lane; i < tiles; i += 32) a = merge<kLse>(a, read_state(p + (size_t)i * kParts));
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) a = shfl_merge<kLse>(a, o);
+  if (lane == 0) write_state(rows + (size_t)row * kParts, a);
+}
+
+// The workspace, carved in this order (each piece 256-byte aligned): h's
+// planes (2, Bp, Dp); W's chunk (2, Cn, Dp), its rows the chunk's columns;
+// the tile states (B, tiles, kParts) f32; the row states (B, kParts) f32.
+struct Plan {
+  long long Bp, Dp, Cn;
+  int C, tiles;
+  size_t off_h, off_w, off_part, off_rows, bytes;
+};
+
+inline Plan plan(int B, int D, int V) {
+  Plan p;
+  p.C = V < kChunk ? V : kChunk;
+  p.Bp = pad(B);
+  p.Dp = pad(D);
+  p.Cn = pad(p.C);
+  p.tiles = cdiv(V, kBN);                                // kChunk is whole tiles
+  size_t at = 0;
+  p.off_h = at;
+  at = align256(at + 2 * 2 * p.Bp * p.Dp);
+  p.off_w = at;
+  at = align256(at + 2 * 2 * p.Cn * p.Dp);
+  p.off_part = at;
+  at = align256(at + 4 * (size_t)kParts * B * p.tiles);
+  p.off_rows = at;
+  at = align256(at + 4 * (size_t)kParts * B);
+  p.bytes = at;
+  return p;
+}
+
+template <typename TM, typename TT, bool kLse>
+int launch_head_fwd(const void* h, const void* W, long long sw_d, long long sw_v,
+                    const void* bias, const void* t, const float* lse_t_in, float* lse_s,
+                    float* lse_t, float* loss, void* ws, int B, int D, int V, float inv_temp,
+                    float loss_scale, cudaStream_t st) {
+  constexpr bool kLo = std::is_same<TM, float>::value;  // a bf16 head has no lo half
+  const Plan p = plan(B, D, V);
+  unsigned char* base = static_cast<unsigned char*>(ws);
+  auto* hs = reinterpret_cast<__nv_bfloat16*>(base + p.off_h);
+  auto* wsp = reinterpret_cast<__nv_bfloat16*>(base + p.off_w);
+  auto* part = reinterpret_cast<float*>(base + p.off_part);
+  auto* rows = reinterpret_cast<float*>(base + p.off_rows);
+  if (const cudaError_t err = bind_context()) return (int)err;
+  CUtensorMap m_h, m_w;
+  if (!encode3(&m_h, hs, p.Bp, p.Dp, kBM) || !encode3(&m_w, wsp, p.Cn, p.Dp, kBN))
+    return (int)cudaErrorInvalidValue;
+  const TM* hp = static_cast<const TM*>(h);
+  const TM* wp = static_cast<const TM*>(W);
+  split_planes<TM><<<dim3(p.Dp / kSplitTile, p.Bp / kSplitTile), 256, 0, st>>>(
+      hp, D, 1, B, D, hs, nullptr, (int)p.Bp, (int)p.Dp);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  for (int v0 = 0; v0 < V; v0 += p.C) {
+    const int N = std::min(p.C, V - v0);
+    // (0) W[:, v0 : v0 + N] as the rows of the chunk, up to the last tile pass (a) reads
+    split_planes<TM><<<dim3(p.Dp / kSplitTile, pad(N) / kSplitTile), 256, 0, st>>>(
+        wp + v0 * sw_v, sw_v, sw_d, N, D, wsp, nullptr, (int)p.Cn, (int)p.Dp);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    // (a) S = h W_chunk (M = Bp, N's tiles, K = Dp) into the tile states
+    const EpiState<TM, TT, kLse> epi{static_cast<const TM*>(bias), static_cast<const TT*>(t),
+                                     lse_t_in, part, B, V, v0, N, p.tiles, inv_temp};
+    err = launch_gemm<kLo, kLo, 0>(m_h, m_w, dim3(p.Bp / kBM, cdiv(N, kBN), 1),
+                                   (int)(p.Dp / kBK), epi, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  combine_rows<kLse><<<cdiv(B, 8), 256, 0, st>>>(part, rows, B, p.tiles);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  flash_combine<kLse><<<1, kCombineThreads, 0, st>>>(rows, lse_t_in, lse_s, lse_t, loss, B, 1,
+                                                     loss_scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace k9
+
+// --------------------------------------------------------------- kernel 10
+// Three GEMM passes per chunk of kChunk columns, then dh's reduction and db.
+namespace k10 {
+
+using namespace split_gemm;
+
+constexpr int kMaxKSplits = 8;           // pass (c): partial sums per output tile at most
+
 // (a) rows b, columns c of the chunk: d = g tau/B (e^{s/tau - lse_s} -
 // e^{t/tau - lse_t}) with s = h W + b; 0 past (B, N), as FLASH_PAD lanes
 // give; split into the d workspace (2, Bp, Cn).  The teacher's term, the
@@ -740,40 +855,6 @@ struct EpiH {
   }
 };
 
-// dst (2, Rp, Cp): the bf16 hi/lo planes of src(r, c) = src[r·s_r + c·s_c]
-// for r < R, c < Cc, zeros elsewhere; with dst_t, the same transposed into
-// (2, Cp, Rp).  A 64 x 64 tile goes through shared memory, read along src's
-// unit-stride axis and written along the rows of each destination, so both
-// sides coalesce.  grid (Cp / 64, Rp / 64).
-template <typename TM>
-__global__ void __launch_bounds__(256)
-split_planes(const TM* __restrict__ src, long long s_r, long long s_c, int R, int Cc,
-             __nv_bfloat16* __restrict__ dst, __nv_bfloat16* __restrict__ dst_t, int Rp,
-             int Cp) {
-  __shared__ float tile[kSplitTile][kSplitTile + 1];
-  const int r0 = blockIdx.y * kSplitTile, c0 = blockIdx.x * kSplitTile;
-  const bool c_unit = s_c == 1;
-  for (int e = threadIdx.x; e < kSplitTile * kSplitTile; e += 256) {
-    const int a = e / kSplitTile, z = e % kSplitTile;    // z along the unit-stride axis
-    const int r = c_unit ? a : z, c = c_unit ? z : a;
-    const int gr = r0 + r, gc = c0 + c;
-    tile[r][c] = (gr < R && gc < Cc) ? to_float(src[gr * s_r + gc * s_c]) : 0.f;
-  }
-  __syncthreads();
-  const size_t plane = (size_t)Rp * Cp;
-  for (int e = threadIdx.x; e < kSplitTile * kSplitTile / 2; e += 256) {
-    const int r = e / (kSplitTile / 2), c = 2 * (e % (kSplitTile / 2));
-    __nv_bfloat16* hi = dst + (size_t)(r0 + r) * Cp + c0 + c;
-    store_split(hi, hi + plane, tile[r][c], tile[r][c + 1]);
-  }
-  if (dst_t == nullptr) return;
-  for (int e = threadIdx.x; e < kSplitTile * kSplitTile / 2; e += 256) {
-    const int c = e / (kSplitTile / 2), r = 2 * (e % (kSplitTile / 2));
-    __nv_bfloat16* hi = dst_t + (size_t)(c0 + c) * Rp + r0 + r;
-    store_split(hi, hi + plane, tile[r][c], tile[r + 1][c]);
-  }
-}
-
 // dh (B, D) f32 = (first ? 0 : dh) + the k-splits' partials, in split order.
 __global__ void __launch_bounds__(256)
 reduce_dh(const float* __restrict__ part, float* __restrict__ gh, int B, int D, int ld,
@@ -801,21 +882,6 @@ bias_grad(const __nv_bfloat16* __restrict__ ds, long long plane, int ld, TM* __r
   store(gb + v0 + c, s);
 }
 
-// A (2, rows, cols) bf16 workspace as a 3-d map read in boxes of 64 columns
-// x box_rows rows of one plane, 128-byte swizzle.
-inline bool encode3(CUtensorMap* map, const void* ptr, long long rows, long long cols,
-                    int box_rows) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, 2};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)(rows * cols * 2)};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // The workspace, carved in this order (each piece 256-byte aligned): h's
 // planes (2, Bp, Dp) and hᵀ's (2, Dp, Bp); W's chunk (2, Cn, Dp), its rows
 // the chunk's columns; d (2, Bp, Cn); pass (c)'s partials (ks, Bp, Dp) f32.
@@ -824,8 +890,6 @@ struct Plan {
   int C, ks;
   size_t off_h, off_ht, off_w, off_d, off_part, bytes;
 };
-
-inline size_t align256(size_t x) { return (x + 255) / 256 * 256; }
 
 inline Plan plan(int B, int D, int V) {
   Plan p;
@@ -854,17 +918,6 @@ inline Plan plan(int B, int D, int V) {
   at = align256(at + 4 * (size_t)p.ks * p.Bp * p.Dp);
   p.bytes = at;
   return p;
-}
-
-template <bool LA, bool LB, int TB, typename Epi>
-cudaError_t launch_gemm(const CUtensorMap& ma, const CUtensorMap& mb, dim3 grid, int k_steps,
-                        const Epi& epi, cudaStream_t st) {
-  auto kernel = gemm3<LA, LB, TB, Epi>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kGemmSmem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kGemmThreads, kGemmSmem, st>>>(ma, mb, k_steps, epi);
-  return cudaGetLastError();
 }
 
 template <typename TM, typename TT>
@@ -931,6 +984,17 @@ int launch_head_bwd(const void* h, const void* W, long long sw_d, long long sw_v
 
 }  // namespace k10
 
+// f(TM*, TT*), called with null pointers of the types that mdtype and tdtype
+// name (0 float32, 1 bfloat16); -1 for another pair.
+template <typename F>
+int by_dtypes(int mdtype, int tdtype, F f) {
+  if (mdtype == 0 && tdtype == 0) return f((float*)nullptr, (float*)nullptr);
+  if (mdtype == 0 && tdtype == 1) return f((float*)nullptr, (__nv_bfloat16*)nullptr);
+  if (mdtype == 1 && tdtype == 0) return f((__nv_bfloat16*)nullptr, (float*)nullptr);
+  if (mdtype == 1 && tdtype == 1) return f((__nv_bfloat16*)nullptr, (__nv_bfloat16*)nullptr);
+  return -1;
+}
+
 }  // namespace
 
 extern "C" {
@@ -939,10 +1003,12 @@ extern "C" {
 // -1 for a shape or type the kernels do not take.  dtype: 0 float32,
 // 1 bfloat16.  g: the upstream gradient, one f32 on the device.
 
-// Workspace sizes the caller allocates: kernel 7's and 9's partials are
-// (B, chunks, 5) f32; kernel 10's workspace is this many bytes.
+// Sizes the caller allocates: kernel 7's partials are (B, chunks, 5) f32;
+// kernels 9 and 10 take workspaces of this many bytes.
 int flash_kd_fwd_chunks(int V) { return fwd_chunks(V); }
-int flash_kd_head_fwd_chunks(int V) { return head_chunks(V); }
+long long flash_kd_head_fwd_workspace(int B, int D, int V) {
+  return (long long)k9::plan(B, D, V).bytes;
+}
 long long flash_kd_head_bwd_workspace(int B, int D, int V) {
   return (long long)k10::plan(B, D, V).bytes;
 }
@@ -991,29 +1057,25 @@ int flash_kd_bwd(const void* s, const void* t, const float* lse_s, const float* 
 }
 
 // Kernel 9.  W (D, V) at element strides (sw_d, sw_v); bias (V,) or null;
-// mdtype is the type of h, W and bias.
+// mdtype is the type of h, W and bias; lse_t_in as for kernel 7; ws:
+// flash_kd_head_fwd_workspace(B, D, V) bytes, 256-byte aligned.
 int flash_kd_head_fwd(const void* h, const void* W, long long sw_d, long long sw_v,
-                      const void* bias, const void* t, const float* lse_t_in, float* part,
-                      float* lse_s, float* lse_t, float* loss, int B, int D, int V,
-                      float inv_temp, float loss_scale, int mdtype, int tdtype, void* stream) {
-  if (B < 1 || D < 1 || V < 1 || cdiv(B, kTile) > 65535) return -1;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mdtype == 0 && tdtype == 0)
-    launch_head_fwd<float, float>(h, W, sw_d, sw_v, bias, t, lse_t_in, part, lse_s, lse_t, loss,
-                                  B, D, V, inv_temp, loss_scale, st);
-  else if (mdtype == 0 && tdtype == 1)
-    launch_head_fwd<float, __nv_bfloat16>(h, W, sw_d, sw_v, bias, t, lse_t_in, part, lse_s, lse_t,
-                                          loss, B, D, V, inv_temp, loss_scale, st);
-  else if (mdtype == 1 && tdtype == 0)
-    launch_head_fwd<__nv_bfloat16, float>(h, W, sw_d, sw_v, bias, t, lse_t_in, part, lse_s, lse_t,
-                                          loss, B, D, V, inv_temp, loss_scale, st);
-  else if (mdtype == 1 && tdtype == 1)
-    launch_head_fwd<__nv_bfloat16, __nv_bfloat16>(h, W, sw_d, sw_v, bias, t, lse_t_in, part,
-                                                  lse_s, lse_t, loss, B, D, V, inv_temp,
-                                                  loss_scale, st);
-  else
+                      const void* bias, const void* t, const float* lse_t_in, float* lse_s,
+                      float* lse_t, float* loss, void* ws, int B, int D, int V, float inv_temp,
+                      float loss_scale, int mdtype, int tdtype, void* stream) {
+  if (B < 1 || D < 1 || V < 1 || k9::pad(B) / k9::kBM > 65535 ||
+      reinterpret_cast<uintptr_t>(ws) % 256)
     return -1;
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool lse = lse_t_in != nullptr;
+  return by_dtypes(mdtype, tdtype, [&](auto hw, auto tz) {
+    using TM = std::remove_pointer_t<decltype(hw)>;
+    using TT = std::remove_pointer_t<decltype(tz)>;
+    const auto run =
+        lse ? &k9::launch_head_fwd<TM, TT, true> : &k9::launch_head_fwd<TM, TT, false>;
+    return run(h, W, sw_d, sw_v, bias, t, lse_t_in, lse_s, lse_t, loss, ws, B, D, V, inv_temp,
+               loss_scale, st);
+  });
 }
 
 // Kernel 10.  gh: (B, D) f32; gw: W's shape, strides and type; gb: (V,) in
@@ -1029,15 +1091,12 @@ int flash_kd_head_bwd(const void* h, const void* W, long long sw_d, long long sw
     return -1;
   if ((bias == nullptr) != (gb == nullptr)) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define K10_ARGS h, W, sw_d, sw_v, bias, t, lse_s, lse_t, g, gh, gw, gb, ws, B, D, V, inv_temp, \
-                 tau_over_b, st
-  if (mdtype == 0 && tdtype == 0) return k10::launch_head_bwd<float, float>(K10_ARGS);
-  if (mdtype == 0 && tdtype == 1) return k10::launch_head_bwd<float, __nv_bfloat16>(K10_ARGS);
-  if (mdtype == 1 && tdtype == 0) return k10::launch_head_bwd<__nv_bfloat16, float>(K10_ARGS);
-  if (mdtype == 1 && tdtype == 1)
-    return k10::launch_head_bwd<__nv_bfloat16, __nv_bfloat16>(K10_ARGS);
-#undef K10_ARGS
-  return -1;
+  return by_dtypes(mdtype, tdtype, [&](auto hw, auto tz) {
+    using TM = std::remove_pointer_t<decltype(hw)>;
+    using TT = std::remove_pointer_t<decltype(tz)>;
+    return k10::launch_head_bwd<TM, TT>(h, W, sw_d, sw_v, bias, t, lse_s, lse_t, g, gh, gw, gb, ws,
+                                        B, D, V, inv_temp, tau_over_b, st);
+  });
 }
 
 const char* cuda_error_string(int code) {

@@ -186,11 +186,11 @@ def _flash_lib():
 def bind_flash(lib) -> None:
     """Declare the C signatures of ``csrc/flash_kd.cu``."""
     vp, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-    for name in ("flash_kd_fwd_chunks", "flash_kd_head_fwd_chunks"):
-        getattr(lib, name).argtypes = [i]
-        getattr(lib, name).restype = ctypes.c_int
-    lib.flash_kd_head_bwd_workspace.argtypes = [i, i, i]
-    lib.flash_kd_head_bwd_workspace.restype = ll
+    lib.flash_kd_fwd_chunks.argtypes = [i]
+    lib.flash_kd_fwd_chunks.restype = ctypes.c_int
+    for name in ("flash_kd_head_fwd_workspace", "flash_kd_head_bwd_workspace"):
+        getattr(lib, name).argtypes = [i, i, i]
+        getattr(lib, name).restype = ll
     lib.flash_kd_fwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, f, f, i, i, vp]
     lib.flash_kd_bwd.argtypes = [vp, vp, vp, vp, vp, vp, i, i, f, f, i, i, vp]
     lib.flash_kd_head_fwd.argtypes = [vp, vp, ll, ll, vp, vp, vp, vp, vp, vp, vp,
@@ -279,16 +279,19 @@ def flash_bwd_launch(lib, stream: int, s, t, lse_s, lse_t, g, temperature: float
 
 
 def flash_head_fwd_launch(lib, stream: int, h, w, b, t, lse_t, temperature: float):
-    """Kernel 9 (and the combine pass): ``(loss, lse_s, lse_t)``."""
+    """Kernel 9: ``(loss, lse_s, lse_t)``.  The workspace holds the bf16
+    hi/lo planes of h and of one chunk of W, and the online states of each
+    (row, 128-column tile) and of each row (``csrc/flash_kd.cu``, k9::plan)."""
     B, D = h.shape
     V = t.shape[1]
     f32 = dict(dtype=torch.float32, device=h.device)
-    part = torch.empty((B, lib.flash_kd_head_fwd_chunks(V), 5), **f32)
+    ws = torch.empty((lib.flash_kd_head_fwd_workspace(B, D, V),), dtype=torch.uint8,
+                     device=h.device)
     lse_s, loss = torch.empty((B,), **f32), torch.empty((), **f32)
     lse_t_out = lse_t if lse_t is not None else torch.empty((B,), **f32)
     code = lib.flash_kd_head_fwd(h.data_ptr(), w.data_ptr(), w.stride(0), w.stride(1), _ptr(b),
-                                 t.data_ptr(), _ptr(lse_t), part.data_ptr(), lse_s.data_ptr(),
-                                 lse_t_out.data_ptr(), loss.data_ptr(), B, D, V,
+                                 t.data_ptr(), _ptr(lse_t), lse_s.data_ptr(),
+                                 lse_t_out.data_ptr(), loss.data_ptr(), ws.data_ptr(), B, D, V,
                                  1.0 / temperature, temperature ** 2 / B, _DTYPES[h.dtype],
                                  _DTYPES[t.dtype], stream)
     build.check(lib, code, "flash_kd_head_fwd")

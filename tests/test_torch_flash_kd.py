@@ -18,6 +18,11 @@
       reference's tiled oracle and its Pallas kernel, within the card's
       bound (2⁻¹⁴ of the summed magnitudes); and, at the LM path's
       magnitudes, one bf16 product a GEMM outside that bound.
+  (g) kernel 9's: the same three-product logits reduced into per-(row,
+      tile) online states merged in the kernel's order, against the same
+      three oracles within the card's forward bounds, and at the LM path's
+      magnitudes against a float64 oracle, with the d that kernel 10 forms
+      from its lse_s.
 
 Tolerances.  Values: rtol 1e-5, the reference's own kernel tolerance
 (``tests/test_flash_kd.py``).  The loss also gets an absolute
@@ -509,3 +514,211 @@ def test_head_bwd_needs_the_split_at_the_paths_magnitudes():
                            for x, y, bd in zip((gh, gw), oracle, bounds)]
     assert max(ratio[3]) < 0.1, ratio           # the split: within a tenth of the bound
     assert max(ratio[1]) > 1.5, ratio           # one bf16 product: outside it
+
+
+# ------------------------------------- (g) kernel 9's tensor-core arithmetic
+# csrc/flash_kd.cu forms kernel 9's logits as kernel 10's pass (a) forms them
+# (three bf16 products of each f32 operand's halves) and never stores them:
+# per (row, 128-column tile) each of the row's four lanes keeps an online
+# state over its 32 columns (2·lane + 8j + e), its max first; the lanes merge
+# xor 1, then xor 2.  A warp per row merges the row's tile states, lane i
+# taking tiles i, i + 32, ... in order, then the lanes in a tree (xor 1, 2,
+# 4, 8, 16); kernel 7's combine gives lse_s, lse_t and the loss.  Held
+# against the plain version, the reference's tiled oracle and its Pallas
+# kernel within phase 12's forward bounds (chip_smoke.py): the loss within
+# FLASH_HEAD_LOSS_RTOL·|loss| + 2⁻²²·τ²·max|lse|, the normalisers within
+# FLASH_LSE_RTOL·|lse| + 2⁻²²·max|lse|.
+FLASH_HEAD_LOSS_RTOL = 1e-4
+FLASH_LSE_RTOL = 1e-5
+K9_TILE = 128             # columns of one tile state (k9's kBN)
+
+
+def _merge_states(a, b, lse):
+    """Two batches of online states (ms, ls, mt, lt, x), a then b, as
+    csrc/flash_kd.cu's merge; a state with ls = 0 is the identity."""
+    ms = torch.maximum(a[0], b[0])
+    ea, eb = torch.exp(a[0] - ms), torch.exp(b[0] - ms)
+    ls = a[1] * ea + b[1] * eb
+    if lse:
+        mt, lt, x = torch.zeros_like(ms), torch.zeros_like(ms), a[4] + b[4]
+    else:
+        mt = torch.maximum(a[2], b[2])
+        ta, tb = torch.exp(a[2] - mt), torch.exp(b[2] - mt)
+        lt, x = a[3] * ta + b[3] * tb, a[4] * ta + b[4] * tb
+    out = (ms, ls, mt, lt, x)
+    return tuple(torch.where(b[1] == 0, u, torch.where(a[1] == 0, v, w))
+                 for u, v, w in zip(a, b, out))
+
+
+def _lane_states(s, t, lt, lse):
+    """Per-lane states of a (B, tiles, 4, 32) block: the max first, then the
+    sums of exponentials (and the cross term) against it."""
+    ms = s.amax(-1)
+    ls = torch.exp(s - ms[..., None]).sum(-1)
+    if lse:
+        zero = torch.zeros_like(ms)
+        return ms, ls, zero, zero, (torch.exp(t - lt[:, None, None, None]) * (t - s)).sum(-1)
+    mt = t.amax(-1)
+    e = torch.exp(t - mt[..., None])
+    return ms, ls, mt, e.sum(-1), (e * (t - s)).sum(-1)
+
+
+def _head_fwd_emulation(h, w, b, z, tau, teacher_lse=None, chunk=K10_CHUNK, products=3):
+    """What kernel 9 computes, in plain torch (see the section's note);
+    ``products=1``: one bf16 product a logit."""
+    B = h.shape[0]
+    V = z.shape[1]
+    lse = teacher_lse is not None
+    lt = teacher_lse.float() if lse else None
+    inv = 1.0 / tau
+    pad = torch.tensor(flash.FLASH_PAD, dtype=torch.float32) * inv
+    hf, wf = h.float(), w.float()
+    tiles = []
+    for v0 in range(0, V, chunk):
+        n = min(chunk, V - v0)
+        s = (_split_product(hf, wf[:, v0:v0 + n], products)
+             + (0 if b is None else b.float()[v0:v0 + n])) * inv
+        t = z[:, v0:v0 + n].float() * inv
+        nt = -(-n // K9_TILE)
+        s, t = (torch.cat([x, pad.expand(B, nt * K9_TILE - n)], 1) for x in (s, t))
+        # column 8j + 2·lane + e of a tile -> (lane, 2j + e)
+        s, t = (x.reshape(B, nt, 16, 4, 2).transpose(2, 3).reshape(B, nt, 4, 32) for x in (s, t))
+        st = _lane_states(s, t, lt, lse)
+        lane = [tuple(x[..., k] for x in st) for k in range(4)]
+        tiles.append(_merge_states(_merge_states(lane[0], lane[1], lse),
+                                   _merge_states(lane[2], lane[3], lse), lse))
+    part = tuple(torch.cat([tl[k] for tl in tiles], 1) for k in range(5))   # (B, tiles)
+    empty = (torch.full((B,), -float("inf")), torch.zeros(B), torch.full((B,), -float("inf")),
+             torch.zeros(B), torch.zeros(B))
+    lanes = []
+    for i in range(32):                    # lane i: tiles i, i + 32, ... in order
+        a = empty
+        for k in range(i, part[0].shape[1], 32):
+            a = _merge_states(a, tuple(x[:, k] for x in part), lse)
+        lanes.append(a)
+    while len(lanes) > 1:                  # xor 1, 2, 4, 8, 16, as lane 0 sees it
+        lanes = [_merge_states(lanes[k], lanes[k + 1], lse) for k in range(0, len(lanes), 2)]
+    ms, ls, mt, lt_sum, x = lanes[0]
+    lse_s = ms + torch.log(ls)
+    if lse:
+        lse_t, kl = lt, x - lt + lse_s
+    else:
+        lse_t = mt + torch.log(lt_sum)
+        kl = x / lt_sum - lse_t + lse_s
+    return kl.sum() * (tau ** 2 / B), lse_s, lse_t
+
+
+def _fwd_bound_ratios(got, want, tau, lse_raise=0.0):
+    """Each of (loss, lse_s, lse_t): max |got - want| over phase 12's
+    forward bound, the normalisers' magnitudes raised by ``lse_raise``."""
+    loss, ls, lt = (torch.from_numpy(np.array(_np(x), np.float64)) for x in got)
+    wl, ws, wt = (torch.from_numpy(np.array(_np(x), np.float64)) for x in want)
+    scale = float(torch.maximum(ws.abs().max(), wt.abs().max())) + lse_raise
+    out = [float((loss - wl).abs() / (FLASH_HEAD_LOSS_RTOL * wl.abs()
+                                      + ULP_LSE * tau ** 2 * scale))]
+    for a, c in ((ls, ws), (lt, wt)):
+        out.append(float(((a - c).abs() / (FLASH_LSE_RTOL * (c.abs() + lse_raise)
+                                           + ULP_LSE * scale)).max()))
+    return out
+
+
+@pytest.mark.parametrize("B,D,V,chunk,bias,tied,bf16_cache,bf16_head", SPLIT_CASES)
+@pytest.mark.parametrize("lse", [False, True], ids=["online", "teacher_lse"])
+def test_head_fwd_split_arithmetic_matches_plain_and_reference(B, D, V, chunk, bias, tied,
+                                                               bf16_cache, bf16_head, lse):
+    tau = 4.0
+    (jh, h), (jw, w), (jb, b), (jz, z) = _split_case(B, D, V, bias, tied, bf16_cache,
+                                                     bf16_head, B * V + D + 1)
+    tl = ops.teacher_cache_lse(z, tau) if lse else None
+    jl = jnp.asarray(tl.numpy()) if lse else None
+    got = _head_fwd_emulation(h, w, b, z, tau, tl, chunk)
+    plain = ops.flash_kd_head_fwd(h, w, b, z, tau, teacher_lse=tl)
+    want = jflash.flash_kd_head_fwd_tiled(jh, jw, jb, jz, tau, 128, teacher_lse=jl)
+    for ref in (plain, want):
+        ratios = _fwd_bound_ratios(got, ref, tau)
+        assert max(ratios) <= 1.0, ratios
+
+
+@pytest.mark.parametrize("B,D,V,chunk,bias", [(4, 8, 512, 256, True), (3, 40, 1000, 512, False)])
+@pytest.mark.parametrize("lse", [False, True], ids=["online", "teacher_lse"])
+def test_head_fwd_split_arithmetic_matches_pallas_interpret(B, D, V, chunk, bias, lse):
+    tau = 4.0
+    (jh, h), (jw, w), (jb, b), (jz, z) = _split_case(B, D, V, bias, True, True, False, 7 * V)
+    tl = ops.teacher_cache_lse(z, tau) if lse else None
+    got = _head_fwd_emulation(h, w, b, z, tau, tl, chunk)
+    want = jflash.flash_kd_head_fwd(jh, jw, jb, jz, tau, block_v=128, interpret=True,
+                                    teacher_lse=jnp.asarray(tl.numpy()) if lse else None)
+    ratios = _fwd_bound_ratios(got, want, tau)
+    assert max(ratios) <= 1.0, ratios
+
+
+_PATH_V = 4096            # a slice of gemma-2b's V = 256,000
+
+
+def _path_inputs():
+    """gemma-2b's KD-step magnitudes (the section (f) note's): 512 rows of
+    N(0, 1) features, D = 2,048, a tied head of 0.02·N(0, 1), a bf16 cache of
+    3·N(0, 1), τ = 4, a V slice of 4,096; the float64 logits."""
+    r = np.random.default_rng(1)
+    B, D, V = 512, 2048, _PATH_V
+    h = torch.from_numpy(r.normal(0, 1, (B, D)).astype(np.float32))
+    w = torch.from_numpy((r.normal(0, 1, (V, D)) * 0.02).astype(np.float32)).T
+    z = torch.from_numpy(r.normal(0, 3, (B, V)).astype(np.float32)).to(torch.bfloat16)
+    return h, w, z, h.double() @ w.double()
+
+
+def test_head_fwd_split_at_the_paths_magnitudes():
+    """Kernel 9's three products against a float64 oracle at the KD step's
+    magnitudes, the normalisers' magnitudes raised by log(256,000 / 4,096)
+    as at the full vocabulary: the loss and both normalisers within a
+    hundredth of phase 12's bounds.  One bf16 product a logit is recorded
+    beside it (within the bounds too, with less margin; for kernel 10, see
+    test_head_fwd_one_product_lse_holds_kernel_10s_d)."""
+    tau = 4.0
+    h, w, z, s64 = _path_inputs()
+    tl = ops.teacher_cache_lse(z, tau)
+    lse_s64 = torch.logsumexp(s64 / tau, -1)
+    p64 = torch.exp(z.double() / tau - tl.double()[:, None])
+    kl64 = (p64 * (z.double() / tau - s64 / tau)).sum(-1) - tl.double() + lse_s64
+    want = (kl64.mean() * tau ** 2, lse_s64, tl.double())
+    raise_ = float(np.log(256000 / _PATH_V))
+    ratio = {k: _fwd_bound_ratios(_head_fwd_emulation(h, w, None, z, tau, tl, products=k),
+                                  want, tau, raise_) for k in (1, 3)}
+    assert max(ratio[3]) < 1e-2, ratio
+    assert max(ratio[1]) > max(ratio[3]), ratio
+
+
+def _kernel_10s_d_ratio(lse_products):
+    """Kernel 10's d = g·τ/B·(e^{s/τ − lse_s} − e^{t/τ − lse_t}) from its own
+    three-product logits and kernel 9's lse_s at ``lse_products`` bf16
+    products a logit, at the KD step's magnitudes: max |d − d64| over the
+    magnitudes (|q| + |p|)·g·τ/B it subtracts."""
+    tau, g = 4.0, 1.5
+    h, w, z, s64 = _path_inputs()
+    B = h.shape[0]
+    tl = ops.teacher_cache_lse(z, tau)
+    _, lse_s, _ = _head_fwd_emulation(h, w, None, z, tau, tl, products=lse_products)
+    s = _split_product(h, w)
+    p = torch.exp(z.float() / tau - tl[:, None])
+    d = g * tau / B * (torch.exp(s / tau - lse_s[:, None]) - p)
+    q64 = torch.softmax(s64 / tau, -1)
+    p64 = torch.exp(z.double() / tau - tl.double()[:, None])
+    mag = (q64 + p64) * g * tau / B
+    return float(((d.double() - (q64 - p64) * g * tau / B).abs() / mag).max())
+
+
+def test_head_fwd_split_lse_holds_kernel_10s_d():
+    """Kernel 9's three-product lse_s keeps kernel 10's d within SUM_TOL of
+    the float64 d."""
+    ratio = _kernel_10s_d_ratio(3)
+    assert ratio <= SUM_TOL, ratio
+
+
+def test_head_fwd_one_product_lse_holds_kernel_10s_d():
+    """What kernel 9's function needs: an lse_s from one bf16 product a
+    logit also keeps kernel 10's d within SUM_TOL (about 0.43 of it), as it
+    holds phase 12's forward bounds (test_head_fwd_split_at_the_paths_magnitudes).
+    So kernel 9's bound in chip_smoke.py counts one product, not the three
+    it runs; only kernel 10's own logits need three (section (f))."""
+    one, three = _kernel_10s_d_ratio(1), _kernel_10s_d_ratio(3)
+    assert three < one <= SUM_TOL, (one, three)

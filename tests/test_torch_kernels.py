@@ -461,6 +461,25 @@ def test_flash_kd_head_bwd_bit_stable_on_card(mdtype):
         assert torch.equal(x, y)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("mdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("lse", [False, True], ids=["online", "teacher_lse"])
+def test_flash_kd_head_fwd_bit_stable_on_card(mdtype, lse):
+    """Kernel 9 twice on the same inputs gives the same bits: each row's
+    (row, tile) states are merged in tile order, the rows' kl in row order,
+    with no atomics on data."""
+    _needs_card()
+    B, D, V, tau = 300, 256, 20000, 4.0
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    h, w, b, z = _head_case(gen, B, D, V, getattr(torch, mdtype), torch.bfloat16, True, True)
+    tl = kd_ops.teacher_cache_lse(z, tau) if lse else None
+    first = kd_ops.flash_kd_head_fwd(h, w, b, z, tau, teacher_lse=tl)
+    second = kd_ops.flash_kd_head_fwd(h, w, b, z, tau, teacher_lse=tl)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
 def _in_fresh_thread(fn):
     """fn() on a new host thread, whose first CUDA work it is (as an autograd
     worker's can be): its tensors come from the caching allocator, so no
@@ -485,9 +504,9 @@ def _in_fresh_thread(fn):
 
 @pytest.mark.cuda
 def test_tensor_map_kernels_launch_from_a_fresh_thread_on_card():
-    """Kernels 10 and 12 (bf16) encode TMA maps through the driver, which
-    needs a current context: launched from a thread that has none they give
-    the bits they give on the main thread."""
+    """Kernels 9, 10 and 12 (bf16) encode TMA maps with cuTensorMapEncodeTiled,
+    which needs a current context: launched from a thread that has none
+    they give the bits they give on the main thread."""
     _needs_card()
     from repro_torch.kernels.kd_loss import flash
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -495,7 +514,8 @@ def test_tensor_map_kernels_launch_from_a_fresh_thread_on_card():
     _, lse_s, lse_t = flash.flash_kd_head_fwd_tiled(h, w, None, z, 4.0)
     g = torch.tensor(1.0, device="cuda")
     q, k, v = (_randn(gen, (1, 256, n, 64), torch.bfloat16) for n in (4, 2, 2))
-    calls = [lambda: kd_ops.flash_kd_head_bwd(h, w, None, z, lse_s, lse_t, g, 4.0)[:2],
+    calls = [lambda: kd_ops.flash_kd_head_fwd(h, w, None, z, 4.0),
+             lambda: kd_ops.flash_kd_head_bwd(h, w, None, z, lse_s, lse_t, g, 4.0)[:2],
              lambda: (ops.flash_attention(q, k, v, True, 0),)]
     for call in calls:
         want = call()

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Kernels 1 (paged_decode), 10 (flash_kd_head_bwd), 11 (flash_decode) and
-12 (flash_forward) of two checkouts, timed with one timer on one card.
+"""Kernels 1 (paged_decode), 9 (flash_kd_head_fwd), 10 (flash_kd_head_bwd),
+11 (flash_decode) and 12 (flash_forward) of two checkouts, timed with one
+timer on one card.
 
     python3 tools/kernel_ab.py --parent DIR   # DIR, this checkout, this checkout, DIR
     python3 tools/kernel_ab.py --tree DIR     # one checkout's times
@@ -14,9 +15,11 @@ its window and without and at qwen2.5-14b's serve lengths, bf16; kernel 12
 at qwen2.5-14b's width, S 4,096, causal, bf16 and f32, and starcoder2-3b's
 window at S 16,384, bf16; kernel 11 at qwen2.5-14b's `decode_32k` (B 8, S
 32,768, 40 heads over 8 of 128, bf16) and the reference bench's decode (B
-8, S 4,096, 8 heads of 64, f32); kernel 10 at gemma-2b's KD step (512 x
-2,048 x 256,000, tied head, f32, bf16 cache).  Prints the card's name and
-power limit, then one JSON line per tree.  Needs one NVIDIA GPU.
+8, S 4,096, 8 heads of 64, f32); kernels 9 and 10 at gemma-2b's KD step
+(512 x 2,048 x 256,000, tied head, f32, bf16 cache with its lse).  Prints
+the card's name and power limit, then one JSON line per tree, which also
+holds the device ms of the launches of one kernel 9 and one kernel 10 call
+under torch.profiler (no L2 flush), by kernel name.  Needs one NVIDIA GPU.
 """
 from __future__ import annotations
 
@@ -28,6 +31,21 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 QWEN_SERVE_LENS = [456, 412, 504, 441, 98, 84, 340, 552]   # phase 5's busiest decode chunk
+
+
+def pass_times(fn) -> dict:
+    """{kernel name: device ms, launches} of one call of ``fn``, profiled
+    after a warm-up call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key[:160]: {"ms": e.self_device_time_total / 1e3, "launches": e.count}
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
 def time_tree(tree: Path, seed: int) -> dict:
@@ -80,11 +98,19 @@ def time_tree(tree: Path, seed: int) -> dict:
     embed = torch.randn((V, D), generator=gen, device="cuda") * 0.02
     h = torch.randn((B, D), generator=gen, device="cuda")
     z = (torch.randn((B, V), generator=gen, device="cuda") * 3).to(bf16)
-    _, lse_s, lse_t = kd_ops.flash_kd_head_fwd(h, embed.T, None, z, tau,
-                                               teacher_lse=kd_ops.teacher_cache_lse(z, tau))
+    tl = kd_ops.teacher_cache_lse(z, tau)
     g = torch.tensor(1.5, device="cuda")
-    record(f"k10 {B}x{D}x{V} tied bf16 cache",
-           lambda: kd_ops.flash_kd_head_bwd(h, embed.T, None, z, lse_s, lse_t, g, tau))
+
+    def k9():
+        return kd_ops.flash_kd_head_fwd(h, embed.T, None, z, tau, teacher_lse=tl)
+
+    def k10():
+        return kd_ops.flash_kd_head_bwd(h, embed.T, None, z, lse_s, lse_t, g, tau)
+
+    record(f"k9 {B}x{D}x{V} tied bf16 cache", k9)
+    _, lse_s, lse_t = k9()
+    record(f"k10 {B}x{D}x{V} tied bf16 cache", k10)
+    out["k9 passes"], out["k10 passes"] = pass_times(k9), pass_times(k10)
     return out
 
 
