@@ -39,9 +39,12 @@ JAX package.  Phases, each of which fails the run if it fails:
   6. KD       ensemble_softmax, kd_loss_fwd and kd_loss_bwd against their
                plain versions, f32 and bf16: at the FedSDD round's own shapes
                (M = K·R = 8 teachers over 8 server batches of 256, V = 10),
-               at the reference's sweep, and at V = 152,064 (Qwen2.5's
-               vocabulary) with M = 4, B = 256; CUDA-event timings beside
-               the HBM bound and a library composition
+               at the reference's sweep, at V = 152,064 (Qwen2.5's
+               vocabulary) with M = 4, B = 256, and at V = 256,000
+               (gemma-2b's, the LM task's dense path) with M = 8, B = 512;
+               CUDA-event timings beside the HBM bound and a library
+               composition, and launch_floor_ms, one launch of an empty
+               kernel (torch.cuda._sleep(0)) under the same timer
   7. f32 round ResNet-20 (classification_task, 8 clients), fedsdd K=4 R=2,
                2 rounds, twice from the same weights made on the card: with
                the kernels and with the three wrappers patched to their plain
@@ -53,7 +56,9 @@ JAX package.  Phases, each of which fails the run if it fails:
                2 rounds through make_runner(...).run; checks the history, 8
                teachers, the kernels' launch counts (2 / 400 / 400) and that
                models k>0 differ from the main one; then 10 client steps and 10
-               KD steps under torch.profiler
+               KD steps under torch.profiler; the KD kernels' rows at the
+               round's own inputs, kernels 3 and 4's with phase 6's launch
+               floor and their f32 time at 512 x 256,000 (lm_ms, lm_bound_ms)
   9. weight_avg multi_weighted_average (kernel 5) against its plain version
                at G = 4, N = 2 for every ResNet-56 leaf and the leaves
                flattened to D = 855,578, the reference sweep (3, 5, 517) and
@@ -125,8 +130,10 @@ JAX package.  Phases, each of which fails the run if it fails:
                entry is its bf16 row at qwen2.5-14b's width (the configs'
                dtype), with the f32 row beside it under "f32"; kernel 1's
                also gives "starcoder2_ms", its times in the two starcoder2-3b
-               bf16 cases its split-K was designed for; every entry's
-               "host_ms" is its wrapper's host time a call
+               bf16 cases its split-K was designed for; kernels 3 and 4's
+               add "launch_floor_ms" and their f32 time at gemma-2b's
+               vocabulary ("lm_ms", "lm_bound_ms", "lm_library_ms"); every
+               entry's "host_ms" is its wrapper's host time a call
  19. ok        {"ok": true, "device": {...}} as the last line
 
 Tolerances, paged_decode: f32 kernel vs plain at rtol = atol = 1e-5 (only
@@ -804,21 +811,34 @@ def kd_check(kd_ops, kd_ref, label: str, x, s, t, g, tau: float, timed: bool) ->
     return rows
 
 
-def kd_phase(kd_ops, kd_ref, seed: int) -> None:
+KD_LM_CASE = "gemma-2b vocabulary"
+
+
+def kd_phase(kd_ops, kd_ref, seed: int) -> dict:
+    """Phase 6; returns the launch floor and the f32 rows of kernels 3 and 4
+    at gemma-2b's vocabulary (512 x 256,000)."""
     gen = torch.Generator(device=DEV).manual_seed(seed)
     cases = [("FedSDD round (K=4, R=2, 8x256 server rows)", 8, 2048, 256, 10, 4.0, True),
              ("sweep", 1, 4, 4, 128, 1.0, False), ("sweep", 4, 8, 8, 1000, 4.0, False),
              ("sweep", 8, 4, 4, 257, 2.0, False), ("sweep", 2, 16, 16, 4096, 4.0, False),
-             ("Qwen2.5 vocabulary", 4, 256, 256, 152064, 4.0, True)]
+             ("Qwen2.5 vocabulary", 4, 256, 256, 152064, 4.0, True),
+             (KD_LM_CASE, 8, 512, 512, 256000, 4.0, True)]
+    floor = time_ms(lambda: torch.cuda._sleep(0))
+    print(json.dumps({"launch_floor_ms": floor, "what": "torch.cuda._sleep(0): one launch "
+                      "of a kernel that returns at once, under time_call"}), flush=True)
     g = torch.tensor(1.5, device=DEV)
+    lm = {}
     for label, M, N, B, V, tau, timed in cases:
         for dtype in (torch.float32, torch.bfloat16):
             x = (torch.randn((M, N, V), generator=gen, device=DEV) * 3).to(dtype)
             s = (torch.randn((B, V), generator=gen, device=DEV) * 3).to(dtype)
             t = torch.softmax(torch.randn((B, V), generator=gen, device=DEV) * 2, -1)
-            kd_check(kd_ops, kd_ref, label, x, s, t, g, tau, timed)
+            rows = kd_check(kd_ops, kd_ref, label, x, s, t, g, tau, timed)
+            if label == KD_LM_CASE and dtype == torch.float32:
+                lm = rows
             del x, s, t
-    torch.cuda.empty_cache()
+            torch.cuda.empty_cache()
+    return {"launch_floor_ms": floor, "lm": lm}
 
 
 # ---------------------------------------------------------------- phase 7
@@ -885,10 +905,12 @@ def _tree_err(a, b) -> float:
 # ---------------------------------------------------------------- phase 8
 def _train_group(name: str) -> str:
     low = name.lower()
-    for key, group in (("ensemble_softmax", "ensemble_softmax"), ("kd_fwd", "kd_loss_fwd"),
-                       ("kd_bwd", "kd_loss_bwd")):
-        if key in low:
-            return group
+    if "ensemble_softmax" in low:
+        return "ensemble_softmax"
+    if "kd_small" in low or "kd_finish" in low:                  # kernel 3's one-CTA paths
+        return "kd_loss_fwd"
+    if "kd_staged<" in low or "kd_rows<" in low:                  # <T, true>: kernel 3
+        return "kd_loss_fwd" if ", true>" in low else "kd_loss_bwd"
     if "multi_tensor" in low or "foreach" in low:
         return "optimiser"
     if "index" in low:
@@ -937,7 +959,7 @@ def profile_window(label: str, fn, steps: int) -> dict:
                             for e in top]}
 
 
-def resnet56_phase(fed, kd_ops, kd_ref, seed: int, card: str) -> list[dict]:
+def resnet56_phase(fed, kd_ops, kd_ref, seed: int, card: str, kd6: dict) -> list[dict]:
     from repro_torch import kernels
     from repro_torch.core.tasks import classification_task
     from repro_torch.distill import KDPipeline
@@ -1027,10 +1049,17 @@ def resnet56_phase(fed, kd_ops, kd_ref, seed: int, card: str) -> list[dict]:
     t = kd_ref.ensemble_softmax_ref(x, tau)[:s.shape[0]].contiguous()
     g = torch.ones((), device=DEV)
     rows = kd_check(kd_ops, kd_ref, "ResNet-56 round inputs", x, s, t, g, tau, timed=True)
-    return [{"name": name, "route": "cuda", "source": KD_SOURCE, "replaces": KD_TPU[name],
-             "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-             "host_ms": r["host_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-             "bound_by": r["bound_by"], "library_ms": r["library_ms"]} for name, r in rows.items()], rounds
+    entries = [{"name": name, "route": "cuda", "source": KD_SOURCE, "replaces": KD_TPU[name],
+                "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "host_ms": r["host_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+               for name, r in rows.items()]
+    for e in entries:
+        if e["name"] in ("kd_loss_fwd", "kd_loss_bwd"):   # kernels 3 and 4
+            lm = kd6["lm"][e["name"]]
+            e.update(launch_floor_ms=kd6["launch_floor_ms"], lm_case="512x256000 float32",
+                     lm_ms=lm["ms"], lm_bound_ms=lm["bound_ms"], lm_library_ms=lm["library_ms"])
+    return entries, rounds
 
 
 # ---------------------------------------------------------------- phase 9
@@ -2218,13 +2247,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase("6. KD kernels vs plain")
-    kd_phase(kd_ops, kd_ref, args.seed)
+    kd6 = kd_phase(kd_ops, kd_ref, args.seed)
 
     phase("7. f32 ResNet-20 FedSDD round: kernels vs plain")
     f32_round_phase(fed, kd_ops, kd_ref, args.seed)
 
     phase("8. ResNet-56 FedSDD, K=4 R=2, 2 rounds at full depth and width")
-    kd_entries, seq_rounds = resnet56_phase(fed, kd_ops, kd_ref, args.seed, card)
+    kd_entries, seq_rounds = resnet56_phase(fed, kd_ops, kd_ref, args.seed, card, kd6)
 
     phase("9. weight_avg (kernels 5 and 6) vs plain")
     single = weight_avg_phase(wa_ops, wa_ref, args.seed)

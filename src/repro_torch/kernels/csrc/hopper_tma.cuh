@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the tensor-core kernels (kernel 12's bf16
 // flash_forward in flash_attention.cu, kernels 9 and 10's GEMM passes in
-// flash_kd.cu): mbarriers, TMA tensor loads, `wgmma` shared-memory matrix
-// descriptors for the 128-byte swizzle, the wgmma fences and the driver's
-// tensor-map encoder found at run time (no -lcuda).  sm_90a only.
+// flash_kd.cu; kd_loss.cu's staged rows use the mbarriers): mbarriers, TMA
+// tensor loads, `wgmma` shared-memory matrix descriptors for the 128-byte
+// swizzle, the wgmma fences and the driver's tensor-map encoder found at
+// run time (no -lcuda).  sm_90a only.
 #pragma once
 
 #include <cuda.h>

@@ -30,6 +30,7 @@ kernels use their own tiles.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -62,8 +63,8 @@ def _lib():
     if lib.ensemble_softmax.argtypes is None:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.ensemble_softmax.argtypes = [vp, vp, i, i, i, f, i, vp]
-        lib.kd_loss_fwd.argtypes = [vp, vp, vp, i, i, f, i, vp]
-        lib.kd_loss_bwd.argtypes = [vp, vp, vp, vp, i, i, f, f, i, vp]
+        lib.kd_loss_fwd.argtypes = [vp, vp, vp, i, i, f, f, i, i, i, i, i, i, vp]
+        lib.kd_loss_bwd.argtypes = [vp, vp, vp, vp, i, i, f, f, i, i, i, i, i, i, vp]
         for fn in (lib.ensemble_softmax, lib.kd_loss_fwd, lib.kd_loss_bwd):
             fn.restype = ctypes.c_int
     return lib
@@ -103,6 +104,94 @@ def ensemble_softmax_many(teacher_logits: torch.Tensor, temperature: float = 1.0
 
 
 # ---------------------------------------------------------------- kd_loss
+# Kernels 3 and 4's launch plan (csrc/kd_loss.cu keeps the same constants).
+KD_THREAD_ROW_V = 32          # rows path: V up to this, a thread a row, else a warp
+KD_ROW_MAX_V = 1024           # V up to this: lanes of one warp a row, s not staged
+KD_SMALL_ELEMS = 8192         # B·V up to this (V <= 1024): one CTA, one launch
+KD_SMALL_THREADS = 1024       # the small path's CTA and the finish kernel's
+KD_ROWS_THREADS = 256
+KD_STAGED_THREADS = 512
+KD_CTA_SHARE = 110 * 1024     # staged s a CTA: two CTAs share an SM's 228 KB
+KD_PORTABLE_CLUSTER = 8
+KD_MAX_CLUSTER = 16           # non-portable: only rows that do not fit 8 CTAs
+KD_SMEM_MAX = 232448 - 1024   # dynamic shared memory a CTA: 227 KB less static
+KD_GROUP = 8                  # slices start on whole 8-element groups
+_KD_PATHS = {"small": 0, "rows": 1, "staged": 2}
+
+
+def _staged_bytes(n: int, elt: int) -> int:
+    """Shared bytes of a staged copy of n elements: a 16-byte lead-in keeps
+    the source's 16-byte phase (csrc/kd_loss.cu, staged_bytes)."""
+    return (n * elt + 16 + 15) // 16 * 16
+
+
+def kd_plan(B: int, V: int, elt: int, cluster_max: int = KD_PORTABLE_CLUSTER,
+            share: int = KD_CTA_SHARE) -> dict:
+    """Kernels 3 and 4's launch for (B, V) rows of ``elt``-byte student logits.
+
+    * ``small`` (V <= 1024, B·V <= 8192): kernel 3 is one CTA that stages
+      all of s and t and does every row, ``row_lanes`` lanes a row (as many
+      as let the CTA's 1,024 threads hold every row at once, at most 32 and
+      V's next power of two), and writes the loss itself; kernel 4 spreads
+      the rows over one-warp CTAs with the same lanes a row;
+    * ``rows`` (V <= 1024, more rows): a thread (V <= 32) or a warp a row,
+      unstaged;
+    * ``staged``: a cluster of ``cluster`` CTAs a row, each staging one
+      slice of s in shared memory: the fewest CTAs, up to ``cluster_max``,
+      whose slice keeps to ``share`` bytes, else ``cluster_max`` CTAs if their
+      slices fit a CTA, else the fewest up to 16 that fit.
+
+    ``slices`` are the CTAs' [lo, hi) by rank, ``smem`` a CTA's dynamic
+    shared bytes, ``launches_fwd`` kernel 3's launches (a second one sums the
+    rows' KL).  Kernel 4 takes the same plan, so it forms each row's lse as
+    kernel 3 does."""
+    if B < 1 or V < 1:
+        raise ValueError(f"kd_plan: B {B}, V {V}")
+    if V <= KD_ROW_MAX_V:
+        if B * V <= KD_SMALL_ELEMS:
+            lanes = min(32, 1 << (max(1, KD_SMALL_THREADS // B).bit_length() - 1),
+                        1 << (V - 1).bit_length())
+            return {"path": "small", "cluster": 1, "slice": V, "slices": [(0, V)],
+                    "threads": KD_SMALL_THREADS, "row_lanes": lanes, "grid": 1,
+                    "smem": _staged_bytes(B * V, elt) + _staged_bytes(B * V, 4) + 4 * B,
+                    "launches_fwd": 1}
+        lanes = 1 if V <= KD_THREAD_ROW_V else 32
+        rows = KD_ROWS_THREADS // lanes
+        return {"path": "rows", "cluster": 1, "slice": V, "slices": [(0, V)],
+                "threads": KD_ROWS_THREADS, "row_lanes": lanes, "grid": -(-B // rows),
+                "smem": 0, "launches_fwd": 2}
+
+    def cut(c: int) -> tuple[int, int]:
+        sl = -(-(-(-V // c)) // KD_GROUP) * KD_GROUP
+        return sl, _staged_bytes(sl, elt)
+
+    fits = [c for c in range(1, cluster_max + 1) if cut(c)[1] <= share]
+    if not fits:
+        fits = [c for c in [cluster_max, *range(cluster_max + 1, KD_MAX_CLUSTER + 1)]
+                if cut(c)[1] <= KD_SMEM_MAX]
+    if not fits:
+        raise ValueError(f"kd_loss: a row of V = {V} ({V * elt} bytes) does not fit "
+                         f"{KD_MAX_CLUSTER} CTAs' shared memory")
+    c = fits[0]
+    sl, smem = cut(c)
+    return {"path": "staged", "cluster": c, "slice": sl,
+            "slices": [(min(V, q * sl), min(V, q * sl + sl)) for q in range(c)],
+            "threads": KD_STAGED_THREADS, "row_lanes": KD_STAGED_THREADS, "grid": B * c,
+            "smem": smem, "launches_fwd": 1 if B == 1 else 2}
+
+
+@functools.lru_cache(maxsize=256)
+def _kd_plan_args(B: int, V: int, elt: int) -> tuple:
+    """The plan as the C launchers take it: path, cluster, slice, lanes, smem."""
+    return kd_plan_args(kd_plan(B, V, elt))
+
+
+def kd_plan_args(p: dict) -> tuple:
+    """A plan's fields in the C launchers' order."""
+    lanes = 0 if p["path"] == "staged" else p["row_lanes"]
+    return _KD_PATHS[p["path"]], p["cluster"], p["slice"], lanes, p["smem"]
+
+
 def _kd_check(name, s, t):
     _check(name, s, "student_logits", _DTYPES)
     _check(name, t, "teacher_probs", (torch.float32,))
@@ -113,20 +202,22 @@ def _kd_check(name, s, t):
 
 def kd_loss_fwd(student_logits: torch.Tensor, teacher_probs: torch.Tensor,
                 temperature: float = 1.0) -> torch.Tensor:
-    """The loss, a device scalar: per-row KL from the kernel, then
-    ``kl.sum() / B · τ²`` as the reference's wrapper takes it."""
+    """The loss ``mean_b KL_b · τ²``, a device scalar written by the kernel
+    (``kd_plan``: one launch, or a second that sums the rows' KL)."""
     s, t = student_logits, teacher_probs
     if _device("kd_loss_fwd", s, t).type == "cpu":
         return ref.kd_loss_ref(s, t, temperature)
     _kd_check("kd_loss_fwd", s, t)
     B, V = s.shape
-    kl = torch.empty((B,), dtype=torch.float32, device=s.device)
+    buf = torch.empty((B + 1,), dtype=torch.float32, device=s.device)  # rows' KL, loss
     lib = _lib()
-    code = lib.kd_loss_fwd(s.data_ptr(), t.data_ptr(), kl.data_ptr(), B, V,
-                           1.0 / temperature, _DTYPES[s.dtype], _stream(s.device))
+    code = lib.kd_loss_fwd(s.data_ptr(), t.data_ptr(), buf.data_ptr(), B, V,
+                           1.0 / temperature, temperature ** 2 / B,
+                           *_kd_plan_args(B, V, s.element_size()), _DTYPES[s.dtype],
+                           _stream(s.device))
     build.check(lib, code, "kd_loss_fwd")
     kernels.launches["kd_loss_fwd"] += 1
-    return kl.sum() / B * temperature ** 2
+    return buf[B]
 
 
 def kd_loss_bwd(student_logits: torch.Tensor, teacher_probs: torch.Tensor,
@@ -146,7 +237,8 @@ def kd_loss_bwd(student_logits: torch.Tensor, teacher_probs: torch.Tensor,
     lib = _lib()
     code = lib.kd_loss_bwd(s.data_ptr(), t.data_ptr(), g.data_ptr(), out.data_ptr(),
                            B, V, 1.0 / temperature, temperature / B,
-                           _DTYPES[s.dtype], _stream(s.device))
+                           *_kd_plan_args(B, V, s.element_size()), _DTYPES[s.dtype],
+                           _stream(s.device))
     build.check(lib, code, "kd_loss_bwd")
     kernels.launches["kd_loss_bwd"] += 1
     return out

@@ -222,6 +222,114 @@ def test_kd_loss_zero_when_student_equals_teacher_on_card():
     assert float(kd_ops.kd_loss(s, torch.softmax(s / 4.0, -1), 4.0)) < 1e-5
 
 
+# kernels 3 and 4 on each path of kd_plan: LM rows in clusters (Qwen2.5's
+# and gemma-2b's vocabularies), one staged row (the loss written by the row
+# kernel), one CTA, a staged row across 16-byte boundaries, and the rows
+# path with a thread and a warp a row
+KD_PLAN_SHAPES = [(3, 152064), (2, 256000), (512, 256000), (1, 256000), (5, 1025),
+                  (9000, 1), (300, 100)]
+
+
+def _kd_pair(gen, B, V, dtype, offset=0):
+    """s (B, V) at ``offset`` elements into its storage (contiguous), t = softmax."""
+    flat = (torch.randn((B * V + offset,), generator=gen, device="cuda") * 3).to(dtype)
+    s = flat[offset:].view(B, V)
+    return s, torch.softmax(torch.randn((B, V), generator=gen, device="cuda") * 2, -1)
+
+
+def _kd_check(s, t, g, tau):
+    """kd_loss_fwd and kd_loss_bwd (with g on the device) against their plain versions."""
+    B = s.shape[0]
+    loss, grad = kd_ops.kd_loss_fwd(s, t, tau), kd_ops.kd_loss_bwd(s, t, g, tau)
+    want = kd_ref.kd_loss_ref(s, t, tau)
+    want_grad = (kd_ref.kd_loss_grad_ref(s, t, tau) * g).to(s.dtype)
+    torch.cuda.synchronize()
+    assert loss.dim() == 0 and loss.device == s.device
+    torch.testing.assert_close(loss, want, rtol=1e-4, atol=0)
+    assert grad.dtype == s.dtype and grad.shape == s.shape and bool(grad.isfinite().all())
+    tol = KD_F32_ROW_TOL if s.dtype == torch.float32 else KD_BF16_GRAD_ROW_TOL
+    assert _rows_within(grad, want_grad, tol, 1e-6 * abs(float(g)) * tau / B)
+    return loss, grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", KD_PLAN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_kd_loss_paths_match_plain_on_card(dtype, shape):
+    _needs_card()
+    B, V = shape
+    gen = torch.Generator(device="cuda").manual_seed(B + V)
+    s, t = _kd_pair(gen, B, V, getattr(torch, dtype))
+    fwd, bwd = kernels.launches["kd_loss_fwd"], kernels.launches["kd_loss_bwd"]
+    _kd_check(s, t, torch.tensor(1.5, device="cuda"), 4.0)
+    assert (kernels.launches["kd_loss_fwd"], kernels.launches["kd_loss_bwd"]) == (fwd + 1, bwd + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("offset", [1, 3])
+@pytest.mark.parametrize("shape", [(256, 10), (7, 517), (3, 4099), (2, 152064)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_kd_loss_student_at_an_odd_storage_offset_on_card(dtype, offset, shape):
+    """A contiguous student whose rows start at any 4- or 2-byte phase: the
+    staged copy's head and tail go by plain loads, the gradient's 16-byte
+    groups follow its own alignment."""
+    _needs_card()
+    B, V = shape
+    gen = torch.Generator(device="cuda").manual_seed(B * V + offset)
+    s, t = _kd_pair(gen, B, V, getattr(torch, dtype), offset)
+    assert s.is_contiguous() and s.storage_offset() == offset
+    loss, grad = _kd_check(s, t, torch.tensor(0.7, device="cuda"), 2.0)
+    aligned = s.clone()                         # the same values at offset 0
+    assert aligned.storage_offset() == 0
+    assert torch.equal(kd_ops.kd_loss_fwd(aligned, t, 2.0), loss)
+    assert torch.equal(kd_ops.kd_loss_bwd(aligned, t, torch.tensor(0.7, device="cuda"), 2.0),
+                       grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(256, 10), (300, 100), (512, 256000), (4, 152064)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_kd_loss_bit_stable_on_card(dtype, shape):
+    """Two calls on the same inputs give the same bits: the cluster's states
+    are merged in rank order and the rows' KL summed in a fixed order, with
+    no atomics."""
+    _needs_card()
+    B, V = shape
+    gen = torch.Generator(device="cuda").manual_seed(B + V + 1)
+    s, t = _kd_pair(gen, B, V, getattr(torch, dtype))
+    g = torch.tensor(1.5, device="cuda")
+    first = (kd_ops.kd_loss_fwd(s, t, 4.0), kd_ops.kd_loss_bwd(s, t, g, 4.0))
+    second = (kd_ops.kd_loss_fwd(s, t, 4.0), kd_ops.kd_loss_bwd(s, t, g, 4.0))
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,most", [((256, 10), 1), ((512, 256000), 2), ((1, 256000), 1)],
+                         ids=["256x10", "512x256000", "1x256000"])
+def test_kd_loss_fwd_device_kernels_per_call_on_card(shape, most):
+    """torch.profiler: kd_loss_fwd is one device kernel at the FedSDD round's
+    256 x 10 (the loss written in the kernel) and at most two at gemma-2b's
+    vocabulary (the rows' KL, then the one-CTA sum)."""
+    _needs_card()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    B, V = shape
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    s, t = _kd_pair(gen, B, V, torch.float32)
+    kd_ops.kd_loss_fwd(s, t, 4.0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            kd_ops.kd_loss_fwd(s, t, 4.0)
+        torch.cuda.synchronize()
+    launches = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    assert launches == 3 * most, [(e.key, e.count) for e in prof.key_averages()]
+
+
 # the reference sweep, the vectorized ResNet-56 round's largest leaf
 # (G = K = 4 groups of N = 2 clients) and a leaf of one element, an odd D
 # across many CTAs, and N above one warp

@@ -1,25 +1,32 @@
 #!/usr/bin/env python3
-"""Kernels 1 (paged_decode), 9 (flash_kd_head_fwd), 10 (flash_kd_head_bwd),
-11 (flash_decode) and 12 (flash_forward) of two checkouts, timed with one
-timer on one card.
+"""Kernels 1 (paged_decode), 3 (kd_loss_fwd), 4 (kd_loss_bwd), 9
+(flash_kd_head_fwd), 10 (flash_kd_head_bwd), 11 (flash_decode) and 12
+(flash_forward) of two checkouts, timed with one timer on one card.
 
     python3 tools/kernel_ab.py --parent DIR   # DIR, this checkout, this checkout, DIR
     python3 tools/kernel_ab.py --tree DIR     # one checkout's times
+    python3 tools/kernel_ab.py --kd-plans     # kernels 3 and 4 of this checkout under other plans
 
 Each tree runs in a process of its own, which imports ``repro_torch`` from
 ``DIR/src`` (and so builds that tree's kernels from its own sources into
 ``DIR/build``) and times its wrappers with this checkout's
 ``chip_smoke.time_call``: the device ms and the host ms of one call.  The
 cases are chip_smoke.py's: kernel 1 at starcoder2-3b's decode shape with
-its window and without and at qwen2.5-14b's serve lengths, bf16; kernel 12
-at qwen2.5-14b's width, S 4,096, causal, bf16 and f32, and starcoder2-3b's
-window at S 16,384, bf16; kernel 11 at qwen2.5-14b's `decode_32k` (B 8, S
-32,768, 40 heads over 8 of 128, bf16) and the reference bench's decode (B
-8, S 4,096, 8 heads of 64, f32); kernels 9 and 10 at gemma-2b's KD step
-(512 x 2,048 x 256,000, tied head, f32, bf16 cache with its lse).  Prints
-the card's name and power limit, then one JSON line per tree, which also
-holds the device ms of the launches of one kernel 9 and one kernel 10 call
-under torch.profiler (no L2 flush), by kernel name.  Needs one NVIDIA GPU.
+its window and without and at qwen2.5-14b's serve lengths, bf16; kernels 3
+and 4 at the FedSDD round's KD step (B 256, V 10, f32, tau 4) and at LM
+vocabularies, Qwen2.5's (256 x 152,064) and gemma-2b's (512 x 256,000), f32
+and bf16; kernel 12 at qwen2.5-14b's width, S 4,096, causal, bf16 and f32,
+and starcoder2-3b's window at S 16,384, bf16; kernel 11 at qwen2.5-14b's
+`decode_32k` (B 8, S 32,768, 40 heads over 8 of 128, bf16) and the
+reference bench's decode (B 8, S 4,096, 8 heads of 64, f32); kernels 9 and
+10 at gemma-2b's KD step (512 x 2,048 x 256,000, tied head, f32, bf16 cache
+with its lse).  Prints the card's name and power limit, then one JSON line
+per tree, which also holds the device ms of the launches of one call of
+kernels 3 (at 256 x 10 and 512 x 256,000), 9 and 10 under torch.profiler
+(no L2 flush), by kernel name.  ``--kd-plans`` times kernels 3 and 4 at
+the LM shapes with ``kd_plan``'s other choices passed to the launcher:
+clusters up to 16 CTAs and other shares of shared memory a CTA.  Needs one
+NVIDIA GPU.
 """
 from __future__ import annotations
 
@@ -31,6 +38,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 QWEN_SERVE_LENS = [456, 412, 504, 441, 98, 84, 340, 552]   # phase 5's busiest decode chunk
+KD_ROUND = (256, 10)                    # the FedSDD round's KD step (ResNet-56, CIFAR-10)
+KD_LM = [(256, 152064), (512, 256000)]  # Qwen2.5's and gemma-2b's vocabularies
 
 
 def pass_times(fn) -> dict:
@@ -48,6 +57,63 @@ def pass_times(fn) -> dict:
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
+def kd_inputs(gen, B: int, V: int, dtype):
+    """Student logits (B, V) in ``dtype`` and teacher probabilities, as phase 6 makes them."""
+    import torch
+    s = (torch.randn((B, V), generator=gen, device="cuda") * 3).to(dtype)
+    return s, torch.softmax(torch.randn((B, V), generator=gen, device="cuda") * 2, -1)
+
+
+def kd_plans(seed: int) -> dict:
+    """Kernels 3 and 4 of this checkout at the LM shapes under kd_plan's
+    choices: the default, clusters up to 16 CTAs and other shares of shared
+    memory a CTA."""
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+    from repro_torch.kernels.kd_loss import ops as kd_ops
+    build.build_all(["kd_loss"])
+    lib = kd_ops._lib()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.tensor(1.5, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    variants = {"default": {}, "cluster<=16": {"cluster_max": 16},
+                "cluster<=16, share 72 KB": {"cluster_max": 16, "share": 72 * 1024},
+                "share 227 KB": {"share": kd_ops.KD_SMEM_MAX}}
+    out = {"tree": str(ROOT)}
+    for B, V in KD_LM:
+        for dtype in (torch.float32, torch.bfloat16):
+            s, t = kd_inputs(gen, B, V, dtype)
+            want = kd_ops.kd_loss_fwd(s, t, 4.0)
+            buf = torch.empty((B + 1,), device="cuda")
+            grad = torch.empty_like(s)
+            for label, kw in variants.items():
+                p = kd_ops.kd_plan(B, V, s.element_size(), **kw)
+                args = (*kd_ops.kd_plan_args(p), kd_ops._DTYPES[dtype], stream)
+
+                def fwd():
+                    build.check(lib, lib.kd_loss_fwd(s.data_ptr(), t.data_ptr(), buf.data_ptr(),
+                                                     B, V, 0.25, 16.0 / B, *args), "kd_loss_fwd")
+
+                def bwd():
+                    build.check(lib, lib.kd_loss_bwd(s.data_ptr(), t.data_ptr(), g.data_ptr(),
+                                                     grad.data_ptr(), B, V, 0.25, 4.0 / B, *args),
+                                "kd_loss_bwd")
+
+                fwd()
+                torch.cuda.synchronize()
+                row = {"cluster": p["cluster"], "smem": p["smem"],
+                       "rel_err": abs(float(buf[B]) / float(want) - 1),
+                       "k3_ms": cs.time_call(fwd)[0], "k4_ms": cs.time_call(bwd)[0]}
+                out[f"{B}x{V} {str(dtype).removeprefix('torch.')} {label}"] = row
+            del s, t, grad
+            torch.cuda.empty_cache()
+    return out
+
+
 def time_tree(tree: Path, seed: int) -> dict:
     sys.path.insert(0, str(tree / "src"))
     sys.path.insert(0, str(ROOT))
@@ -58,7 +124,7 @@ def time_tree(tree: Path, seed: int) -> dict:
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.kd_loss import ops as kd_ops
     assert Path(ops.__file__).resolve().is_relative_to(tree.resolve()), ops.__file__
-    build.build_all(["paged_decode", "flash_attention", "flash_kd"])
+    build.build_all(["paged_decode", "flash_attention", "flash_kd", "kd_loss"])
     gen = torch.Generator(device="cuda").manual_seed(seed)
     bf16 = torch.bfloat16
     out = {"tree": str(tree)}
@@ -111,6 +177,18 @@ def time_tree(tree: Path, seed: int) -> dict:
     _, lse_s, lse_t = k9()
     record(f"k10 {B}x{D}x{V} tied bf16 cache", k10)
     out["k9 passes"], out["k10 passes"] = pass_times(k9), pass_times(k10)
+    del embed, h, z, tl, lse_s, lse_t
+    torch.cuda.empty_cache()
+    for (B, V), dtype in [(KD_ROUND, torch.float32)] + [(c, d) for c in KD_LM
+                                                         for d in (torch.float32, bf16)]:
+        s, t = kd_inputs(gen, B, V, dtype)
+        name = f"{B}x{V} {str(dtype).removeprefix('torch.')}"
+        record(f"k3 {name}", lambda: kd_ops.kd_loss_fwd(s, t, 4.0))
+        record(f"k4 {name}", lambda: kd_ops.kd_loss_bwd(s, t, g, 4.0))
+        if dtype == torch.float32 and (B, V) in (KD_ROUND, KD_LM[-1]):
+            out[f"k3 {name} passes"] = pass_times(lambda: kd_ops.kd_loss_fwd(s, t, 4.0))
+        del s, t
+    torch.cuda.empty_cache()
     return out
 
 
@@ -119,6 +197,8 @@ def main() -> int:
     group = ap.add_mutually_exclusive_group(required=True)
     group.add_argument("--parent", type=Path, help="the other checkout: runs it, this, this, it")
     group.add_argument("--tree", type=Path, help="time one checkout")
+    group.add_argument("--kd-plans", action="store_true",
+                       help="kernels 3 and 4 of this checkout under kd_plan's other choices")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if args.tree:
@@ -128,6 +208,9 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
+    if args.kd_plans:
+        print(json.dumps(kd_plans(args.seed)), flush=True)
+        return 0
     for tree in (args.parent, ROOT, ROOT, args.parent):
         subprocess.run([sys.executable, __file__, "--tree", str(tree), "--seed",
                         str(args.seed)], check=True, timeout=900)
