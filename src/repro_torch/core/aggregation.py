@@ -48,8 +48,9 @@ def fedavg_aggregate_grouped(stacked: PyTree, num_samples, group_ids,
     ``stacked`` leaves are (C, ...) in group-major client order and
     ``group_ids`` (C,) maps each row to its group.  Uniform groups (|S|/K
     clients each) are viewed as (K, n, ...) and reduced by
-    ``group_weighted_average_pytree``, one kernel launch per leaf; ragged
-    groups take the segment reduction.  No per-group Python loop either way.
+    ``group_weighted_average_pytree``, one kernel launch for the whole tree
+    (its leaves are views of one allocation); ragged groups take the
+    segment reduction.  No per-group Python loop either way.
     """
     gid = np.asarray(group_ids)            # lint-ok: RA101 host group map
     counts = np.bincount(gid, minlength=num_groups)

@@ -9,13 +9,38 @@
 // Same functions, not the same block structure: the TPU grid runs in
 // order and keeps a (4, V) row tile in VMEM; here blocks run in no order.
 //
-// ensemble_softmax: one row-group (a warp when V <= 1024, else a CTA of
-// 1024 threads) owns one row and loops over M and V itself.  Pass 1
-// accumulates x[m,n,v] * (1/M) in m order (as the TPU kernel does), scales
-// by 1/tau, writes the scaled mean into the output row as scratch and keeps
-// a running max and exp-sum; the row-group merges them; pass 2 rewrites the
-// row as exp(z - max) / sum.  Bound: HBM bytes (M rows read, one written);
-// it re-reads its output row once.
+// ensemble_softmax (plan: ensemble_plan in kernels/kd_loss/ops.py).  Every
+// byte of the M teacher rows and of the output crosses HBM once: z =
+// (sum_m x[m] * (1/M)) * (1/tau) is accumulated in registers in m order
+// (explicit __fmul_rn / __fmaf_rn, so no load width changes a bit), written
+// once into shared memory, and the output written once as exp(z - max) / sum.
+//
+//   * staged (V > 1024): a row goes to one CTA or a cluster of C CTAs, each
+//     owning a slice whose f32 z fits its shared memory (at most 110 KB a
+//     CTA, two CTAs an SM: the fewest CTAs up to 16, non-portable above 8;
+//     gemma-2b's row takes 10).  A CTA streams its slice of the M teacher
+//     rows with 16-byte loads, four rows' loads in flight a thread (plain
+//     loads at a ragged head and tail, and for every element when the
+//     rows' 16-byte phases differ), keeping the slice's max as z lands;
+//     then the sum of exp(z - max) over shared memory in a fixed order; the
+//     cluster's (max, sum) states go to every CTA over distributed shared
+//     memory and each CTA merges them in rank order; it writes its slice
+//     with 16-byte stores.  On the card (NVIDIA H100 80GB HBM3, 700 W;
+//     tools/kernel_ab.py --ens-plans), 8 CTAs of 128 KB for gemma-2b's
+//     row (one CTA an SM) were 14-22% slower than 10 of 102 KB; at 10,
+//     eight rows' loads in flight or a fast exp moved nothing beyond the
+//     noise, and streaming cache hints were 2-6% slower (PERF.md).
+//   * small (V <= 1024): a CTA takes a block of whole rows, whose elements
+//     are contiguous in every teacher plane, and stages their z the same
+//     way (16-byte loads over the block, all M planes in flight; blocks of
+//     whole 16-byte groups where V allows); then `lanes` lanes a row form
+//     the row's max and sum from shared memory by xor shuffles and write
+//     its probabilities.  The FedSDD round's 8 x 2,048 x 10 is 41 such
+//     CTAs: it is bound by one round trip to HBM and the launch.
+//
+// No step depends on where x or the output lies in memory: the same
+// inputs at any storage offset give the same bits.  Bound: HBM bytes (M
+// rows read, one written).
 //
 // kd_loss_fwd / kd_loss_bwd.  What bounds them: HBM bytes at an LM
 // vocabulary (s and t read once, the gradient written once: at V = 256,000,
@@ -97,9 +122,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kWarpMaxV = 1024;        // V up to this: one warp per row
-constexpr int kWarpRows = 8;           // rows (warps) per CTA in that case
-constexpr int kRowThreads = 1024;      // else one CTA of this many threads per row
+constexpr int kWarpMaxV = 1024;        // kernels 3-4: V up to this, lanes of one warp a row
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -110,16 +133,6 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2
 struct MaxSum {
   float m, l;
 };
-
-__device__ __forceinline__ MaxSum push(MaxSum a, float z) {
-  if (z > a.m) {
-    a.l = a.l * expf(a.m - z) + 1.f;
-    a.m = z;
-  } else {
-    a.l += expf(z - a.m);
-  }
-  return a;
-}
 
 __device__ __forceinline__ MaxSum merge(MaxSum a, MaxSum b) {
   const float m = fmaxf(a.m, b.m);
@@ -136,102 +149,6 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-__device__ __forceinline__ MaxSum warp_max_sum(MaxSum a) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const MaxSum b{__shfl_xor_sync(0xffffffffu, a.m, o), __shfl_xor_sync(0xffffffffu, a.l, o)};
-    a = merge(a, b);
-  }
-  return a;
-}
-
-// A row-group is a warp or a whole CTA; ``lane`` runs over [0, kSize).
-// Both reduce in a fixed order, so the results are deterministic.
-struct WarpRow {
-  static constexpr int kSize = 32;
-  int lane;
-  __device__ MaxSum max_sum(MaxSum a) const { return warp_max_sum(a); }
-};
-
-struct BlockRow {
-  static constexpr int kSize = kRowThreads;
-  static constexpr int kWarps = kRowThreads / 32;
-  int lane;
-  float* smem;  // 2 * kWarps + 2 floats
-
-  __device__ MaxSum max_sum(MaxSum a) const {
-    a = warp_max_sum(a);
-    const int w = lane >> 5, l = lane & 31;
-    if (l == 0) {
-      smem[w] = a.m;
-      smem[kWarps + w] = a.l;
-    }
-    __syncthreads();
-    if (w == 0) {
-      MaxSum b = l < kWarps ? MaxSum{smem[l], smem[kWarps + l]} : MaxSum{kNegInf, 0.f};
-      b = warp_max_sum(b);
-      if (l == 0) {
-        smem[2 * kWarps] = b.m;
-        smem[2 * kWarps + 1] = b.l;
-      }
-    }
-    __syncthreads();
-    const MaxSum r{smem[2 * kWarps], smem[2 * kWarps + 1]};
-    __syncthreads();
-    return r;
-  }
-};
-
-// ------------------------------------------------------ ensemble_softmax
-template <typename T, typename G>
-__device__ void ensemble_row(const T* __restrict__ x, float* __restrict__ out, int M,
-                             size_t plane, int V, float inv_m, float inv_temp, const G& g) {
-  MaxSum a{kNegInf, 0.f};
-  for (int v = g.lane; v < V; v += G::kSize) {
-    float z = to_float(x[v]) * inv_m;
-    for (int m = 1; m < M; ++m) z += to_float(x[m * plane + v]) * inv_m;
-    z *= inv_temp;
-    out[v] = z;  // scratch until pass 2; each lane re-reads only its own
-    a = push(a, z);
-  }
-  a = g.max_sum(a);
-  for (int v = g.lane; v < V; v += G::kSize) out[v] = expf(out[v] - a.m) / a.l;
-}
-
-// Warp-per-row kernels: kWarpRows rows per CTA; a warp past the last row
-// leaves as a whole, so its shuffles never see a missing lane.
-template <typename T>
-__global__ void __launch_bounds__(kWarpRows * 32)
-ensemble_softmax_warp(const T* x, float* out, int M, int N, int V, float inv_m, float inv_temp) {
-  const int row = blockIdx.x * kWarpRows + (threadIdx.x >> 5);
-  if (row >= N) return;
-  ensemble_row(x + (size_t)row * V, out + (size_t)row * V, M, (size_t)N * V, V, inv_m,
-               inv_temp, WarpRow{(int)(threadIdx.x & 31)});
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kRowThreads)
-ensemble_softmax_block(const T* x, float* out, int M, int N, int V, float inv_m, float inv_temp) {
-  __shared__ float smem[2 * BlockRow::kWarps + 2];
-  const size_t row = blockIdx.x;
-  ensemble_row(x + row * V, out + row * V, M, (size_t)N * V, V, inv_m, inv_temp,
-               BlockRow{(int)threadIdx.x, smem});
-}
-
-inline int warp_grid(int rows) { return (rows + kWarpRows - 1) / kWarpRows; }
-
-template <typename T>
-void launch_ensemble(const void* x, void* out, int M, int N, int V, float inv_temp,
-                     cudaStream_t s) {
-  const float inv_m = 1.f / (float)M;
-  const T* xt = static_cast<const T*>(x);
-  float* o = static_cast<float*>(out);
-  if (V <= kWarpMaxV)
-    ensemble_softmax_warp<T><<<warp_grid(N), kWarpRows * 32, 0, s>>>(xt, o, M, N, V, inv_m, inv_temp);
-  else
-    ensemble_softmax_block<T><<<N, kRowThreads, 0, s>>>(xt, o, M, N, V, inv_m, inv_temp);
 }
 
 // ================================================= kd_loss_fwd / kd_loss_bwd
@@ -678,6 +595,183 @@ kd_rows(const T* __restrict__ s, const float* __restrict__ t, const float* __res
   }
 }
 
+// ================================================= ensemble_softmax
+// Paths and sizes: ensemble_plan in kernels/kd_loss/ops.py (kept in step with these).
+enum EnsPath { kEnsSmall = 0, kEnsStaged = 1 };
+constexpr int kEnsSmallThreads = 128;   // small: threads a CTA, over a block of whole rows
+constexpr int kEnsStagedThreads = 512;  // staged: threads a CTA, over a slice of one row
+constexpr int kEnsSmallUnroll = 8;      // teacher rows whose loads are in flight together
+constexpr int kEnsStagedUnroll = 4;     // (staged: 2 CTAs of 512 threads an SM, 64 registers)
+
+// 16 bytes of T as floats.
+template <typename T>
+__device__ __forceinline__ void unpack16(const uint4& q, float (&v)[16 / sizeof(T)]) {
+  if constexpr (std::is_same<T, float>::value) {
+    v[0] = __uint_as_float(q.x), v[1] = __uint_as_float(q.y);
+    v[2] = __uint_as_float(q.z), v[3] = __uint_as_float(q.w);
+  } else {
+    unpack_bf16x2(q.x, v[0], v[1]);
+    unpack_bf16x2(q.y, v[2], v[3]);
+    unpack_bf16x2(q.z, v[4], v[5]);
+    unpack_bf16x2(q.w, v[6], v[7]);
+  }
+}
+
+// z[j] = (sum_m x[m * plane + j] * inv_m) * inv_temp for j in [0, n), in m
+// order, into zs[j]; returns the max of the z this thread wrote.  x[j]'s
+// 16-byte phase is every teacher's (the caller's `head`: the elements before
+// x's first 16-byte boundary, or n when the phases differ): [head, head + W
+// * groups) goes by 16-byte loads, kUnroll teachers' in flight, and zs +
+// head must be 16-byte aligned; the rest by plain loads.
+template <typename T, int kThreads, int kUnroll>
+__device__ float stage_z(const T* __restrict__ x, size_t plane, int M, int n, int head,
+                         float* __restrict__ zs, float inv_m, float inv_temp) {
+  constexpr int W = 16 / sizeof(T);
+  const int tid = threadIdx.x;
+  const int groups = (n - head) / W, tail0 = head + groups * W, edges = head + (n - tail0);
+  float mx = kNegInf;
+  for (int i = tid; i < edges; i += kThreads) {
+    const int j = i < head ? i : tail0 + (i - head);
+    float acc = 0.f;
+    for (int m0 = 0; m0 < M; m0 += kUnroll) {
+      float v[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (m0 + u < M) v[u] = to_float(x[(size_t)(m0 + u) * plane + j]);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (m0 + u < M) acc = m0 + u == 0 ? __fmul_rn(v[u], inv_m) : __fmaf_rn(v[u], inv_m, acc);
+    }
+    const float z = __fmul_rn(acc, inv_temp);
+    zs[j] = z;
+    mx = fmaxf(mx, z);
+  }
+  for (int c = tid; c < groups; c += kThreads) {
+    const int j = head + c * W;
+    float acc[W];
+    for (int m0 = 0; m0 < M; m0 += kUnroll) {
+      uint4 q[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (m0 + u < M) q[u] = *reinterpret_cast<const uint4*>(x + (size_t)(m0 + u) * plane + j);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (m0 + u >= M) break;
+        float v[W];
+        unpack16<T>(q[u], v);
+#pragma unroll
+        for (int k = 0; k < W; ++k)
+          acc[k] = m0 + u == 0 ? __fmul_rn(v[k], inv_m) : __fmaf_rn(v[k], inv_m, acc[k]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < W; k += 4) {
+      float4 z;
+      z.x = __fmul_rn(acc[k], inv_temp), z.y = __fmul_rn(acc[k + 1], inv_temp);
+      z.z = __fmul_rn(acc[k + 2], inv_temp), z.w = __fmul_rn(acc[k + 3], inv_temp);
+      *reinterpret_cast<float4*>(zs + j + k) = z;
+      mx = fmaxf(mx, fmaxf(fmaxf(z.x, z.y), fmaxf(z.z, z.w)));
+    }
+  }
+  return mx;
+}
+
+// z's shared-memory start: zs + head lands on a 16-byte boundary of `base`
+// (16-byte aligned), so x's 16-byte groups become float4 stores.
+__device__ __forceinline__ float* z_start(float* base, int head) {
+  return base + ((4 - head % 4) & 3);
+}
+
+// o[j] = exp(zs[j] - s.m) / s.l for j in [0, n): 16-byte stores on o's own
+// boundaries, plain stores at its head and tail.
+template <int kThreads>
+__device__ __forceinline__ void write_probs(float* __restrict__ o, int n, const float* zs,
+                                            MaxSum s) {
+  const int tid = threadIdx.x;
+  const int head = lead(o, n), groups = (n - head) / 4, tail0 = head + groups * 4;
+  const bool zvec = aligned_to(zs + head, 16);
+  for (int i = tid; i < head + (n - tail0); i += kThreads) {
+    const int j = i < head ? i : tail0 + (i - head);
+    o[j] = expf(zs[j] - s.m) / s.l;
+  }
+  for (int c = tid; c < groups; c += kThreads) {
+    const int j = head + 4 * c;
+    float z[4], y[4];
+    load_vals<4>(zs + j, z, zvec);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) y[k] = expf(z[k] - s.m) / s.l;
+    store_vals<4>(o + j, y);
+  }
+}
+
+// The staged path: grid N * cluster CTAs, clusters of `cluster` along x; CTA
+// rank q of row n's cluster owns the slice [q * slice, min(V, q * slice +
+// slice)).  Shared memory: the slice's z (slice + 4 floats).
+template <typename T>
+__global__ void __launch_bounds__(kEnsStagedThreads, 2)
+ensemble_staged(const T* __restrict__ x, float* __restrict__ out, int M, int N, int V, int slice,
+                int cluster, float inv_m, float inv_temp) {
+  constexpr int kWarps = kEnsStagedThreads / 32;
+  extern __shared__ __align__(16) float zbuf[];
+  __shared__ float red[32];
+  __shared__ float2 ml_in[kMaxCluster];  // the cluster's (max, sum), by rank
+  const int tid = threadIdx.x;
+  const int rank = cluster > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const size_t row = blockIdx.x / cluster;
+  const int lo = min(V, rank * slice), n = min(V, lo + slice) - lo;
+  if (cluster > 1) cluster_arrive_relaxed();  // waited on before the first remote store
+  const T* xr = x + row * V + lo;
+  const size_t plane = (size_t)N * V;
+  const int head = (plane * sizeof(T)) % 16 == 0 ? lead(xr, n) : n;
+  float* zs = z_start(zbuf, head);
+  float m = stage_z<T, kEnsStagedThreads, kEnsStagedUnroll>(xr, plane, M, n, head, zs, inv_m,
+                                                            inv_temp);
+  m = block_max<kWarps>(m, red);  // its barrier also publishes zs
+  float l = 0.f;
+  for (int j = tid; j < n; j += kEnsStagedThreads) l += expf(zs[j] - m);
+  MaxSum a{m, block_sum<kWarps>(l, red)};
+  if (cluster > 1) {
+    cg::cluster_group cl = cg::this_cluster();
+    cluster_wait();  // every CTA of the cluster runs: its shared memory exists
+    if (tid < cluster) *cl.map_shared_rank(&ml_in[rank], tid) = make_float2(a.m, a.l);
+    cluster_sync();
+    a = MaxSum{ml_in[0].x, ml_in[0].y};
+    for (int q = 1; q < cluster; ++q) a = merge(a, MaxSum{ml_in[q].x, ml_in[q].y});
+  }
+  write_probs<kEnsStagedThreads>(out + row * V + lo, n, zs, a);
+}
+
+// The small path: CTA b takes rows [b * rows, b * rows + rows); `lanes`
+// lanes a row (a power of two, rows * lanes <= kEnsSmallThreads) form each
+// row's max, then its sum of exp(z - max), lane i over elements i, i + lanes,
+// ..., then xor shuffles, and write the row's probabilities, lane i the same
+// elements (a row of at most 1,024 floats: a warp's stores stay contiguous).
+template <typename T>
+__global__ void __launch_bounds__(kEnsSmallThreads)
+ensemble_small(const T* __restrict__ x, float* __restrict__ out, int M, int N, int V, int rows,
+               int lanes, float inv_m, float inv_temp) {
+  extern __shared__ __align__(16) float zbuf[];
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.x * rows, nr = min(rows, N - r0), n = nr * V;
+  const T* xr = x + (size_t)r0 * V;
+  const size_t plane = (size_t)N * V;
+  const int head = (plane * sizeof(T)) % 16 == 0 ? lead(xr, n) : n;
+  float* zs = z_start(zbuf, head);
+  stage_z<T, kEnsSmallThreads, kEnsSmallUnroll>(xr, plane, M, n, head, zs, inv_m, inv_temp);
+  __syncthreads();
+  const LaneRow g{tid % lanes, lanes};
+  const int r = tid / lanes, vr = r < nr ? V : 0;  // the warp's other lanes still shuffle
+  const float* zr = zs + (size_t)r * V;
+  float m = kNegInf;
+  for (int v = g.lane; v < vr; v += lanes) m = fmaxf(m, zr[v]);
+  m = g.max(m);
+  float l = 0.f;
+  for (int v = g.lane; v < vr; v += lanes) l += expf(zr[v] - m);
+  l = g.sum(l);
+  float* o = out + (size_t)(r0 + r) * V;
+  for (int v = g.lane; v < vr; v += lanes) o[v] = expf(zr[v] - m) / l;
+}
+
 // ---- launchers -------------------------------------------------------------
 // The plan a launch takes (from kd_plan); checked here against what the
 // kernels need.
@@ -745,26 +839,76 @@ cudaError_t launch_kd(const Plan& p, const void* s_, const float* t, const float
                             scale);
 }
 
+// kernel 2's plan (from ensemble_plan), checked against what its kernels need.
+struct EnsPlan {
+  int path, cluster, slice, rows, lanes, smem;
+};
+
+inline bool ens_plan_ok(const EnsPlan& p, int N, int V) {
+  if (p.smem < 0 || p.smem > kSmemMax) return false;
+  if (p.path == kEnsSmall)
+    return V <= kWarpMaxV && p.rows >= 1 && p.lanes >= 1 && p.lanes <= 32 &&
+           (p.lanes & (p.lanes - 1)) == 0 && p.rows * p.lanes <= kEnsSmallThreads &&
+           p.smem >= 4L * (p.rows * V + 4);
+  return p.path == kEnsStaged && p.cluster >= 1 && p.cluster <= kMaxCluster && p.slice >= 1 &&
+         (long)p.slice * p.cluster >= V && p.smem >= 4L * (p.slice + 4) &&
+         (long)N * p.cluster <= 0x7fffffffL;
+}
+
+template <typename T>
+cudaError_t launch_ensemble(const EnsPlan& p, const void* x_, float* out, int M, int N, int V,
+                            float inv_temp, cudaStream_t st) {
+  const T* x = static_cast<const T*>(x_);
+  const float inv_m = 1.f / (float)M;
+  if (p.path == kEnsSmall) {
+    const cudaError_t e = allow_smem(ensemble_small<T>, p.smem);
+    if (e != cudaSuccess) return e;
+    ensemble_small<T><<<(N + p.rows - 1) / p.rows, kEnsSmallThreads, p.smem, st>>>(
+        x, out, M, N, V, p.rows, p.lanes, inv_m, inv_temp);
+    return cudaGetLastError();
+  }
+  auto kernel = ensemble_staged<T>;
+  cudaError_t e = allow_smem(kernel, p.smem);
+  if (e == cudaSuccess && p.cluster > 8)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(N * p.cluster));
+  cfg.blockDim = dim3(kEnsStagedThreads);
+  cfg.dynamicSmemBytes = (size_t)p.smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = p.cluster > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, x, out, M, N, V, p.slice, p.cluster, inv_m, inv_temp);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Each returns 0 on success, a cudaError_t code if the launch failed, -1
 // for a shape, type or plan the kernels do not take.  dtype: 0 float32,
-// 1 bfloat16.  The plan's fields (path, cluster, slice, lanes, smem) are
-// kd_plan's in kernels/kd_loss/ops.py.
+// 1 bfloat16.  Kernels 3 and 4's plan fields (path, cluster, slice, lanes,
+// smem) are kd_plan's in kernels/kd_loss/ops.py.
 
-int ensemble_softmax(const void* x, void* out, int M, int N, int V, float inv_temp, int dtype,
+// x (M, N, V) in dtype -> out (N, V) f32; the plan's fields (path, cluster,
+// slice, rows, lanes, smem) are ensemble_plan's.
+int ensemble_softmax(const void* x, void* out, int M, int N, int V, float inv_temp, int path,
+                     int cluster, int slice, int rows, int lanes, int smem, int dtype,
                      void* stream) {
-  if (M < 1 || N < 1 || V < 1) return -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    launch_ensemble<float>(x, out, M, N, V, inv_temp, s);
-  else if (dtype == 1)
-    launch_ensemble<__nv_bfloat16>(x, out, M, N, V, inv_temp, s);
-  else
-    return -1;
-  return (int)cudaGetLastError();
+  const EnsPlan p{path, cluster, slice, rows, lanes, smem};
+  if (M < 1 || N < 1 || V < 1 || (dtype != 0 && dtype != 1) || !ens_plan_ok(p, N, V)) return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
+  const cudaError_t e = dtype == 0
+      ? launch_ensemble<float>(p, x, o, M, N, V, inv_temp, st)
+      : launch_ensemble<__nv_bfloat16>(p, x, o, M, N, V, inv_temp, st);
+  return (int)e;
 }
 
 // buf: B + 1 floats; the rows' KL go to buf[0:B] where a second launch

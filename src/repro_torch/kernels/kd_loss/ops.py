@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -62,7 +63,7 @@ def _lib():
     lib = build.load("kd_loss")
     if lib.ensemble_softmax.argtypes is None:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.ensemble_softmax.argtypes = [vp, vp, i, i, i, f, i, vp]
+        lib.ensemble_softmax.argtypes = [vp, vp, i, i, i, f, i, i, i, i, i, i, i, vp]
         lib.kd_loss_fwd.argtypes = [vp, vp, vp, i, i, f, f, i, i, i, i, i, i, vp]
         lib.kd_loss_bwd.argtypes = [vp, vp, vp, vp, i, i, f, f, i, i, i, i, i, i, vp]
         for fn in (lib.ensemble_softmax, lib.kd_loss_fwd, lib.kd_loss_bwd):
@@ -88,8 +89,9 @@ def ensemble_softmax(teacher_logits: torch.Tensor, temperature: float = 1.0):
     M, N, V = x.shape
     out = torch.empty((N, V), dtype=torch.float32, device=x.device)
     lib = _lib()
-    code = lib.ensemble_softmax(x.data_ptr(), out.data_ptr(), M, N, V,
-                                1.0 / temperature, _DTYPES[x.dtype], _stream(x.device))
+    code = lib.ensemble_softmax(x.data_ptr(), out.data_ptr(), M, N, V, 1.0 / temperature,
+                                *_ensemble_plan_args(M, N, V, x.element_size()),
+                                _DTYPES[x.dtype], _stream(x.device))
     build.check(lib, code, "ensemble_softmax")
     kernels.launches["ensemble_softmax"] += 1
     return out
@@ -101,6 +103,65 @@ def ensemble_softmax_many(teacher_logits: torch.Tensor, temperature: float = 1.0
     M, nB, B, V = teacher_logits.shape
     out = ensemble_softmax(teacher_logits.reshape(M, nB * B, V), temperature)
     return out.reshape(nB, B, V)
+
+
+# Kernel 2's launch plan (csrc/kd_loss.cu keeps the same constants); the
+# staged path's slices and clusters are kd_plan's, over f32 z.
+ENS_SMALL_THREADS = 128       # small: a CTA over a block of whole rows
+ENS_STAGED_THREADS = 512      # staged: a CTA over a slice of one row
+_ENS_PATHS = {"small": 0, "staged": 1}
+
+
+def ensemble_plan(M: int, N: int, V: int, elt: int, cluster_max: int | None = None,
+                  share: int | None = None) -> dict:
+    """Kernel 2's launch for (M, N, V) teacher logits of ``elt`` bytes.
+
+    * ``small`` (V <= 1024): a CTA of ``ENS_SMALL_THREADS`` takes ``rows``
+      whole rows (about one 16-byte group of each teacher a thread, at most
+      a row a thread; a multiple of the rows that make whole 16-byte
+      groups, so that no thread waits on a second, plain load); ``lanes``
+      lanes a row (a power of two up to 32 and V's next power of two,
+      ``rows * lanes`` within the CTA) form its max and sum and write it;
+      ``grid`` CTAs;
+    * ``staged``: a cluster of ``cluster`` CTAs a row, CTA q owning
+      ``slices[q]``, its f32 z in shared memory (``slice + 4`` floats): the
+      fewest CTAs, up to ``cluster_max`` (16, non-portable above 8), whose
+      slice keeps to ``share`` (110 KB, two CTAs an SM).  Unlike kernels 3
+      and 4, kernel 2 has no partner kernel whose lse it must repeat, so it
+      takes the 10 CTAs of 102 KB that gemma-2b's row needs for two CTAs an
+      SM: 1.94 -> 1.71 ms in f32 and 1.22 -> 1.00 ms in bf16 against 8 CTAs
+      of 128 KB (``tools/kernel_ab.py --ens-plans``, NVIDIA H100 80GB HBM3,
+      700 W).
+
+    ``smem`` is a CTA's dynamic shared bytes."""
+    if min(M, N, V) < 1 or elt not in (2, 4):
+        raise ValueError(f"ensemble_plan: M {M}, N {N}, V {V}, elt {elt}")
+    if V <= KD_ROW_MAX_V:
+        rows = max(1, min(N, ENS_SMALL_THREADS, ENS_SMALL_THREADS * (16 // elt) // V))
+        step = 16 // math.gcd(V * elt, 16)      # rows a block for whole 16-byte groups
+        if rows >= step:
+            rows -= rows % step
+        lanes = min(32, 1 << ((ENS_SMALL_THREADS // rows).bit_length() - 1),
+                    1 << (V - 1).bit_length())
+        return {"path": "small", "cluster": 1, "slice": V, "slices": [(0, V)], "rows": rows,
+                "lanes": lanes, "threads": ENS_SMALL_THREADS, "grid": -(-N // rows),
+                "smem": 4 * (rows * V + 4)}
+    c, sl, smem = _row_cut(V, lambda sl: 4 * (sl + 4), cluster_max or KD_MAX_CLUSTER,
+                           share or KD_CTA_SHARE, f"ensemble_softmax: a row of V = {V}")
+    return {"path": "staged", "cluster": c, "slice": sl,
+            "slices": [(min(V, q * sl), min(V, q * sl + sl)) for q in range(c)],
+            "rows": 1, "lanes": ENS_STAGED_THREADS, "threads": ENS_STAGED_THREADS,
+            "grid": N * c, "smem": smem}
+
+
+def ensemble_plan_args(p: dict) -> tuple:
+    """A plan's fields in the C entry's order: path, cluster, slice, rows, lanes, smem."""
+    return _ENS_PATHS[p["path"]], p["cluster"], p["slice"], p["rows"], p["lanes"], p["smem"]
+
+
+@functools.lru_cache(maxsize=256)
+def _ensemble_plan_args(M: int, N: int, V: int, elt: int) -> tuple:
+    return ensemble_plan_args(ensemble_plan(M, N, V, elt))
 
 
 # ---------------------------------------------------------------- kd_loss
@@ -123,6 +184,24 @@ def _staged_bytes(n: int, elt: int) -> int:
     """Shared bytes of a staged copy of n elements: a 16-byte lead-in keeps
     the source's 16-byte phase (csrc/kd_loss.cu, staged_bytes)."""
     return (n * elt + 16 + 15) // 16 * 16
+
+
+def _row_cut(V: int, smem_of, cluster_max: int, share: int, what: str) -> tuple:
+    """(cluster, slice, smem) of a staged row: slices of whole KD_GROUP
+    elements, ``smem_of(slice)`` shared bytes a CTA; the fewest CTAs, up to
+    ``cluster_max``, that keep to ``share``, else ``cluster_max`` CTAs if
+    their slices fit a CTA, else the fewest up to 16 that fit."""
+    def cut(c: int) -> tuple[int, int]:
+        sl = -(-(-(-V // c)) // KD_GROUP) * KD_GROUP
+        return sl, smem_of(sl)
+
+    fits = [c for c in range(1, cluster_max + 1) if cut(c)[1] <= share]
+    if not fits:
+        fits = [c for c in [cluster_max, *range(cluster_max + 1, KD_MAX_CLUSTER + 1)]
+                if cut(c)[1] <= KD_SMEM_MAX]
+    if not fits:
+        raise ValueError(f"{what} does not fit {KD_MAX_CLUSTER} CTAs' shared memory")
+    return (fits[0], *cut(fits[0]))
 
 
 def kd_plan(B: int, V: int, elt: int, cluster_max: int = KD_PORTABLE_CLUSTER,
@@ -161,19 +240,8 @@ def kd_plan(B: int, V: int, elt: int, cluster_max: int = KD_PORTABLE_CLUSTER,
                 "threads": KD_ROWS_THREADS, "row_lanes": lanes, "grid": -(-B // rows),
                 "smem": 0, "launches_fwd": 2}
 
-    def cut(c: int) -> tuple[int, int]:
-        sl = -(-(-(-V // c)) // KD_GROUP) * KD_GROUP
-        return sl, _staged_bytes(sl, elt)
-
-    fits = [c for c in range(1, cluster_max + 1) if cut(c)[1] <= share]
-    if not fits:
-        fits = [c for c in [cluster_max, *range(cluster_max + 1, KD_MAX_CLUSTER + 1)]
-                if cut(c)[1] <= KD_SMEM_MAX]
-    if not fits:
-        raise ValueError(f"kd_loss: a row of V = {V} ({V * elt} bytes) does not fit "
-                         f"{KD_MAX_CLUSTER} CTAs' shared memory")
-    c = fits[0]
-    sl, smem = cut(c)
+    c, sl, smem = _row_cut(V, lambda sl: _staged_bytes(sl, elt), cluster_max, share,
+                           f"kd_loss: a row of V = {V} ({V * elt} bytes)")
     return {"path": "staged", "cluster": c, "slice": sl,
             "slices": [(min(V, q * sl), min(V, q * sl + sl)) for q in range(c)],
             "threads": KD_STAGED_THREADS, "row_lanes": KD_STAGED_THREADS, "grid": B * c,

@@ -9,9 +9,9 @@
       init weights, against the JAX runner's ``execution="vectorized"`` and
       against the port's own sequential runner, for ``fedavg``, ``fedprox``,
       ``scaffold``, ``fedsdd`` (K=4, R=2) and ``feddf`` on the 8-client CNN
-      task (uniform groups; Eq. 2 through the kernel route's reshape with
-      the route forced on, the wrapper running its plain version on the
-      CPU), ``fedsdd`` K=2 on 7 clients (ragged groups, the segment
+      task (uniform groups; Eq. 2 through the kernel route's reshape and
+      one tree call a round with the route forced on, the wrapper running
+      its plain version on the CPU), ``fedsdd`` K=2 on 7 clients (ragged groups, the segment
       reduction), partial participation in one bucket, and a tiny shard
       (several buckets).  SCAFFOLD's per-client controls are compared too.
       Tolerance 2e-4, the port's runner-parity tolerance
@@ -54,7 +54,7 @@ from repro_torch.distill import TeacherBank  # noqa: E402
 from repro_torch.kernels.weight_avg import ops as wops  # noqa: E402
 from repro_torch.models import resnet  # noqa: E402
 from repro_torch.optim.optimizers import sgd  # noqa: E402
-from repro_torch.utils.pytree import tree_zeros_like  # noqa: E402
+from repro_torch.utils.pytree import tree_leaves, tree_zeros_like  # noqa: E402
 
 ATOL = RTOL = 2e-4
 UNIFORM = dict(model="cnn", num_clients=8, alpha=0.5, num_train=400, num_server=256, seed=0)
@@ -209,16 +209,16 @@ def test_vectorized_matches_jax_runner_and_sequential(name, monkeypatch):
     kernel_calls = []
     if spec is UNIFORM:
         monkeypatch.setattr(aggregation, "_kernel_route", lambda stacked: True)
-        real = wops.group_weighted_average
-        monkeypatch.setattr(wops, "group_weighted_average",
-                            lambda x, w: kernel_calls.append(x.shape) or real(x, w))
+        real = wops.group_weighted_average_pytree
+        monkeypatch.setattr(wops, "group_weighted_average_pytree",
+                            lambda t, w: kernel_calls.append(len(tree_leaves(t))) or real(t, w))
     states = {}
     for execution in ("vectorized", "sequential"):
         runner = make_runner(preset, task, device="cpu", execution=execution, **kw)
         states[execution] = runner.run(2, state=_port_state(jrunner, task, runner))
     vec, seq = states["vectorized"], states["sequential"]
-    if spec is UNIFORM:             # one launch per leaf per round (4 CNN leaves)
-        assert len(kernel_calls) == 4 * 2
+    if spec is UNIFORM:             # one launch for the 4 CNN leaves, a round
+        assert kernel_calls == [4, 4]
     assert vec.round == jstate.round == 2
     for m, jm, sm in zip(vec.global_models, jstate.global_models, seq.global_models):
         _close(m, jm)

@@ -19,11 +19,13 @@ f32 at rtol = atol = 1e-5; bf16 within one bf16 ulp of each row's max
 
 Tolerances, the KD kernels (both sides compute in f32 from the same
 inputs; only the order of summation differs): f32 per row, max
-|kernel - plain| at most 1e-5 of the row's max |plain|; bf16 teacher
-logits, probabilities at atol 2e-3 (the reference's own, as in
-``tests/test_kernels.py``); the loss at rtol 1e-4; a bf16 gradient per
-row at 8e-3 of its max |plain| (two bf16 ulps: both sides round once),
-plus 1e-6·|g|·τ/B absolute (f32 noise on p − t, for rows near zero).
+|kernel - plain| at most 1e-5 of the row's max |plain|; probabilities
+from bf16 teacher logits at the same 1e-5 of the row's max (both sides
+compute in f32 from the same bf16 values; the reference's own atol 2e-3
+is hundreds of times a probability at V 152,064); the loss at rtol 1e-4;
+a bf16 gradient per row at 8e-3 of its max |plain| (two bf16 ulps: both
+sides round once), plus 1e-6·|g|·τ/B absolute (f32 noise on p − t, for
+rows near zero).
 
 Tolerances, ``weight_avg`` (both sides sum the same f32 products, in
 another order): f32 at rtol 1e-5, atol 1e-6, the reference's own
@@ -56,7 +58,6 @@ from repro_torch.kernels.weight_avg import ref as wa_ref  # noqa: E402
 
 BF16_ROW_TOL = 1.6e-2
 KD_F32_ROW_TOL = 1e-5
-KD_BF16_PROB_ATOL = 2e-3
 KD_BF16_GRAD_ROW_TOL = 8e-3
 # the reference sweep (tests/test_kernels.py), the FedSDD round's own
 # V = 10 (M = K·R = 8 teachers over 8 server batches of 256) and an LM
@@ -75,6 +76,15 @@ def _rows_within(out, ref, rel, atol=0.0):
     """Every row's max |out - ref| at most ``rel`` of its max |ref| plus ``atol``."""
     out, ref = out.float().flatten(0, -2), ref.float().flatten(0, -2)
     return bool(((out - ref).abs().amax(-1) <= rel * ref.abs().amax(-1) + atol).all())
+
+
+def _row_rel_err(out, ref) -> str:
+    """The largest row's max |out - ref| over its max |ref|, and the max
+    |out - ref|: a failed check's reading."""
+    out, ref = out.float().flatten(0, -2), ref.float().flatten(0, -2)
+    err = (out - ref).abs()
+    return (f"row_rel_err {float((err.amax(-1) / ref.abs().amax(-1)).max())}, "
+            f"max_abs_err {float(err.max())}")
 
 
 def _paged_case(rng, *, G, dh, Hkv=2, bs=16, lens=(64, 17, 8, 0)):
@@ -180,11 +190,64 @@ def test_ensemble_softmax_matches_plain_on_card(dtype, shape, tau):
     torch.cuda.synchronize()
     assert kernels.launches["ensemble_softmax"] == before + 1
     assert out.dtype == torch.float32 and out.shape == ref.shape
-    if dtype == "float32":
-        assert _rows_within(out, ref, KD_F32_ROW_TOL)
-    else:
-        torch.testing.assert_close(out, ref, rtol=0, atol=KD_BF16_PROB_ATOL)
+    assert _rows_within(out, ref, KD_F32_ROW_TOL), _row_rel_err(out, ref)
     torch.testing.assert_close(out.sum(-1), torch.ones_like(out[:, 0]), rtol=0, atol=1e-4)
+
+
+# kernel 2 on each path of ensemble_plan: small blocks of whole rows (V 1,
+# 10, 517, 1,024; N not a multiple of the block) and staged rows in
+# clusters of 1 to 10 CTAs (non-portable above 8: gemma-2b's row takes 10)
+ENS_PLAN_SHAPES = [(3, 7, 1), (8, 300, 10), (2, 33, 517), (5, 9, 1024), (4, 3, 1025),
+                   (3, 5, 28000), (2, 3, 50304), (3, 3, 70000), (4, 2, 90000),
+                   (2, 2, 130000), (4, 2, 152064), (3, 2, 170000), (2, 2, 210000),
+                   (2, 2, 240000), (8, 2, 256000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", ENS_PLAN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_ensemble_softmax_paths_match_plain_on_card(dtype, shape):
+    _needs_card()
+    M, N, V = shape
+    x = (torch.randn(shape, generator=torch.Generator(device="cuda").manual_seed(N * V),
+                     device="cuda") * 3).to(getattr(torch, dtype))
+    out, ref = kd_ops.ensemble_softmax(x, 2.0), kd_ref.ensemble_softmax_ref(x, 2.0)
+    torch.cuda.synchronize()
+    assert _rows_within(out, ref, KD_F32_ROW_TOL), _row_rel_err(out, ref)
+
+
+def test_ensemble_plan_shapes_reach_every_cluster_size():
+    clusters = {kd_ops.ensemble_plan(M, N, V, elt)["cluster"] for M, N, V in ENS_PLAN_SHAPES
+                for elt in (2, 4)}
+    assert clusters == set(range(1, 11))
+    assert {kd_ops.ensemble_plan(M, N, V, 4)["path"] for M, N, V in ENS_PLAN_SHAPES} == \
+        {"small", "staged"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("offset", [1, 3])
+@pytest.mark.parametrize("shape", [(8, 2048, 10), (4, 33, 517), (3, 4, 4099), (4, 2, 152064)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_ensemble_softmax_at_an_odd_storage_offset_on_card(dtype, offset, shape):
+    """Teacher logits whose rows start at any 4- or 2-byte phase: plain loads
+    at the head and tail, the same z and the same order of sums, so the same
+    bits as at offset 0."""
+    _needs_card()
+    M, N, V = shape
+    gen = torch.Generator(device="cuda").manual_seed(N * V + offset)
+    flat = (torch.randn((M * N * V + offset,), generator=gen, device="cuda") * 3)
+    x = flat.to(getattr(torch, dtype))[offset:].view(shape)
+    assert x.is_contiguous() and x.storage_offset() == offset
+    out = kd_ops.ensemble_softmax(x, 4.0)
+    aligned = x.clone()
+    assert aligned.storage_offset() == 0
+    again = kd_ops.ensemble_softmax(aligned, 4.0)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert torch.equal(kd_ops.ensemble_softmax(aligned, 4.0), again)
+    ref = kd_ref.ensemble_softmax_ref(x, 4.0)
+    assert _rows_within(out, ref, KD_F32_ROW_TOL), _row_rel_err(out, ref)
 
 
 @pytest.mark.cuda
@@ -382,7 +445,7 @@ def test_weighted_average_matches_plain_on_card(dtype, shape):
 
 
 @pytest.mark.cuda
-def test_weight_avg_pytree_wrappers_launch_once_per_leaf_on_card():
+def test_weight_avg_pytree_wrappers_launch_once_per_tree_on_card():
     _needs_card()
     gen = torch.Generator(device="cuda").manual_seed(0)
     tree = {"a": torch.randn((4, 2, 3, 3, 16), generator=gen, device="cuda"),
@@ -390,15 +453,89 @@ def test_weight_avg_pytree_wrappers_launch_once_per_leaf_on_card():
     w = torch.tensor([[1.0, 3.0]] * 4, device="cuda")
     before = kernels.launches["multi_weighted_average"]
     out = wa_ops.group_weighted_average_pytree(tree, w)
-    assert kernels.launches["multi_weighted_average"] == before + 2
+    assert kernels.launches["multi_weighted_average"] == before + 1
     torch.testing.assert_close(out["a"], (tree["a"][:, 0] + 3 * tree["a"][:, 1]) / 4,
                                rtol=1e-5, atol=1e-6)
     assert out["b"]["c"].shape == (4, 10)
+    assert out["a"].untyped_storage().data_ptr() == out["b"]["c"].untyped_storage().data_ptr()
     before = kernels.launches["weighted_average"]
     one = wa_ops.weighted_average_pytree({"c": tree["b"]["c"][0]}, w[0])
     assert kernels.launches["weighted_average"] == before + 1
     torch.testing.assert_close(one["c"], (tree["b"]["c"][0, 0] + 3 * tree["b"]["c"][0, 1]) / 4,
                                rtol=1e-5, atol=1e-6)
+
+
+def _wa_tree(gen, shapes, G, N, offsets=None):
+    """Leaves (G, N, *shape) of the given dtypes, leaf i at ``offsets[i]``
+    elements into its storage (contiguous)."""
+    tree = []
+    for i, (dtype, shape) in enumerate(shapes):
+        off = offsets[i] if offsets else 0
+        n = G * N * int(np.prod(shape, dtype=np.int64))
+        flat = torch.randn((n + off,), generator=gen, device="cuda").to(dtype)
+        tree.append(flat[off:].view((G, N) + tuple(shape)))
+    return tree
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mixed", "odd offsets", "split table"])
+def test_weight_avg_tree_matches_plain_on_card(case):
+    """Kernel 5's tree launch: f32 and bf16 leaves (a launch each), leaves
+    of one element and of odd D, leaves at odd storage offsets (scalar
+    loads), and a tree of more leaves than one table holds (several
+    launches); each leaf against the plain version, and the launch count
+    against wa_tree_plan's."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(len(case))
+    f32, bf16 = torch.float32, torch.bfloat16
+    G, N = 4, 2
+    if case == "mixed":
+        shapes = [(f32, (3, 3, 16, 16)), (bf16, (1,)), (f32, (1,)), (bf16, (517,)),
+                  (f32, (10,)), (bf16, (64, 64)), (f32, (36864,)), (bf16, (3,))]
+        offsets = None
+    elif case == "odd offsets":
+        shapes = [(f32, (1024,)), (bf16, (2048,)), (f32, (4099,)), (bf16, (7,))]
+        offsets = [1, 3, 2, 5]
+    else:
+        G, N = 3, 5
+        shapes = [(f32 if i % 3 else bf16, (1 + (i * 37) % 300,)) for i in range(2500)]
+        offsets = None
+    tree = _wa_tree(gen, shapes, G, N, offsets)
+    w = torch.randint(1, 40, (G, N), generator=gen, device="cuda").float()
+    plan = wa_ops.wa_tree_plan([(x.dtype, x[0, 0].numel()) for x in tree], G, N)
+    before = kernels.launches["multi_weighted_average"]
+    out = wa_ops.group_weighted_average_pytree(tree, w)
+    torch.cuda.synchronize()
+    assert kernels.launches["multi_weighted_average"] == before + len(plan["launches"])
+    if case == "split table":
+        assert len(plan["launches"]) == 3
+    storage = out[0].untyped_storage().data_ptr()
+    for x, o in zip(tree, out):
+        assert o.dtype == x.dtype and o.shape == (G,) + x.shape[2:] and o.is_contiguous()
+        assert o.untyped_storage().data_ptr() == storage and o.data_ptr() % 16 == 0
+        x3 = x.reshape(G, N, -1)
+        _wa_close(o.reshape(G, -1), wa_ref.group_weighted_average_ref(x3, w), x3, w)
+
+
+@pytest.mark.cuda
+def test_weight_avg_tree_equals_the_per_tensor_launches_on_card():
+    """A leaf of a tree, the same tensor alone (a one-leaf table) and a copy
+    at an odd storage offset (the scalar path) normalise the weights and sum
+    the same f32 products in the same order: the same bits."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    shapes = [(torch.float32, (3, 3, 16, 32)), (torch.bfloat16, (999,)),
+              (torch.float32, (10,)), (torch.bfloat16, (4096,))]
+    tree = _wa_tree(gen, shapes, 4, 2)
+    w = torch.randint(1, 7000, (4, 2), generator=gen, device="cuda").float()
+    out = wa_ops.group_weighted_average_pytree(tree, w)
+    for x, o in zip(tree, out):
+        one = wa_ops.group_weighted_average(x.reshape(4, 2, -1), w)
+        assert torch.equal(o.reshape(4, -1), one)
+        flat = torch.empty((x.numel() + 1,), dtype=x.dtype, device="cuda")
+        odd = flat[1:].view(4, 2, -1)
+        odd.copy_(x.reshape(4, 2, -1))
+        assert torch.equal(wa_ops.group_weighted_average(odd, w), one)
 
 
 @pytest.mark.cuda

@@ -10,9 +10,9 @@
       reference's own), bf16 within one bf16 ulp of the reference's result;
   (b) ``fedavg_aggregate_grouped`` against the listwise ``fedavg_aggregate``
       for ragged groups (the segment reduction) and uniform groups, the
-      latter through the kernel route's reshape with the route forced on
-      (``_kernel_route``; on a CPU tensor the wrapper runs its plain
-      version);
+      latter through the kernel route's reshape and one tree call with the
+      route forced on (``_kernel_route``; on a CPU tensor the wrapper runs
+      its plain version);
   (c) the pytree wrappers over a ResNet-20 parameter tree, leaf by leaf
       against the reference's wrappers on their CPU route (the ref
       oracles; the Pallas route is held in (a) at the shapes above).
@@ -32,7 +32,7 @@ from repro.models import resnet as jax_resnet  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.core import aggregation  # noqa: E402
 from repro_torch.kernels.weight_avg import ops, ref  # noqa: E402
-from repro_torch.utils.pytree import tree_map, tree_stack  # noqa: E402
+from repro_torch.utils.pytree import tree_leaves, tree_map, tree_stack  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 GROUP_SHAPES = [(3, 5, 517), (4, 2, 36864)]
@@ -97,12 +97,12 @@ def test_grouped_aggregate_matches_listwise(gid, monkeypatch):
     calls = []
     if uniform:      # drive the kernel route's reshape; the CPU wrapper runs plain
         monkeypatch.setattr(aggregation, "_kernel_route", lambda stacked: True)
-        real = ops.group_weighted_average
-        monkeypatch.setattr(ops, "group_weighted_average",
-                            lambda x, w: calls.append(tuple(x.shape)) or real(x, w))
+        real = ops.group_weighted_average_pytree
+        monkeypatch.setattr(ops, "group_weighted_average_pytree",
+                            lambda t, w: calls.append(len(tree_leaves(t))) or real(t, w))
     stacked = tree_stack([interop.params_from_numpy(m, device="cpu") for m in ms])
     agg = aggregation.fedavg_aggregate_grouped(stacked, sizes, gid, 2)
-    assert len(calls) == (2 if uniform else 0)          # one launch per leaf
+    assert calls == ([2] if uniform else [])            # one launch for the tree's 2 leaves
     for g in range(2):
         sel = np.flatnonzero(gid == g)
         want = jax_fedavg_aggregate([jax.tree.map(jnp.asarray, ms[i]) for i in sel], sizes[sel])

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Kernels 1 (paged_decode), 3 (kd_loss_fwd), 4 (kd_loss_bwd), 9
-(flash_kd_head_fwd), 10 (flash_kd_head_bwd), 11 (flash_decode) and 12
-(flash_forward) of two checkouts, timed with one timer on one card.
+"""Kernels 1 (paged_decode), 2 (ensemble_softmax), 3 (kd_loss_fwd), 4
+(kd_loss_bwd), 5 (multi_weighted_average), 9 (flash_kd_head_fwd), 10
+(flash_kd_head_bwd), 11 (flash_decode) and 12 (flash_forward) of two
+checkouts, timed with one timer on one card.
 
     python3 tools/kernel_ab.py --parent DIR   # DIR, this checkout, this checkout, DIR
     python3 tools/kernel_ab.py --tree DIR     # one checkout's times
     python3 tools/kernel_ab.py --kd-plans     # kernels 3 and 4 of this checkout under other plans
+    python3 tools/kernel_ab.py --ens-plans [DIR]  # kernel 2 of DIR (this checkout), other plans
 
 Each tree runs in a process of its own, which imports ``repro_torch`` from
 ``DIR/src`` (and so builds that tree's kernels from its own sources into
@@ -20,13 +22,22 @@ and starcoder2-3b's window at S 16,384, bf16; kernel 11 at qwen2.5-14b's
 `decode_32k` (B 8, S 32,768, 40 heads over 8 of 128, bf16) and the
 reference bench's decode (B 8, S 4,096, 8 heads of 64, f32); kernels 9 and
 10 at gemma-2b's KD step (512 x 2,048 x 256,000, tied head, f32, bf16 cache
-with its lse).  Prints the card's name and power limit, then one JSON line
-per tree, which also holds the device ms of the launches of one call of
-kernels 3 (at 256 x 10 and 512 x 256,000), 9 and 10 under torch.profiler
+with its lse); kernel 2 at the FedSDD round's teacher cache (M 8, N 2,048,
+V 10) and at M x N of 4 x 256 and 8 x 512 over those two vocabularies, f32
+and bf16; kernel 5 through ``group_weighted_average_pytree`` over
+ResNet-56's tree (169 leaves) at G 4, N 2, f32 and bf16, the FedSDD
+round's Eq. 2 (one launch a leaf before the tree launch), and kernels 5 and
+6 on one tensor of odd D at chip_smoke.py phase 9's (4, 8, 16,777,219) and
+(32, 16,777,219).  Prints the
+card's name and power limit, then one JSON line per tree, which also holds
+the device ms of the launches of one call of kernels 2 (at 8 x 2,048 x 10),
+3 (at 256 x 10 and 512 x 256,000), 5 (f32), 9 and 10 under torch.profiler
 (no L2 flush), by kernel name.  ``--kd-plans`` times kernels 3 and 4 at
 the LM shapes with ``kd_plan``'s other choices passed to the launcher:
-clusters up to 16 CTAs and other shares of shared memory a CTA.  Needs one
-NVIDIA GPU.
+clusters up to 16 CTAs and other shares of shared memory a CTA;
+``--ens-plans`` does the same for kernel 2 (``ensemble_plan``) at the
+round's and the LM shapes, of this checkout or of ``DIR`` (a copy with a
+constant changed).  Needs one NVIDIA GPU.
 """
 from __future__ import annotations
 
@@ -40,6 +51,7 @@ ROOT = Path(__file__).resolve().parents[1]
 QWEN_SERVE_LENS = [456, 412, 504, 441, 98, 84, 340, 552]   # phase 5's busiest decode chunk
 KD_ROUND = (256, 10)                    # the FedSDD round's KD step (ResNet-56, CIFAR-10)
 KD_LM = [(256, 152064), (512, 256000)]  # Qwen2.5's and gemma-2b's vocabularies
+ENSEMBLE = [(8, 2048, 10), (4, 256, 152064), (8, 512, 256000)]  # kernel 2: M, N, V
 
 
 def pass_times(fn) -> dict:
@@ -114,6 +126,50 @@ def kd_plans(seed: int) -> dict:
     return out
 
 
+def ens_plans(tree: Path, seed: int) -> dict:
+    """Kernel 2 of ``tree`` at the FedSDD round's and the LM shapes under
+    ensemble_plan's choices: the default, the portable clusters of up to 8
+    CTAs and other shares of shared memory a CTA (the same plan at V 10);
+    each variant's largest difference from the default's output."""
+    sys.path.insert(0, str(tree / "src"))
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+    from repro_torch.kernels.kd_loss import ops as kd_ops
+    build.build_all(["kd_loss"])
+    lib = kd_ops._lib()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    stream = torch.cuda.current_stream().cuda_stream
+    variants = {"default": {}, "cluster<=8": {"cluster_max": 8},
+                "share 72 KB": {"share": 72 * 1024},
+                "share 227 KB": {"share": kd_ops.KD_SMEM_MAX}}
+    out = {"tree": str(tree)}
+    for M, N, V in ENSEMBLE:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn((M, N, V), generator=gen, device="cuda") * 3).to(dtype)
+            want = kd_ops.ensemble_softmax(x, 4.0)
+            got = torch.empty_like(want)
+            for label, kw in variants.items():
+                p = kd_ops.ensemble_plan(M, N, V, x.element_size(), **kw)
+                args = (*kd_ops.ensemble_plan_args(p), kd_ops._DTYPES[dtype], stream)
+
+                def run():
+                    build.check(lib, lib.ensemble_softmax(x.data_ptr(), got.data_ptr(), M, N, V,
+                                                          0.25, *args), "ensemble_softmax")
+
+                run()
+                torch.cuda.synchronize()
+                out[f"{M}x{N}x{V} {str(dtype).removeprefix('torch.')} {label}"] = {
+                    "cluster": p["cluster"], "smem": p["smem"],
+                    "max_abs_diff": float((got - want).abs().max()),
+                    "k2_ms": cs.time_call(run)[0]}
+            del x, want, got
+            torch.cuda.empty_cache()
+    return out
+
+
 def time_tree(tree: Path, seed: int) -> dict:
     sys.path.insert(0, str(tree / "src"))
     sys.path.insert(0, str(ROOT))
@@ -124,7 +180,11 @@ def time_tree(tree: Path, seed: int) -> dict:
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.kd_loss import ops as kd_ops
     assert Path(ops.__file__).resolve().is_relative_to(tree.resolve()), ops.__file__
-    build.build_all(["paged_decode", "flash_attention", "flash_kd", "kd_loss"])
+    from repro_torch.configs.resnet_cifar import get_resnet_config
+    from repro_torch.kernels.weight_avg import ops as wa_ops
+    from repro_torch.models.resnet import init_resnet
+    from repro_torch.utils.pytree import tree_map
+    build.build_all(["paged_decode", "flash_attention", "flash_kd", "kd_loss", "weight_avg"])
     gen = torch.Generator(device="cuda").manual_seed(seed)
     bf16 = torch.bfloat16
     out = {"tree": str(tree)}
@@ -189,6 +249,35 @@ def time_tree(tree: Path, seed: int) -> dict:
             out[f"k3 {name} passes"] = pass_times(lambda: kd_ops.kd_loss_fwd(s, t, 4.0))
         del s, t
     torch.cuda.empty_cache()
+    for (M, N, V), dtype in [(c, d) for c in ENSEMBLE for d in (torch.float32, bf16)]:
+        x = (torch.randn((M, N, V), generator=gen, device="cuda") * 3).to(dtype)
+        name = f"{M}x{N}x{V} {str(dtype).removeprefix('torch.')}"
+        record(f"k2 {name}", lambda: kd_ops.ensemble_softmax(x, 4.0))
+        if dtype == torch.float32 and V == 10:
+            out[f"k2 {name} passes"] = pass_times(lambda: kd_ops.ensemble_softmax(x, 4.0))
+        del x
+    torch.cuda.empty_cache()
+    for shape in [(4, 8, 16_777_219), (32, 16_777_219)]:   # chip_smoke.py phase 9's
+        for dtype in (torch.float32, bf16):
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            w = torch.randint(1, 40, shape[:-1], generator=gen, device="cuda").float()
+            k, fn = (("k6", wa_ops.weighted_average) if len(shape) == 2
+                     else ("k5", wa_ops.group_weighted_average))
+            record(f"{k} {'x'.join(map(str, shape))} {str(dtype).removeprefix('torch.')}",
+                   lambda: fn(x, w))
+            del x
+    torch.cuda.empty_cache()
+    params = init_resnet(torch.Generator(device="cuda").manual_seed(seed),
+                         get_resnet_config("resnet56"))
+    w = torch.randint(1, 7000, (4, 2), generator=gen, device="cuda").float()
+    for dtype in (torch.float32, bf16):
+        stack = tree_map(lambda p: torch.randn((4, 2) + tuple(p.shape), generator=gen,
+                                               device="cuda").to(dtype), params)
+        name = f"k5 resnet56 tree G=4 N=2 {str(dtype).removeprefix('torch.')}"
+        record(name, lambda: wa_ops.group_weighted_average_pytree(stack, w))
+        if dtype == torch.float32:
+            out[f"{name} passes"] = pass_times(
+                lambda: wa_ops.group_weighted_average_pytree(stack, w))
     return out
 
 
@@ -199,10 +288,16 @@ def main() -> int:
     group.add_argument("--tree", type=Path, help="time one checkout")
     group.add_argument("--kd-plans", action="store_true",
                        help="kernels 3 and 4 of this checkout under kd_plan's other choices")
+    group.add_argument("--ens-plans", nargs="?", const=ROOT, type=Path, metavar="DIR",
+                       help="kernel 2 of DIR (default this checkout) under ensemble_plan's "
+                            "other choices")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if args.tree:
         print(json.dumps(time_tree(args.tree, args.seed)), flush=True)
+        return 0
+    if args.ens_plans:
+        print(json.dumps(ens_plans(args.ens_plans, args.seed)), flush=True)
         return 0
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
