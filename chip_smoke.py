@@ -5,7 +5,22 @@
 
 Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and the
 repository's ``src/`` beside this file; imports nothing of JAX or of the
-JAX package.  Phases, each of which fails the run if it fails:
+JAX package.  Every path runs in the card's default step mode, "scan"
+(each client step, vectorized bucket step, KD step and decode chunk a
+captured CUDA graph, src/repro_torch/core/step_graph.py); each profiled
+window of phases 5, 8, 11, 14 and 17 runs once under "scan" and once under
+"stepped" (REPRO_ENGINE_STEP_MODE), then one line sets the two side by
+side.  The training phases 8, 11 and 14 fail if round 2 captures a graph,
+the serving phase 5 if the served batch does after the warm-up.
+
+A step program's replays launch its kernels with no wrapper running, so
+every launch count checked below is the wrappers' eager launches plus those
+the card counted itself: a wrapper whose launch a capture records records
+beside it an increment of its slot in a counter on the card, which each
+replay runs (repro_torch.kernels.counted).  Each wrapper's eager count
+must be above 0 in the same run.  The serving phases 5 and 17 read the
+launches from a third batch.
+Phases, each of which fails the run if it fails:
 
   1. card      name and power limit (nvidia-smi); TF32 off for matmul/cuDNN
   2. build     every kernel under src/repro_torch/kernels/csrc, one nvcc each,
@@ -30,7 +45,8 @@ JAX package.  Phases, each of which fails the run if it fails:
   5. bf16/48   qwen2.5-14b as configured (48 layers, bf16, random weights
                made on the card): ContinuousEngine serves 16 requests; checks
                token counts, the drained pool, 48 kernel launches per decode
-               micro-step, and one decode step's logits kernel vs plain;
+               micro-step (over 8 more requests, counted), and one decode
+               step's logits kernel vs plain;
                then one chunk with every lane busy under torch.profiler:
                wall and device ms per micro-step, idle share, kernel times,
                kernel 1's share of the device time and the kernel launches
@@ -106,9 +122,10 @@ JAX package.  Phases, each of which fails the run if it fails:
                clients x 8 docs of 128 tokens, 2 server batches of 4), fedsdd
                K=4 R=2, distill_steps 20, head-fused Flash-KD with the default
                bf16 cache, the teacher ring stored in bf16; per round t_local,
-               t_kd, the cache build, peak memory and kernels 9/10's launches
-               (20 each); then 5 KD steps under torch.profiler, kernels 9
-               and 10's device time and share of the step, beside the same
+               t_kd, the cache build, peak memory, the CUDA graphs' pool
+               and kernels 9/10's launches (20 each); then the round's own
+               KD program (20 steps) under torch.profiler, kernels 9 and
+               10's device time and share of the step, beside the same
                profile with kernel 9 on the f32 CUDA cores
  15. flash     kernels 11-12 (flash_attention.cu): first their own path, the
                reference's kernel bench and tests through the public ops
@@ -194,6 +211,7 @@ the sum of the magnitudes of the products each element adds up (up to
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -201,6 +219,8 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -253,6 +273,7 @@ T_START = time.perf_counter()
 
 
 def phase(name: str) -> None:
+    gc.collect()            # what the last phase left in cycles goes before the next
     mem = (f"; {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
            f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved"
            if torch.cuda.is_initialized() else "")
@@ -322,6 +343,77 @@ def time_call(fn, reps: int = 25) -> tuple[float, float]:
 
 def time_ms(fn, reps: int = 25) -> float:
     return time_call(fn, reps)[0]
+
+
+STEP_MODES = ("scan", "stepped")        # the card's default, then the oracle
+
+
+@contextmanager
+def step_mode(mode: str):
+    """``REPRO_ENGINE_STEP_MODE=mode`` for the block: the reference's override
+    of every loop's step mode, read at each step program's call."""
+    old = os.environ.get("REPRO_ENGINE_STEP_MODE")
+    os.environ["REPRO_ENGINE_STEP_MODE"] = mode
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["REPRO_ENGINE_STEP_MODE"]
+        else:
+            os.environ["REPRO_ENGINE_STEP_MODE"] = old
+
+
+def graph_pool_gb() -> float:
+    """GB the caching allocator holds in CUDA graphs' private pools."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0)) / 1e9
+
+
+@contextmanager
+def card_launches():
+    """The block's kernel launches by wrapper as the card ran them: the
+    wrappers' eager launches and those a step program's replays ran, which
+    the card counted (``kernels.counted``).  Yields a Counter, filled when
+    the block ends."""
+    from repro_torch import kernels
+    before = kernels.counted()
+    out = Counter()
+    yield out
+    out.update(kernels.counted() - before)
+
+
+def captured() -> int:
+    """CUDA graphs captured so far by the port's step programs."""
+    from repro_torch.core.step_graph import captures
+    return sum(captures.values())
+
+
+def union_ms(events) -> float:
+    """Milliseconds in which at least one of the profiled kernels ``events``
+    ran: the union of their intervals.  Kernels of one CUDA graph may run
+    side by side, and then their summed times exceed the card's busy time."""
+    total, end = 0.0, -math.inf
+    for lo, hi in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if hi > end:
+            total += hi - max(lo, end)
+            end = hi
+    return total / 1e3
+
+
+def busy_ms_of(prof) -> float:
+    from torch.autograd import DeviceType
+    return union_ms([e for e in prof.events() if e.device_type == DeviceType.CUDA])
+
+
+def mode_windows(label: str, windows: dict, card: str) -> None:
+    """One line beside a phase's profiled windows: each step mode's wall,
+    device and idle share for the same steps."""
+    keys = [k for k in ("wall_ms_per_step", "wall_ms_per_micro_step", "device_ms_per_step",
+                        "device_ms_per_micro_step", "idle_share", "busy_ms_per_step",
+                        "busy_ms_per_micro_step", "busy_idle_share", "kernel_launches_per_step",
+                        "kernel_launches_per_micro_step") if k in windows["scan"]]
+    print(json.dumps({"phase": f"scan vs stepped: {label}", "card": card,
+                      **{k: {m: w[k] for m, w in windows.items()} for k in keys}}), flush=True)
 
 
 def kernel_times(fn, reps: int = 25) -> dict:
@@ -559,19 +651,22 @@ def f32_depth2_phase(serve, zoo, get_config, seed: int):
                                     block_size=16, max_seq_len=224, chunk_steps=4)
     from repro_torch import kernels
     kernels.launches.clear()
-    results, _ = drive(engine, reqs)
-    launches = kernels.launches["paged_decode"]
+    with card_launches() as ran:
+        results, _ = drive(engine, reqs)
+    launches, host = ran["paged_decode"], kernels.launches["paged_decode"]
     got = {r.rid: r.tokens for r in results}
     for r in reqs:
         ref = serve.generate_static(model, params, r.tokens[None], r.max_new_tokens)
         ref = ref[0].cpu().tolist()
         check(got[r.rid] == ref, f"f32 depth-2: request {r.rid} engine {got[r.rid]} "
                                  f"!= static {ref}")
-    check(launches == cfg.num_layers * engine.steps,
-          f"f32 depth-2: {launches} launches for {engine.steps} micro-steps")
+    check(launches == cfg.num_layers * engine.steps and host > 0,
+          f"f32 depth-2: {launches} launches on the card ({host} by the wrapper) for "
+          f"{engine.steps} micro-steps")
     print(json.dumps({"phase": "f32 depth 2, full width", "requests": len(reqs),
                       "tokens": sum(len(v) for v in got.values()),
                       "identical_tokens": True, "paged_decode_launches": launches,
+                      "paged_decode_wrapper_launches": host,
                       "micro_steps": engine.steps}), flush=True)
     del engine, params, model
     torch.cuda.empty_cache()
@@ -615,6 +710,7 @@ def profile_chunk(engine, serve, vocab: int, rng, before_launches: int) -> dict:
     check(engine.idle, "profile: requests left after their last chunk")
     kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / k
+    span_ms = busy_ms_of(prof) / k
     groups = dict.fromkeys(("matmul", "paged_decode", "other"), 0.0)
     for e in kern:
         groups[_kernel_group(e.key)] += e.self_device_time_total / 1e3 / k
@@ -625,6 +721,7 @@ def profile_chunk(engine, serve, vocab: int, rng, before_launches: int) -> dict:
             "wall_ms_per_micro_step": wall_ms,
             "device_ms_per_micro_step": busy_ms if kern else None,
             "idle_share": 1 - busy_ms / wall_ms if kern else None,
+            "busy_ms_per_micro_step": span_ms, "busy_idle_share": 1 - span_ms / wall_ms,
             "device_ms_by_group": groups,
             "paged_decode_share_of_device": groups["paged_decode"] / busy_ms if kern else None,
             "kernel_launches_per_micro_step": sum(e.count for e in kern) / k,
@@ -632,6 +729,18 @@ def profile_chunk(engine, serve, vocab: int, rng, before_launches: int) -> dict:
             "top_kernels": [{"name": e.key[:80], "per_micro_step": e.count / k,
                              "ms_per_micro_step": e.self_device_time_total / 1e3 / k}
                             for e in top]}
+
+
+def profile_modes(engine, serve, vocab: int, rng, before_launches: int, label: str,
+                  card: str) -> None:
+    """``profile_chunk`` under each step mode, then the two side by side."""
+    windows = {}
+    for mode in STEP_MODES:
+        with step_mode(mode):
+            windows[mode] = {**profile_chunk(engine, serve, vocab, rng, before_launches),
+                             "step_mode": mode}
+        print(json.dumps(windows[mode]), flush=True)
+    mode_windows(label, windows, card)
 
 
 def serve_phase(serve, zoo, ops, get_config, seed: int, card: str):
@@ -651,17 +760,24 @@ def serve_phase(serve, zoo, ops, get_config, seed: int, card: str):
     engine = serve.ContinuousEngine(model, params, max_batch=8, num_blocks=512,
                                     block_size=16, max_seq_len=576, chunk_steps=8)
     warm = make_requests(serve.Request, cfg.vocab_size, 2, rng, (32, 64), (8, 8))
-    drive(engine, warm)                       # cuBLAS handles, allocator
-    reqs = make_requests(serve.Request, cfg.vocab_size, 16, rng, (32, 512), (8, 64))
-    steps0 = engine.steps
-    torch.cuda.synchronize()
     kernels.launches.clear()
+    drive(engine, warm)                       # cuBLAS handles, allocator, the chunk's graph
+    reqs = make_requests(serve.Request, cfg.vocab_size, 16, rng, (32, 512), (8, 64))
+    steps0, captures0 = engine.steps, captured()
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     results, busiest = drive(engine, reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = kernels.launches["paged_decode"]
     micro = engine.steps - steps0
+    # the kernel's launches, counted over a third batch of short prompts
+    counted = make_requests(serve.Request, cfg.vocab_size, 8, rng, (32, 512), (8, 24))
+    steps1 = engine.steps
+    with card_launches() as ran:
+        drive(engine, counted)
+    launches, counted_micro = ran["paged_decode"], engine.steps - steps1
+    host = kernels.launches["paged_decode"]
+    check(captured() == captures0, f"serve: {captured() - captures0} captures after the warm-up")
 
     check(len(results) == len(reqs), f"{len(results)} results for {len(reqs)} requests")
     by_rid = {r.rid: r for r in results}
@@ -671,8 +787,9 @@ def serve_phase(serve, zoo, ops, get_config, seed: int, card: str):
               f"request {r.rid}: {len(res.tokens)} tokens for {r.max_new_tokens}")
     check(engine.alloc.used_blocks == 0 and engine.reserved_tokens == 0,
           "pool not free after the drain")
-    check(launches > 0 and launches == cfg.num_layers * micro,
-          f"{launches} paged_decode launches for {micro} micro-steps x {cfg.num_layers}")
+    check(host > 0 and launches > 0 and launches == cfg.num_layers * counted_micro,
+          f"{launches} paged_decode launches on the card ({host} by the wrapper) for "
+          f"{counted_micro} micro-steps x {cfg.num_layers}")
     ntok = sum(len(r.tokens) for r in results)
     ttft = sorted(r.ttft for r in results)
     lat = sorted(r.latency for r in results)
@@ -682,11 +799,14 @@ def serve_phase(serve, zoo, ops, get_config, seed: int, card: str):
                "wall_s": wall, "tokens_per_s": ntok / wall,
                "ttft_p50_ms": ttft[len(ttft) // 2] * 1e3,
                "latency_p50_ms": lat[len(lat) // 2] * 1e3,
-               "micro_steps": micro, "paged_decode_launches": launches,
-               "paged_decode_launches_per_micro_step": launches / micro,
+               "micro_steps": micro, "counted_micro_steps": counted_micro,
+               "paged_decode_launches": launches,
+               "paged_decode_launches_per_micro_step": launches / counted_micro,
+               "paged_decode_wrapper_launches": host,
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     print(json.dumps(summary), flush=True)
-    print(json.dumps(profile_chunk(engine, serve, cfg.vocab_size, rng, 3429)), flush=True)
+    profile_modes(engine, serve, cfg.vocab_size, rng, 3429, "qwen2.5-14b decode micro-step",
+                  card)
 
     # one decode step's logits through the kernel vs the plain version, on
     # four fresh requests scattered into a small pool
@@ -882,12 +1002,12 @@ def f32_round_phase(fed, kd_ops, kd_ref, seed: int) -> None:
         state = fed.FedState(round=0, global_models=[tree_map(torch.clone, m) for m in init],
                              ensemble=fed.TeacherBank(4, 2))
         kernels.launches.clear()
-        with plain_kd(kd_ops, kd_ref) if mode == "plain" else nullcontext():
+        with plain_kd(kd_ops, kd_ref) if mode == "plain" else nullcontext(), \
+                card_launches() as ran:
             state = runner.run(2, state=state)
-        torch.cuda.synchronize()
-        runs[mode] = (state, dict(kernels.launches))
+        runs[mode] = (state, dict(ran), dict(kernels.launches))
     torch.backends.cudnn.deterministic = False
-    (st_k, launches), (st_p, plain_launches) = runs["kernels"], runs["plain"]
+    (st_k, launches, host), (st_p, plain_launches, plain_host) = runs["kernels"], runs["plain"]
     main_ok = all(torch.allclose(a, b, rtol=ROUND_TOL, atol=ROUND_TOL) for a, b in
                   zip(_leaves(st_k.global_models[0]), _leaves(st_p.global_models[0])))
     rest_same = all(torch.equal(a, b) for k in range(1, 4) for a, b in
@@ -897,12 +1017,15 @@ def f32_round_phase(fed, kd_ops, kd_ref, seed: int) -> None:
                       "tol": ROUND_TOL, "models_k>0_bit_identical": rest_same,
                       "kd_loss_last": [r["kd_loss_last"] for r in st_k.history],
                       "kd_loss_last_plain": [r["kd_loss_last"] for r in st_p.history],
-                      "launches": launches, "launches_plain": plain_launches}), flush=True)
+                      "launches": launches, "wrapper_launches": host,
+                      "launches_plain": plain_launches}), flush=True)
     check(main_ok, "f32 round: main model, kernels vs plain, beyond 2e-4")
     check(rest_same, "f32 round: models k>0 differ between the kernel and plain runs")
-    check(launches == {"ensemble_softmax": 2, "kd_loss_fwd": 40, "kd_loss_bwd": 40},
-          f"f32 round: launches {launches}")
-    check(not any(plain_launches.values()), f"plain run launched kernels: {plain_launches}")
+    check(launches == {"ensemble_softmax": 2, "kd_loss_fwd": 40, "kd_loss_bwd": 40}
+          and all(host.get(k) for k in launches),
+          f"f32 round: launches {launches} on the card, {host} by the wrappers")
+    check(not plain_launches and not any(plain_host.values()),
+          f"plain run launched kernels: {plain_launches} on the card, {plain_host}")
 
 
 def _leaves(tree):
@@ -955,6 +1078,7 @@ def profile_window(label: str, fn, steps: int) -> dict:
         torch.cuda.synchronize()
     kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / steps
+    span_ms = busy_ms_of(prof) / steps
     groups = dict.fromkeys(("conv", "norm", "elementwise", "optimiser", "gather",
                             "ensemble_softmax", "kd_loss_fwd", "kd_loss_bwd", "other"), 0.0)
     for e in kern:
@@ -964,11 +1088,23 @@ def profile_window(label: str, fn, steps: int) -> dict:
             "wall_ms_per_step": wall_ms,
             "device_ms_per_step": busy_ms if kern else None,
             "idle_share": 1 - busy_ms / wall_ms if kern else None,
+            "busy_ms_per_step": span_ms, "busy_idle_share": 1 - span_ms / wall_ms,
             "device_ms_by_group": groups,
             "kernel_launches_per_step": sum(e.count for e in kern) / steps,
             "top_kernels": [{"name": e.key[:80], "per_step": e.count / steps,
                              "ms_per_step": e.self_device_time_total / 1e3 / steps}
                             for e in top]}
+
+
+def profile_window_modes(label: str, fn, steps: int, card: str) -> None:
+    """``profile_window`` under each step mode, then the two side by side."""
+    windows = {}
+    for mode in STEP_MODES:
+        with step_mode(mode):
+            windows[mode] = {**profile_window(label, fn, steps), "step_mode": mode,
+                             "card": card}
+        print(json.dumps(windows[mode]), flush=True)
+    mode_windows(label, windows, card)
 
 
 def resnet56_phase(fed, kd_ops, kd_ref, seed: int, card: str, kd6: dict) -> list[dict]:
@@ -999,35 +1135,41 @@ def resnet56_phase(fed, kd_ops, kd_ref, seed: int, card: str, kd6: dict) -> list
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     kernels.launches.clear()
-    rounds = []
+    rounds, launches = [], Counter()
     for _ in range(2):
-        before, t0 = client_steps[0], time.perf_counter()
-        state = runner.run(1, state=state)
-        torch.cuda.synchronize()
+        before, t0, captures0 = client_steps[0], time.perf_counter(), captured()
+        with card_launches() as ran:
+            state = runner.run(1, state=state)
+        launches.update(ran)
         rec = state.history[-1]
         n = client_steps[0] - before
         rounds.append({"round": rec["round"], "active": rec["active"], "client_steps": n,
+                       "captures": captured() - captures0,
                        "t_round_s": time.perf_counter() - t0, "t_local_s": rec["t_local"],
                        "t_kd_s": rec["t_kd"], "acc_main": rec["acc_main"],
                        "client_steps_per_s": n / rec["t_local"],
                        "kd_steps_per_s": steps_kd / rec["t_kd"],
                        "kd_loss_first": rec["kd_loss_first"],
                        "kd_loss_last": rec["kd_loss_last"]})
-    launches = dict(kernels.launches)
+    launches, host = dict(launches), dict(kernels.launches)
     task.make_batch = make_batch
     peak = torch.cuda.max_memory_allocated() / 1e9
     for r in rounds:
         print(json.dumps({"phase": "ResNet-56 FedSDD round", "card": card, **r}), flush=True)
     print(json.dumps({"phase": "ResNet-56 FedSDD run", "card": card, "rounds": 2,
-                      "launches": launches, "teachers": state.ensemble.num_members,
+                      "launches": launches, "wrapper_launches": host,
+                      "teachers": state.ensemble.num_members,
                       "rounds_held": state.ensemble.rounds_held(),
                       "peak_mem_gb": peak}), flush=True)
     check(len(state.history) == 2, "ResNet-56: two history records")
+    check(rounds[1]["captures"] == 0, f"ResNet-56: round 2 captured {rounds[1]['captures']}")
     check(all(math.isfinite(r["kd_loss_first"]) and math.isfinite(r["kd_loss_last"])
               for r in rounds), f"ResNet-56: non-finite KD losses {rounds}")
     check(state.ensemble.num_members == 8, "ResNet-56: the ring does not hold 8 teachers")
     check(launches.get("ensemble_softmax") == 2 and launches.get("kd_loss_fwd") == 2 * steps_kd
-          and launches.get("kd_loss_bwd") == 2 * steps_kd, f"ResNet-56: launches {launches}")
+          and launches.get("kd_loss_bwd") == 2 * steps_kd
+          and all(host.get(k) for k in ("ensemble_softmax", "kd_loss_fwd", "kd_loss_bwd")),
+          f"ResNet-56: launches {launches} on the card, {host} by the wrappers")
     check(all(_tree_err(state.global_models[k], state.global_models[0]) > 0
               for k in range(1, 4)), "ResNet-56: a model k>0 equals the main model")
     check(all(bool(x.isfinite().all()) for m in state.global_models for x in _leaves(m)),
@@ -1048,7 +1190,7 @@ def resnet56_phase(fed, kd_ops, kd_ref, seed: int, card: str, kd6: dict) -> list
              lambda: runner._local_train_scheduled(state.global_models[1], cid, state, rows)),
             ("10 KD steps, ResNet-56, batch 256, 8 teachers",
              lambda: pipe10._run(state.global_models[0], batches, cache))):
-        print(json.dumps(profile_window(label, fn, 10)), flush=True)
+        profile_window_modes(label, fn, 10, card)
 
     # the kernels at the round's own inputs: round 2's teacher logits over
     # the 8 server batches, and the distilled main model on batch 0
@@ -1280,17 +1422,19 @@ def resnet56_vectorized_phase(fed, wa_ops, wa_ref, seed: int, card: str,
     eng.train_round = recording_train_round
     torch.cuda.synchronize()
     kernels.launches.clear()
-    rounds = []
+    rounds, launches = [], Counter()
     with mock.patch.object(fed, "aggregate_groups", recording_aggregate):
         for _ in range(2):
             torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            state = runner.run(1, state=state)
-            torch.cuda.synchronize()
+            t0, captures0 = time.perf_counter(), captured()
+            with card_launches() as ran:
+                state = runner.run(1, state=state)
+            launches.update(ran)
             rec = state.history[-1]
             real = int(sum(p.num_steps.sum() for p in plans[-1]))
             padded = int(sum(p.step_mask.numel() for p in plans[-1]))
             rounds.append({"round": rec["round"], "active": rec["active"],
+                           "captures": captured() - captures0,
                            "buckets": [[len(p.cids), int(p.step_mask.shape[1]), p.batch_size]
                                        for p in plans[-1]],
                            "real_client_steps": real, "padded_client_steps": padded,
@@ -1302,7 +1446,7 @@ def resnet56_vectorized_phase(fed, wa_ops, wa_ref, seed: int, card: str,
                            "kd_loss_first": rec["kd_loss_first"],
                            "kd_loss_last": rec["kd_loss_last"],
                            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    launches = dict(kernels.launches)
+    launches, host = dict(launches), dict(kernels.launches)
     eng.train_round = train_round
     peak = max(r["peak_mem_gb"] for r in rounds)
     for r, seq in zip(rounds, sequential_rounds):
@@ -1311,18 +1455,21 @@ def resnet56_vectorized_phase(fed, wa_ops, wa_ref, seed: int, card: str,
                           "sequential_client_steps": seq["client_steps"]}), flush=True)
     n_leaves = len(_leaves(state.global_models[0]))
     print(json.dumps({"phase": "ResNet-56 FedSDD run, vectorized", "card": card, "rounds": 2,
-                      "launches": launches, "leaves": n_leaves,
+                      "launches": launches, "wrapper_launches": host, "leaves": n_leaves,
                       "teachers": state.ensemble.num_members, "peak_mem_gb": peak}), flush=True)
     check(len(state.history) == 2, "vectorized ResNet-56: two history records")
+    check(rounds[1]["captures"] == 0,
+          f"vectorized ResNet-56: round 2 captured {rounds[1]['captures']}")
     check(all(math.isfinite(r["kd_loss_first"]) and math.isfinite(r["kd_loss_last"])
               for r in rounds), f"vectorized ResNet-56: non-finite KD losses {rounds}")
     check(state.ensemble.num_members == 8, "vectorized ResNet-56: the ring does not hold 8 teachers")
-    check(launches.get("multi_weighted_average") == 2 and n_leaves > 0,
-          f"vectorized ResNet-56: kernel 5 launches {launches}, want one a round "
+    check(host.get("multi_weighted_average") == 2 and n_leaves > 0,
+          f"vectorized ResNet-56: kernel 5 launches {host}, want one a round "
           f"({n_leaves} leaves)")
     check(launches.get("ensemble_softmax") == 2 and launches.get("kd_loss_fwd") == 2 * steps_kd
-          and launches.get("kd_loss_bwd") == 2 * steps_kd,
-          f"vectorized ResNet-56: KD launches {launches}")
+          and launches.get("kd_loss_bwd") == 2 * steps_kd
+          and all(host.get(k) for k in ("ensemble_softmax", "kd_loss_fwd", "kd_loss_bwd")),
+          f"vectorized ResNet-56: KD launches {launches} on the card, {host} by the wrappers")
     check(all(_tree_err(state.global_models[k], state.global_models[0]) > 0
               for k in range(1, 4)), "vectorized ResNet-56: a model k>0 equals the main model")
     check(all(bool(x.isfinite().all()) for m in state.global_models for x in _leaves(m)),
@@ -1339,8 +1486,7 @@ def resnet56_vectorized_phase(fed, wa_ops, wa_ref, seed: int, card: str,
     s0 = eng.optimizer.init(w0)
     label = (f"10 vmapped client steps, ResNet-56, {len(plan.cids)} clients x batch "
              f"{plan.batch_size} (conv = cuDNN grouped convolutions, groups = clients)")
-    print(json.dumps({**profile_window(label, lambda: eng.train_bucket(plan10, w0, s0), 10),
-                      "card": card}), flush=True)
+    profile_window_modes(label, lambda: eng.train_bucket(plan10, w0, s0), 10, card)
 
     # kernel 5 at the last round's own Eq. 2 inputs: the (8, ...) client stack
     # in group-major order, viewed as (K=4, 2, ...) per leaf, as
@@ -1361,12 +1507,12 @@ def resnet56_vectorized_phase(fed, wa_ops, wa_ref, seed: int, card: str,
     print(json.dumps(before), flush=True)
     return {"name": "multi_weighted_average", "route": "cuda", "source": WA_SOURCE,
             "replaces": WA_TPU["multi_weighted_average"],
-            "launches": launches["multi_weighted_average"], "max_abs_err": row["max_abs_err"],
+            "launches": host["multi_weighted_average"], "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "host_ms": row["host_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "flat_library_ms": row["flat_library_ms"], "before_loop_ms": before["ms"],
-            "before_loop_host_ms": before["host_ms"]}, launches
+            "before_loop_host_ms": before["host_ms"]}, host
 
 
 # ---------------------------------------------------------------- phase 12
@@ -1656,15 +1802,16 @@ def lm_round_phase(fed, kd_ops, flash, seed: int) -> dict:
                                  global_models=[tree_map(torch.clone, m) for m in init],
                                  ensemble=fed.TeacherBank(4, 2))
             kernels.launches.clear()
-            with plain_flash(kd_ops, flash) if label.endswith("plain") else nullcontext():
+            with plain_flash(kd_ops, flash) if label.endswith("plain") else nullcontext(), \
+                    card_launches() as ran:
                 state = runner.run(2, state=state)
-            torch.cuda.synchronize()
-            out[label] = (state, dict(kernels.launches))
+            out[label] = (state, dict(ran), dict(kernels.launches))
     finally:
         torch.use_deterministic_algorithms(False)
     steps = 2 * kw["distill_steps"]
     summary = {"phase": "f32 LM rounds (gemma-2b reduced, V=50,304), kernels vs plain",
                "tol": ROUND_TOL, "launches": {k: v[1] for k, v in out.items()},
+               "wrapper_launches": {k: v[2] for k, v in out.items()},
                "kd_change_main_max_abs": {
                    k: _tree_err(v[0].global_models[0], out["no KD"][0].global_models[0])
                    for k, v in out.items() if k.endswith("kernels") or "kernels 2-4" in k}}
@@ -1696,8 +1843,10 @@ def lm_round_phase(fed, kd_ops, flash, seed: int) -> dict:
             "flash, kernels": {"flash_kd_fwd": steps, "flash_kd_bwd": steps},
             "dense, kernels 2-4": {"ensemble_softmax": 2, "kd_loss_fwd": steps,
                                    "kd_loss_bwd": steps}}
-    for label, (_, launches) in out.items():
-        check(launches == want.get(label, {}), f"LM rounds ({label}): launches {launches}")
+    for label, (_, launches, host) in out.items():
+        check(launches == want.get(label, {}) and all(host.get(k) for k in launches)
+              and set(k for k, n in host.items() if n) <= set(launches),
+              f"LM rounds ({label}): launches {launches} on the card, {host} by the wrappers")
     return out["flash, kernels"][1]
 
 
@@ -1746,7 +1895,6 @@ def gemma_phase(fed, seed: int, card: str) -> dict:
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.core.tasks import lm_task
-    from repro_torch.distill import KDPipeline
     cfg = dataclasses.replace(get_config("gemma-2b"), num_layers=2, param_dtype="float32",
                               compute_dtype="float32")
     t0 = time.perf_counter()
@@ -1784,38 +1932,45 @@ def gemma_phase(fed, seed: int, card: str) -> dict:
     rounds = []
     torch.cuda.synchronize()
     kernels.launches.clear()
+    launches = Counter()
     for _ in range(2):
-        before = dict(kernels.launches)
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        state = runner.run(1, state=state)
-        torch.cuda.synchronize()
+        t0, captures0 = time.perf_counter(), captured()
+        with card_launches() as ran:
+            state = runner.run(1, state=state)
+        launches.update(ran)
         rec = state.history[-1]
         rounds.append({"round": rec["round"], "active": rec["active"],
+                       "captures": captured() - captures0,
                        "t_round_s": time.perf_counter() - t0, "t_local_s": rec["t_local"],
                        "t_kd_s": rec["t_kd"], "t_cache_s": cache_s[-1],
                        "kd_steps_per_s": steps_kd / rec["t_kd"],
                        "kd_loss_first": rec["kd_loss_first"], "kd_loss_last": rec["kd_loss_last"],
                        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-                       "launches": {k: v - before.get(k, 0) for k, v in kernels.launches.items()}})
-    launches = dict(kernels.launches)
+                       "graph_pool_gb": graph_pool_gb(),
+                       "launches": dict(ran)})
+    launches, host = dict(launches), dict(kernels.launches)
     pipe.precompute_cache = build_cache
     for r in rounds:
         print(json.dumps({"phase": "gemma-2b FedSDD round, head-fused Flash-KD", "card": card,
                           **r}), flush=True)
     print(json.dumps({"phase": "gemma-2b FedSDD run", "card": card, "rounds": 2,
-                      "launches": launches, "teachers": state.ensemble.num_members,
+                      "launches": launches, "wrapper_launches": host,
+                      "teachers": state.ensemble.num_members,
                       "teacher_bank_gb": state.ensemble.nbytes() / 1e9,
                       "cache_mb": pipe.cache_nbytes(state.ensemble.member_views(),
                                                     pipe.batches_for(task.server_batches)) / 1e6,
                       "peak_mem_gb": max(r["peak_mem_gb"] for r in rounds)}), flush=True)
     check(len(state.history) == 2, "gemma-2b: two history records")
+    check(rounds[1]["captures"] == 0, f"gemma-2b: round 2 captured {rounds[1]['captures']}")
     check(all(math.isfinite(r["kd_loss_first"]) and math.isfinite(r["kd_loss_last"])
               for r in rounds), f"gemma-2b: non-finite KD losses {rounds}")
     check(state.ensemble.num_members == 8, "gemma-2b: the ring does not hold 8 teachers")
     check(all(r["launches"].get("flash_kd_head_fwd") == steps_kd
-              and r["launches"].get("flash_kd_head_bwd") == steps_kd for r in rounds),
-          f"gemma-2b: kernels 9/10 not launched {steps_kd} times a round: {rounds}")
+              and r["launches"].get("flash_kd_head_bwd") == steps_kd for r in rounds)
+          and host.get("flash_kd_head_fwd") and host.get("flash_kd_head_bwd"),
+          f"gemma-2b: kernels 9/10 not launched {steps_kd} times a round on the card: "
+          f"{[r['launches'] for r in rounds]}; by the wrappers {host}")
     check(not any(launches.get(k) for k in ("flash_kd_fwd", "flash_kd_bwd", "kd_loss_fwd",
                                             "kd_loss_bwd", "ensemble_softmax")),
           f"gemma-2b: another KD kernel ran: {launches}")
@@ -1824,42 +1979,52 @@ def gemma_phase(fed, seed: int, card: str) -> dict:
     check(_tree_err(state.global_models[1], state.global_models[0]) > 0,
           "gemma-2b: model 1 equals the main model")
 
-    # where a KD step's time goes: 5 head-fused steps over the last round's cache
+    # where a KD step's time goes: the round's own KD program (its 20
+    # head-fused steps) over the last round's cache (rebuilt in the
+    # program's cache buffer), under each step mode
     batches = pipe.batches_for(task.server_batches)
-    cache = pipe.precompute_cache(state.ensemble.member_views(), batches)
-    pipe5 = KDPipeline(task.logits_fn, steps=5, lr=0.01, temperature=tau, device=DEV,
-                       kd_kernel="flash", features_fn=task.features_fn, head_fn=task.head_fn,
-                       head_fusion=True)
     student = state.global_models[0]
-    pipe5._run(student, batches, cache)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pipe5._run(student, batches, cache)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / 5
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pipe5._run(student, batches, cache)
-        torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / 5
-    groups = {k: ms / 5 for k, ms in _kd_groups(
-        [e for e in prof.events() if e.device_type == DeviceType.CUDA]).items()}
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
-    share = {k: groups[k] / busy_ms for k in ("flash_kd_head_fwd", "flash_kd_head_bwd")} \
-        if kern else None
-    print(json.dumps({"phase": "profile: 5 head-fused KD steps, gemma-2b full width, 512 rows",
-                      "card": card, "wall_ms_per_step": wall_ms,
-                      "device_ms_per_step": busy_ms if kern else None,
-                      "idle_share": 1 - busy_ms / wall_ms if kern else None,
-                      "device_ms_by_group": groups, "device_share": share,
-                      "device_share_cuda_core_kernel_9": CUDA_CORE_KERNEL_9_KD_STEP,
-                      "kernel_launches_per_step": sum(e.count for e in kern) / 5,
-                      "top_kernels": [{"name": e.key[:80], "per_step": e.count / 5,
-                                       "ms_per_step": e.self_device_time_total / 1e3 / 5}
-                                      for e in top]}), flush=True)
-    check(bool(kern) and groups["flash_kd_head_fwd"] > 0 and groups["flash_kd_head_bwd"] > 0,
-          f"gemma-2b profile: no device time for kernels 9/10: {groups}")
-    del state, runner, pipe, pipe5, cache, student, task
+    cache = pipe._cache(student, state.ensemble.member_views(), batches)
+    n = steps_kd
+    windows = {}
+    for mode in STEP_MODES:
+        with step_mode(mode):
+            pipe._run(student, batches, cache)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe._run(student, batches, cache)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / n
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                pipe._run(student, batches, cache)
+                torch.cuda.synchronize()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / n
+        span_ms = busy_ms_of(prof) / n
+        groups = {k: ms / n for k, ms in _kd_groups(
+            [e for e in prof.events() if e.device_type == DeviceType.CUDA]).items()}
+        top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+        share = {k: groups[k] / busy_ms for k in ("flash_kd_head_fwd", "flash_kd_head_bwd")} \
+            if kern else None
+        windows[mode] = {
+            "phase": f"profile: {n} head-fused KD steps, gemma-2b full width, 512 rows",
+            "card": card, "step_mode": mode, "wall_ms_per_step": wall_ms,
+            "device_ms_per_step": busy_ms if kern else None,
+            "idle_share": 1 - busy_ms / wall_ms if kern else None,
+            "busy_ms_per_step": span_ms, "busy_idle_share": 1 - span_ms / wall_ms,
+            "device_ms_by_group": groups, "device_share": share,
+            "device_share_cuda_core_kernel_9": CUDA_CORE_KERNEL_9_KD_STEP,
+            "kernel_launches_per_step": sum(e.count for e in kern) / n,
+            "peak_mem_gb_so_far": peak_gb,
+            "top_kernels": [{"name": e.key[:80], "per_step": e.count / n,
+                             "ms_per_step": e.self_device_time_total / 1e3 / n}
+                            for e in top]}
+        print(json.dumps(windows[mode]), flush=True)
+        check(bool(kern) and groups["flash_kd_head_fwd"] > 0 and groups["flash_kd_head_bwd"] > 0,
+              f"gemma-2b profile ({mode}): no device time for kernels 9/10: {groups}")
+    mode_windows("gemma-2b head-fused KD step", windows, card)
+    del state, runner, pipe, cache, student, task
     torch.cuda.empty_cache()
     return launches
 
@@ -2124,15 +2289,17 @@ def starcoder_f32_phase(serve, zoo, ops, get_config, seed: int) -> None:
     engine = serve.ContinuousEngine(model, params, max_batch=4, num_blocks=400,
                                     block_size=16, max_seq_len=1040, chunk_steps=4)
     kernels.launches.clear()
-    results, _ = drive(engine, reqs)
-    launches = kernels.launches["paged_decode"]
+    with card_launches() as ran:
+        results, _ = drive(engine, reqs)
+    launches, host = ran["paged_decode"], kernels.launches["paged_decode"]
     got = {r.rid: r.tokens for r in results}
     for r in reqs:
         ref = serve.generate_static(model, params, r.tokens[None], r.max_new_tokens)[0]
         check(got[r.rid] == ref.cpu().tolist(),
               f"starcoder2 f32: request {r.rid} engine {got[r.rid]} != static {ref.tolist()}")
-    check(launches == cfg.num_layers * engine.steps,
-          f"starcoder2 f32: {launches} launches for {engine.steps} micro-steps")
+    check(launches == cfg.num_layers * engine.steps and host > 0,
+          f"starcoder2 f32: {launches} launches on the card ({host} by the wrapper) for "
+          f"{engine.steps} micro-steps")
 
     long = serve.Request(rid=99, tokens=rng.integers(0, cfg.vocab_size, LONG_PROMPT)
                          .astype(np.int32), max_new_tokens=6)
@@ -2154,6 +2321,7 @@ def starcoder_f32_phase(serve, zoo, ops, get_config, seed: int) -> None:
           f"!= plain {long_tokens['plain']}")
     print(json.dumps({"phase": "starcoder2-3b f32 depth 2, full width", "requests": len(reqs),
                       "identical_tokens": True, "paged_decode_launches": launches,
+                      "paged_decode_wrapper_launches": host,
                       "micro_steps": engine.steps, "long_prompt": LONG_PROMPT,
                       "long_tokens_kernel_eq_plain": True,
                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}), flush=True)
@@ -2181,6 +2349,7 @@ def starcoder_serve_phase(serve, zoo, get_config, seed: int, card: str) -> None:
     engine = serve.ContinuousEngine(model, params, max_batch=8, num_blocks=2600,
                                     block_size=16, max_seq_len=max(LONG_PROMPT, 2048) + 64,
                                     chunk_steps=8)
+    kernels.launches.clear()
     drive(engine, make_requests(serve.Request, cfg.vocab_size, 2, rng, (32, 64), (8, 8)))
     reqs = make_requests(serve.Request, cfg.vocab_size, 7, rng, (32, 2048), (8, 64))
     reqs.append(serve.Request(rid=7, tokens=rng.integers(0, cfg.vocab_size, LONG_PROMPT)
@@ -2188,12 +2357,17 @@ def starcoder_serve_phase(serve, zoo, get_config, seed: int, card: str) -> None:
     steps0 = engine.steps
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.launches.clear()
     t0 = time.perf_counter()
     results, _ = drive(engine, reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, micro = kernels.launches["paged_decode"], engine.steps - steps0
+    micro = engine.steps - steps0
+    # the kernel's launches, counted over a third batch of short prompts
+    steps1 = engine.steps
+    with card_launches() as ran:
+        drive(engine, make_requests(serve.Request, cfg.vocab_size, 8, rng, (32, 512), (8, 24)))
+    launches, counted_micro = ran["paged_decode"], engine.steps - steps1
+    host = kernels.launches["paged_decode"]
     by_rid = {r.rid: r for r in results}
     check(len(results) == len(reqs), f"starcoder2: {len(results)} results for {len(reqs)}")
     for r in reqs:
@@ -2201,9 +2375,9 @@ def starcoder_serve_phase(serve, zoo, get_config, seed: int, card: str) -> None:
               f"starcoder2: request {r.rid}: {len(by_rid[r.rid].tokens)} tokens")
     check(engine.alloc.used_blocks == 0 and engine.reserved_tokens == 0,
           "starcoder2: pool not free after the drain")
-    check(launches > 0 and launches == cfg.num_layers * micro,
-          f"starcoder2: {launches} paged_decode launches for {micro} micro-steps x "
-          f"{cfg.num_layers}")
+    check(host > 0 and launches > 0 and launches == cfg.num_layers * counted_micro,
+          f"starcoder2: {launches} paged_decode launches on the card ({host} by the "
+          f"wrapper) for {counted_micro} micro-steps x {cfg.num_layers}")
     ntok = sum(len(r.tokens) for r in results)
     ttft = sorted(r.ttft for r in results)
     long = by_rid[7]
@@ -2213,10 +2387,13 @@ def starcoder_serve_phase(serve, zoo, get_config, seed: int, card: str) -> None:
                       "wall_s": wall, "tokens_per_s": ntok / wall,
                       "ttft_p50_ms": ttft[len(ttft) // 2] * 1e3,
                       "long_prefill_s": long.t_first - long.t_admit,
-                      "micro_steps": micro, "paged_decode_launches": launches,
-                      "launches_per_micro_step": launches / micro,
+                      "micro_steps": micro, "counted_micro_steps": counted_micro,
+                      "paged_decode_launches": launches,
+                      "launches_per_micro_step": launches / counted_micro,
+                      "paged_decode_wrapper_launches": host,
                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}), flush=True)
-    print(json.dumps(profile_chunk(engine, serve, cfg.vocab_size, rng, 2360)), flush=True)
+    profile_modes(engine, serve, cfg.vocab_size, rng, 2360, "starcoder2-3b decode micro-step",
+                  card)
 
     spent = [0.0]
     real = zoo.attn.sliding_attention

@@ -8,10 +8,12 @@ axis and trains them together: one step of the bucket is one
 params and the gathered minibatches, then the optimiser's elementwise
 update on the stacked trees as they are (``_foreach`` ops over ``(C, ...)``
 leaves), and ``tree_where`` to keep a client's params and optimiser state
-frozen on its padded steps.  The host drives one step per Python
-iteration: the reference's ``"stepped"`` mode.  The reference's ``"scan"``
-mode (one program per bucket) arrives with CUDA graphs; ``shard_map``
-over several cards with ``torch.distributed``.
+frozen on its padded steps.  ``step_mode="stepped"`` drives one step per
+Python iteration.  ``"scan"``, the reference's one program per bucket, makes
+one bucket step a step program (``core/step_graph.py``): a CUDA graph on a
+card, replayed S times, whose step index, gather and mask column live on the
+device; on the CPU the same body runs eagerly.  ``shard_map`` over several
+cards arrives with ``torch.distributed``.
 
 Exactness: ``build_round_entries`` draws the per-epoch permutations in
 the order the sequential loop draws them (group-major, then epoch), so
@@ -24,7 +26,6 @@ group-major order before Eq. 2 consumes them, even for a single bucket.
 """
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 from typing import Any, Callable, Optional, Sequence
 
@@ -34,7 +35,9 @@ import torch
 from repro_torch.core.aggregation import fedavg_aggregate_grouped
 from repro_torch.core.client_store import InMemoryStore
 from repro_torch.core.grouping import group_major_order
-from repro_torch.optim.optimizers import Optimizer, apply_updates
+from repro_torch.core.step_graph import (StepGraphs, clone_tensors, copy_into, shape_key,
+                                         static_like)
+from repro_torch.optim.optimizers import Optimizer, advance_steps, apply_updates
 from repro_torch.utils.pytree import (tree_leaves, tree_map, tree_stack, tree_unstack,
                                       tree_where)
 
@@ -178,20 +181,8 @@ def build_round_plan(task, cfg, groups: Sequence[np.ndarray],
 # =====================================================================
 # engine
 # =====================================================================
-def resolve_step_mode(mode: str = "auto") -> str:
-    """The engine's step mode; ``REPRO_ENGINE_STEP_MODE`` overrides the
-    caller's, as in the reference.  ``"auto"`` and ``"stepped"`` are one
-    vmapped step per host iteration; ``"scan"``, the whole schedule as one
-    device program, raises until the CUDA-graph slice brings it."""
-    mode = os.environ.get("REPRO_ENGINE_STEP_MODE", mode)
-    if mode not in ("auto", "scan", "stepped"):
-        raise ValueError(f"step_mode={mode!r} not in ('auto', 'scan', 'stepped')")
-    if mode == "scan":
-        raise NotImplementedError(
-            "step mode 'scan' (a bucket's whole schedule as one device program) "
-            "arrives with the CUDA-graph slice; this slice of the port runs "
-            "'stepped'")
-    return "stepped"
+def _pow2(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
 
 
 class VectorizedClientEngine:
@@ -199,10 +190,14 @@ class VectorizedClientEngine:
 
     ``loss_fn``/``optimizer`` are the objects the sequential oracle uses,
     so the per-step arithmetic is the same; only the execution differs.
+    ``graphs`` holds the scan mode's step programs (the runner's, so its
+    programs share one graph memory pool); the engine asks it under its own
+    ``step_mode``, whose ``"auto"`` is ``"stepped"`` off a card.
     """
 
     def __init__(self, loss_fn: Callable, optimizer: Optimizer,
-                 client_sharding: str = "auto", step_mode: str = "auto"):
+                 client_sharding: str = "auto", step_mode: str = "auto",
+                 graphs: Optional[StepGraphs] = None):
         if client_sharding not in ("auto", "vmap", "shard_map"):
             raise ValueError(f"client_sharding={client_sharding!r} not in "
                              "('auto', 'vmap', 'shard_map')")
@@ -211,10 +206,12 @@ class VectorizedClientEngine:
                 "client_sharding='shard_map' (the client axis over several "
                 "cards) arrives with the torch.distributed slice; on one card "
                 "'auto' and 'vmap' run vmap")
-        resolve_step_mode(step_mode)      # raises for the unported "scan"
+        self.graphs = (graphs.with_mode(step_mode, "stepped") if graphs is not None
+                       else StepGraphs(step_mode, "stepped"))
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self._grad_fn = None
+        self._buckets: dict = {}      # static key -> the bucket program of largest capacity
 
     def vmapped_grad(self) -> Callable:
         """``(stacked params, stacked batch) -> (grads, (loss, aux))``, each
@@ -251,15 +248,85 @@ class VectorizedClientEngine:
                 plan.step_mask, plan.num_steps)
 
     def run_prepared(self, args):
-        """Every step of one bucket, driven from the host; returns the
-        trained params, optimiser state and the (C, S) losses."""
+        """Every step of one bucket; returns the trained params, optimiser
+        state and the (C, S) losses."""
         p, s, data, indices, mask, num_steps = args
+        if self.graphs.scan(indices.device):
+            return self._run_scan(p, s, data, indices, mask)
         losses = []
         for si in range(mask.shape[1]):
             p, s, loss = self.step(p, s, data, indices, mask, si,
                                    padded=bool((num_steps <= si).any()))
             losses.append(loss)
         return p, s, torch.stack(losses, dim=1)
+
+    def _bucket_program(self, p, s, data, indices, mask):
+        """The bucket step program for these inputs.  Its buffers hold S
+        steps and n examples a client up to a capacity, a power of two that
+        only grows, so rounds whose S and n_pad differ replay one graph."""
+        S = mask.shape[1]
+        n = tree_leaves(data)[0].shape[1]
+        base = (shape_key(p, s, tree_map(lambda x: x[:, 0], data)), indices.shape[2])
+        old = self._buckets.get(base)
+        cap = old.buf["capacity"] if old is not None else (0, 0)
+        if S > cap[0] or n > cap[1]:
+            cap = (max(cap[0], _pow2(S)), max(cap[1], _pow2(n)))
+            if old is not None:
+                self.graphs.drop(old)
+        prog = self._buckets[base] = self.graphs.program(
+            "engine/bucket", base + cap,
+            lambda: self._build_bucket(p, s, data, indices, cap))
+        return prog
+
+    def _build_bucket(self, p, s, data, indices, cap):
+        S_cap, n_cap = cap
+        C, _, bs = indices.shape
+        dev = indices.device
+        buf = {"capacity": cap, "params": static_like(p), "opt": static_like(s),
+               "data": static_like(data, lambda x: (C, n_cap) + tuple(x.shape[2:])),
+               "indices": torch.zeros((C, S_cap, bs), dtype=indices.dtype, device=dev),
+               "mask": torch.zeros((C, S_cap), dtype=torch.bool, device=dev),
+               "losses": torch.zeros((C, S_cap), dtype=torch.float32, device=dev),
+               "si": torch.zeros((1,), dtype=torch.int64, device=dev),
+               "rows": torch.arange(C, device=dev)[:, None]}
+
+        grad_fn, optimizer = self.vmapped_grad(), self.optimizer   # no cycle through self
+
+        def body():
+            # step si of every client: its index row and mask column read on
+            # the device; the mask always applied (True keeps the new tensors
+            # exactly), the params and state written back in place
+            si = buf["si"]
+            idx = buf["indices"].index_select(1, si)[:, 0]
+            m = buf["mask"].index_select(1, si)[:, 0]
+            batch = tree_map(lambda x: x[buf["rows"], idx], buf["data"])
+            params, state = buf["params"], buf["opt"]
+            grads, (loss, _) = grad_fn(params, batch)
+            updates, new_state = optimizer.update(grads, state, params)
+            copy_into(params, tree_where(m, apply_updates(params, updates), params))
+            copy_into(state, tree_where(m, new_state, state))
+            buf["losses"].index_copy_(1, si, loss[:, None].to(torch.float32))
+            si.add_(1)
+
+        return body, buf
+
+    def _run_scan(self, p, s, data, indices, mask):
+        S = mask.shape[1]
+        prog = self._bucket_program(p, s, data, indices, mask)
+        b = prog.buf
+        copy_into(b["params"], p)
+        copy_into(b["opt"], s)
+        copy_into(b["data"], data)
+        copy_into(b["indices"], indices)
+        copy_into(b["mask"], mask)
+        b["si"].zero_()
+        for _ in range(S):
+            prog()
+        # the trained stacks leave as copies; a host counter of the state
+        # (SCAFFOLD's steps) is the input's advanced by S, as stepped gives
+        state = tree_map(lambda x, y: x.clone() if isinstance(x, torch.Tensor) else y,
+                         b["opt"], s)
+        return clone_tensors(b["params"]), advance_steps(state, S), b["losses"][:, :S].clone()
 
     def train_bucket(self, plan: ClientPlan, stacked_params: PyTree,
                      stacked_opt_state: PyTree):

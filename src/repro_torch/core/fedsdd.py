@@ -40,10 +40,11 @@ from repro_torch.core.engine import (VectorizedClientEngine, aggregate_groups,
                                      build_round_entries, entry_pad_hints,
                                      plan_from_entries, stack_models, unstack_models)
 from repro_torch.core.grouping import assign_groups, sample_clients
+from repro_torch.core.step_graph import StepGraphs, copy_into, shape_key, static_like
 from repro_torch.distill import KDPipeline, TeacherBank
-from repro_torch.optim.optimizers import (Optimizer, apply_updates, scaffold_new_control,
-                                          sgd, value_and_grad, with_fedprox,
-                                          with_scaffold)
+from repro_torch.optim.optimizers import (Optimizer, advance_steps, apply_updates,
+                                          scaffold_new_control, sgd, value_and_grad,
+                                          with_fedprox, with_scaffold)
 from repro_torch.utils.pytree import tree_map, tree_stack, tree_zeros_like
 
 PyTree = Any
@@ -313,8 +314,12 @@ class FederatedRunner:
         self._engine = None
         self._kd_pipe = None
         self._exec = None
+        # the scan mode's step programs (client steps, bucket steps, KD
+        # steps): one graph memory pool for the runner; the sequential
+        # client step's "auto" is "stepped" off a card
+        self.graphs = StepGraphs()
         if cfg.execution == "vectorized":
-            self._make_engine()          # an unported step mode raises here
+            self._make_engine()
 
     # ---- init ----------------------------------------------------------
     def init_state(self) -> FedState:
@@ -345,6 +350,8 @@ class FederatedRunner:
         return base
 
     def _train_batch_step(self):
+        """``(optimizer, step, step_)``: one client step out of place, and the
+        same step in place on a step program's buffers."""
         if self._train_step is None:
             optimizer = self._make_optimizer()
             loss_and_grad = value_and_grad(self.task.loss_fn, has_aux=True)
@@ -354,8 +361,25 @@ class FederatedRunner:
                 updates, opt_state = optimizer.update(grads, opt_state, params)
                 return apply_updates(params, updates), opt_state, loss
 
-            self._train_step = (optimizer, step)
+            def step_(params, opt_state, batch):
+                _, grads = loss_and_grad(params, batch)
+                optimizer.update_(grads, opt_state, params)
+
+            self._train_step = (optimizer, step, step_)
         return self._train_step
+
+    def _client_program(self, params, opt_state, batch):
+        """The client step program for these shapes: the step in place on
+        static params, optimiser state and batch."""
+        _, _, step_ = self._train_batch_step()
+        key = shape_key(params, opt_state, batch)
+
+        def build():
+            buf = {"params": self.graphs.shared("model", params), "opt": static_like(opt_state),
+                   "batch": static_like(batch)}
+            return (lambda: step_(buf["params"], buf["opt"], buf["batch"])), buf
+
+        return self.graphs.program("client/step", key, build)
 
     def _store(self, state: FedState) -> InMemoryStore:
         """The state's client store; states built by hand (tests) get one
@@ -375,7 +399,7 @@ class FederatedRunner:
         cfg = self.cfg
         store = self._store(state)
         ds = store.client_shard(client_id)
-        optimizer, step = self._train_batch_step()
+        optimizer, step, _ = self._train_batch_step()
         opt_state = optimizer.init(params)
         if cfg.local_algo == "fedprox":
             opt_state["anchor"] = params
@@ -384,9 +408,25 @@ class FederatedRunner:
                 c_local=store.get_control(client_id),
                 c_global=state.scaffold_c_global)
         w_start = params
-        for row in idx_rows:
-            batch = self.task.make_batch(ds, row)
-            params, opt_state, _ = step(params, opt_state, batch)
+        if self.graphs.scan(self.device):
+            # the start params and state go into the program's buffers once;
+            # each batch is made on the host and copied in before its step
+            prog = None
+            for row in idx_rows:
+                batch = self.task.make_batch(ds, row)
+                if prog is None:
+                    prog = self._client_program(params, opt_state, batch)
+                    copy_into(prog.buf["params"], params)
+                    copy_into(prog.buf["opt"], opt_state)
+                copy_into(prog.buf["batch"], batch)
+                prog()
+            if prog is not None:    # the trained params leave as a copy
+                params = tree_map(torch.clone, prog.buf["params"])
+                opt_state = advance_steps(opt_state, len(idx_rows))
+        else:
+            for row in idx_rows:
+                batch = self.task.make_batch(ds, row)
+                params, opt_state, _ = step(params, opt_state, batch)
         if cfg.local_algo == "scaffold":
             store.put_control(client_id, scaffold_new_control(
                 opt_state, w_start, params, cfg.client_lr))
@@ -397,7 +437,7 @@ class FederatedRunner:
         if self._engine is None:
             self._engine = VectorizedClientEngine(
                 self.task.loss_fn, self._make_optimizer(),
-                client_sharding=self.cfg.client_sharding)
+                client_sharding=self.cfg.client_sharding, graphs=self.graphs)
         return self._engine
 
     # ---- distillation phase (Eq. 3-4) -------------------------------------
@@ -409,7 +449,7 @@ class FederatedRunner:
                 temperature=cfg.temperature, device=self.device,
                 kd_kernel=cfg.kd_kernel, cache_dtype=cfg.teacher_cache_dtype,
                 features_fn=self.task.features_fn, head_fn=self.task.head_fn,
-                head_fusion=cfg.kd_head_fusion)
+                head_fusion=cfg.kd_head_fusion, graphs=self.graphs)
         return self._kd_pipe
 
     def _executor(self) -> round_plan.RoundExecutor:
@@ -492,13 +532,18 @@ class _SequentialRoundOps:
     def aggregate(self) -> list[PyTree]:
         """Per-group Eq. 1-2 over the trained client models.  Only FedDF's
         client ensemble reads the client models after this, so otherwise
-        they are released here, before the KD phase allocates."""
+        each group's are released as soon as it is averaged, and the round
+        holds at most one new global beside the clients still to average."""
         new_globals: list[PyTree] = []
+        keep = self.runner.cfg.ensemble_source == "clients"
         for k in range(len(self.groups)):
             ents = [e for e in self.entries if e.group == k]
             new_globals.append(fedavg_aggregate([self.models[e.pos] for e in ents],
                                                 [e.n for e in ents]))
-        if self.runner.cfg.ensemble_source != "clients":
+            if not keep:            # a group's client models go once it is averaged
+                for e in ents:
+                    self.models[e.pos] = None
+        if not keep:
             self.models = None
         self.new_globals = new_globals
         return new_globals

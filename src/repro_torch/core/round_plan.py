@@ -14,6 +14,7 @@ local training arrives with its own slice.
 from __future__ import annotations
 
 import time
+import weakref
 from typing import Any
 
 import torch
@@ -29,7 +30,9 @@ class RoundExecutor:
     """Drives one federated round as the phase plan above."""
 
     def __init__(self, runner):
-        self.runner = runner
+        # the runner owns its executor: a proxy, so that the pair is no
+        # cycle and the runner's step programs go with the runner
+        self.runner = weakref.proxy(runner)
         self.cfg = runner.cfg
 
     def kd_active(self, t: int) -> bool:

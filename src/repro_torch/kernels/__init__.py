@@ -1,10 +1,66 @@
 """Hand-written Hopper kernels and their plain PyTorch versions.
 
 Each wrapper launches its CUDA kernel for CUDA tensors (or raises) and
-takes its plain version only for CPU tensors.  ``launches`` counts kernel
-launches by name — one per launch, incremented nowhere else — so a run can
-show that its main path went through the kernels.
+takes its plain version only for CPU tensors.  Where it launches its
+kernel, and nowhere else, it calls ``count``, so a run can show that its
+main path went through the kernels.  An eager launch adds one to
+``launches`` on the host.  A launch that a step program's CUDA graph
+records (``core/step_graph.py``) runs again at every replay, with no
+wrapper running; so while a capture records it, ``count`` records beside
+it an increment of the wrapper's slot in the card's own counter, which
+every replay runs with the kernel.  ``counted()`` reads both: the eager
+launches and those the card ran from graphs.
 """
 from collections import Counter
 
+import torch
+
+NAMES = ("paged_decode", "flash_forward", "flash_decode", "ensemble_softmax", "kd_loss_fwd",
+         "kd_loss_bwd", "weighted_average", "multi_weighted_average", "flash_kd_fwd",
+         "flash_kd_bwd", "flash_kd_head_fwd", "flash_kd_head_bwd")
+_SLOT = {name: i for i, name in enumerate(NAMES)}
+
 launches: Counter = Counter()
+_on_card: dict = {}          # device -> (len(NAMES),) int64 launches run from graphs
+
+
+def count(name: str, device) -> None:
+    """One launch of wrapper ``name``'s kernel on ``device``, issued just now
+    on its current stream: on the host if eager, on the card if a capture
+    records it."""
+    dev = torch.device(device)
+    slot = _SLOT[name]
+    if dev.type == "cuda":
+        with torch.cuda.device(dev):
+            capturing = torch.cuda.is_current_stream_capturing()
+        if capturing:
+            slots = _on_card.get(dev)
+            if slots is None:
+                raise RuntimeError(f"{name}: a capture records the first launch on {dev}; "
+                                   f"a step program's warm-up launches it eagerly first")
+            slots[slot].add_(1)
+            return
+        if dev not in _on_card:
+            _on_card[dev] = torch.zeros(len(NAMES), dtype=torch.int64, device=dev)
+    launches[name] += 1
+
+
+def replayed() -> Counter:
+    """Launches by wrapper that the cards ran from captured graphs (waits
+    for each card)."""
+    out: Counter = Counter()
+    for slots in _on_card.values():
+        out.update(dict(zip(NAMES, slots.tolist())))
+    return +out
+
+
+def counted() -> Counter:
+    """Every launch so far by wrapper: the eager ones and the replayed ones."""
+    return launches + replayed()
+
+
+def reset() -> None:
+    """Every count to 0."""
+    launches.clear()
+    for slots in _on_card.values():
+        slots.zero_()

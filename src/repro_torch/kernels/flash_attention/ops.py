@@ -330,7 +330,7 @@ def _launch(q1, k_pool, v_pool, block_tables, seq_lens, window):
         B, Hkv, plan["G"], dh, plan["gb"], bs, block_tables.shape[1], int(window),
         plan["chunk"], plan["splits"], _DTYPES[q1.dtype], stream)
     build.check(lib, code, "paged_decode")
-    kernels.launches["paged_decode"] += 1
+    kernels.count("paged_decode", q1.device)
     return out
 
 
@@ -372,7 +372,7 @@ def _launch_forward(q, k, v, causal: bool, window: int):
                              B, Sq, Skv, H, Hkv, dh, int(causal), int(window), qb, kb,
                              _DTYPES[q.dtype], stream)
     build.check(lib, code, "flash_forward")
-    kernels.launches["flash_forward"] += 1
+    kernels.count("flash_forward", q.device)
     return out
 
 
@@ -450,7 +450,7 @@ def _launch_decode(q1, k_cache, v_cache, cache_len):
                             B, S, Hkv, plan["G"], dh, plan["gb"], plan["chunk"],
                             plan["splits"], _DTYPES[q1.dtype], stream)
     build.check(lib, code, "flash_decode")
-    kernels.launches["flash_decode"] += 1
+    kernels.count("flash_decode", q1.device)
     return out
 
 

@@ -93,7 +93,7 @@ def ensemble_softmax(teacher_logits: torch.Tensor, temperature: float = 1.0):
                                 *_ensemble_plan_args(M, N, V, x.element_size()),
                                 _DTYPES[x.dtype], _stream(x.device))
     build.check(lib, code, "ensemble_softmax")
-    kernels.launches["ensemble_softmax"] += 1
+    kernels.count("ensemble_softmax", x.device)
     return out
 
 
@@ -284,7 +284,7 @@ def kd_loss_fwd(student_logits: torch.Tensor, teacher_probs: torch.Tensor,
                            *_kd_plan_args(B, V, s.element_size()), _DTYPES[s.dtype],
                            _stream(s.device))
     build.check(lib, code, "kd_loss_fwd")
-    kernels.launches["kd_loss_fwd"] += 1
+    kernels.count("kd_loss_fwd", s.device)
     return buf[B]
 
 
@@ -308,7 +308,7 @@ def kd_loss_bwd(student_logits: torch.Tensor, teacher_probs: torch.Tensor,
                            *_kd_plan_args(B, V, s.element_size()), _DTYPES[s.dtype],
                            _stream(s.device))
     build.check(lib, code, "kd_loss_bwd")
-    kernels.launches["kd_loss_bwd"] += 1
+    kernels.count("kd_loss_bwd", s.device)
     return out
 
 
@@ -492,7 +492,7 @@ def flash_kd_fwd(student_logits, teacher_mean_logits, temperature: float = 1.0,
     lse_t = None if teacher_lse is None else _f32_rows(teacher_lse, s.shape[0],
                                                        "teacher_lse", "flash_kd_fwd")
     out = flash_fwd_launch(_flash_lib(), _stream(s.device), s, t, lse_t, float(temperature))
-    kernels.launches["flash_kd_fwd"] += 1
+    kernels.count("flash_kd_fwd", s.device)
     return out
 
 
@@ -509,7 +509,7 @@ def flash_kd_bwd(student_logits, teacher_mean_logits, lse_s, lse_t, g,
                            _f32_rows(lse_s, B, "lse_s", "flash_kd_bwd"),
                            _f32_rows(lse_t, B, "lse_t", "flash_kd_bwd"),
                            _f32_scalar(g, "flash_kd_bwd"), float(temperature))
-    kernels.launches["flash_kd_bwd"] += 1
+    kernels.count("flash_kd_bwd", s.device)
     return out
 
 
@@ -529,7 +529,7 @@ def flash_kd_head_fwd(features, head_w, head_b, teacher_mean_logits,
                                                        "teacher_lse", "flash_kd_head_fwd")
     out = flash_head_fwd_launch(_flash_lib(), _stream(h.device), h, w, b, t, lse_t,
                                 float(temperature))
-    kernels.launches["flash_kd_head_fwd"] += 1
+    kernels.count("flash_kd_head_fwd", h.device)
     return out
 
 
@@ -550,7 +550,7 @@ def flash_kd_head_bwd(features, head_w, head_b, teacher_mean_logits, lse_s, lse_
                                 _f32_rows(lse_s, B, "lse_s", "flash_kd_head_bwd"),
                                 _f32_rows(lse_t, B, "lse_t", "flash_kd_head_bwd"),
                                 _f32_scalar(g, "flash_kd_head_bwd"), float(temperature))
-    kernels.launches["flash_kd_head_bwd"] += 1
+    kernels.count("flash_kd_head_bwd", h.device)
     return out
 
 

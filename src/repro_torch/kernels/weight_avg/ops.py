@@ -192,7 +192,7 @@ def _tree_average(name: str, leaves: list, weights: torch.Tensor, grouped: bool)
             x.ctypes.data, p["out16"].ctypes.data, p["D"].ctypes.data, p["tile0"].ctypes.data,
             len(p["leaves"]), buf.data_ptr(), w.data_ptr(), G, N, _DTYPES[p["dtype"]], stream)
         build.check(lib, code, "multi_weighted_average_tree")
-        kernels.launches["multi_weighted_average" if grouped else "weighted_average"] += 1
+        kernels.count("multi_weighted_average" if grouped else "weighted_average", dev)
     return outs
 
 

@@ -44,8 +44,9 @@ def init_gqa(gen, cfg, *, stack: tuple = ()):
 # =====================================================================
 def _scale(q):
     # the reference multiplies by a weakly typed Python scalar, which
-    # JAX rounds to q's dtype first
-    return q * torch.tensor(q.shape[-1] ** -0.5, dtype=q.dtype, device=q.device)
+    # JAX rounds to q's dtype first; made on the device (no host copy, so
+    # a captured step can hold it)
+    return q * torch.full((), q.shape[-1] ** -0.5, dtype=q.dtype, device=q.device)
 
 
 def _band_mask(q_pos, k_pos, *, causal: bool, window: int):

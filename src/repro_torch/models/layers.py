@@ -55,11 +55,23 @@ def rope_freqs(head_dim: int, theta: float):
     return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
 
 
+_FREQS: dict = {}
+
+
+def _device_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    """``rope_freqs`` on ``device``, copied there once: a captured step
+    cannot hold the host copy."""
+    key = (head_dim, theta, device)
+    if key not in _FREQS:
+        _FREQS[key] = torch.from_numpy(rope_freqs(head_dim, theta)).to(device)
+    return _FREQS[key]
+
+
 def apply_rope(x, positions, theta: float):
     """x: (..., S, H, dh); positions: broadcastable to (..., S).  Split-halves
     layout (the first dh/2 lanes pair with the last dh/2), not interleaved."""
     dh = x.shape[-1]
-    freqs = torch.from_numpy(rope_freqs(dh, theta)).to(x.device)  # (dh/2,)
+    freqs = _device_freqs(dh, theta, x.device)                    # (dh/2,)
     angles = positions[..., None].float() * freqs                 # (..., S, dh/2)
     angles = angles[..., None, :]                                 # (..., S, 1, dh/2)
     cos, sin = torch.cos(angles), torch.sin(angles)

@@ -178,8 +178,8 @@ class Model:
         cfg = self.cfg
         x = params["embed"][batch["tokens"].long()].to(cfg.cdtype)
         if cfg.tie_embeddings:
-            x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=cfg.cdtype,
-                                 device=x.device)
+            x = x * torch.full((), float(np.sqrt(cfg.d_model)), dtype=cfg.cdtype,
+                               device=x.device)
         return x
 
     def head(self, params):

@@ -7,12 +7,20 @@ An ``Optimizer`` is an (init, update) pair, as in the reference:
     updates, state = opt.update(grads, state, params)
     params = apply_updates(params, updates)
 
-Every step is out of place: the runner starts each client of a group
+``update`` is out of place: the runner starts each client of a group
 from the same global tensors, so an in-place update of one client's
-params would corrupt the group's model for the next.  The arithmetic of
-a step runs as ``torch._foreach_*`` ops over the tree's leaf list (a few
-multi-tensor launches on the GPU instead of several per leaf), in the
-reference's order of operations.
+params would corrupt the group's model for the next.  ``update_`` is the
+same step in place, on params and state that a step program owns (its
+static buffers, ``core/step_graph.py``), and it may overwrite the grads it
+is given: the same ``torch._foreach_*`` ops in the same order, so the two
+give the same bits.  A host counter in the state (SCAFFOLD's ``steps``) is
+the caller's to advance there (``advance_steps``).  The vectorized
+engine's bucket step keeps ``update``: a client on a padded step keeps its
+params and state, so the step needs the old and the new tensors side by
+side for its masked write-back, which an in-place update would have
+overwritten.  The arithmetic of a step runs as ``torch._foreach_*``
+ops over the tree's leaf list (a few multi-tensor launches on the GPU
+instead of several per leaf), in the reference's order of operations.
 
 FL-specific transforms:
   * ``with_fedprox``  — adds the FedProx proximal gradient μ(w − w_anchor)
@@ -38,12 +46,17 @@ PyTree = Any
 class Optimizer:
     init: Callable[[PyTree], PyTree]
     update: Callable[[PyTree, PyTree, PyTree], tuple[PyTree, PyTree]]
+    update_: Callable[[PyTree, PyTree, PyTree], None]   # (grads, state, params), in place
 
 
 def apply_updates(params: PyTree, updates: PyTree) -> PyTree:
     ps = tree_leaves(params)
     us = [u.to(p.dtype) for u, p in zip(tree_leaves(updates), ps)]
     return tree_unflatten(params, torch._foreach_add(ps, us))
+
+
+def _apply_updates_(ps: list, us: list) -> None:
+    torch._foreach_add_(ps, [u.to(p.dtype) for u, p in zip(us, ps)])
 
 
 def value_and_grad(fn: Callable, has_aux: bool = False) -> Callable:
@@ -70,18 +83,36 @@ def sgd(lr: float, momentum: float = 0.0, weight_decay: float = 0.0) -> Optimize
             return {}
         return {"mu": tree_zeros_like(params)}
 
-    def update(grads, state, params):
+    def direction(grads, state, params, inplace: bool):
+        """The update's leaves and the new momentum leaves (``state``'s own,
+        advanced in place, with ``inplace``; then the update may be the
+        gradient's leaves, scaled in place)."""
         g = tree_leaves(grads)
         if weight_decay:
             g = torch._foreach_add(g, torch._foreach_mul(tree_leaves(params), weight_decay))
         if momentum == 0.0:
-            return tree_unflatten(grads, torch._foreach_mul(g, -lr)), state
-        mu = torch._foreach_mul(tree_leaves(state["mu"]), momentum)
+            if inplace:
+                torch._foreach_mul_(g, -lr)
+                return g, None
+            return torch._foreach_mul(g, -lr), None
+        if inplace:
+            mu = tree_leaves(state["mu"])
+            torch._foreach_mul_(mu, momentum)
+        else:
+            mu = torch._foreach_mul(tree_leaves(state["mu"]), momentum)
         torch._foreach_add_(mu, g)
-        return (tree_unflatten(grads, torch._foreach_mul(mu, -lr)),
-                {"mu": tree_unflatten(grads, mu)})
+        return torch._foreach_mul(mu, -lr), mu
 
-    return Optimizer(init, update)
+    def update(grads, state, params):
+        u, mu = direction(grads, state, params, inplace=False)
+        return (tree_unflatten(grads, u),
+                state if mu is None else {"mu": tree_unflatten(grads, mu)})
+
+    def update_(grads, state, params):
+        u, _ = direction(grads, state, params, inplace=True)
+        _apply_updates_(tree_leaves(params), u)
+
+    return Optimizer(init, update, update_)
 
 
 # ---------------------------------------------------------------- FedProx
@@ -92,14 +123,19 @@ def with_fedprox(base: Optimizer, mu: float) -> Optimizer:
     def init(params):
         return {"base": base.init(params), "anchor": params}
 
-    def update(grads, state, params):
+    def proximal(grads, state, params):
         d = torch._foreach_sub(tree_leaves(params), tree_leaves(state["anchor"]))
         torch._foreach_mul_(d, mu)
-        g = torch._foreach_add(tree_leaves(grads), d)
-        upd, bstate = base.update(tree_unflatten(grads, g), state["base"], params)
+        return tree_unflatten(grads, torch._foreach_add(tree_leaves(grads), d))
+
+    def update(grads, state, params):
+        upd, bstate = base.update(proximal(grads, state, params), state["base"], params)
         return upd, {"base": bstate, "anchor": state["anchor"]}
 
-    return Optimizer(init, update)
+    def update_(grads, state, params):
+        base.update_(proximal(grads, state, params), state["base"], params)
+
+    return Optimizer(init, update, update_)
 
 
 # ---------------------------------------------------------------- SCAFFOLD
@@ -119,14 +155,29 @@ def with_scaffold(base: Optimizer, lr: float) -> Optimizer:
         return ScaffoldState(base.init(params), tree_zeros_like(params),
                              tree_zeros_like(params), 0)
 
-    def update(grads, state, params):
+    def corrected(grads, state):
         g = torch._foreach_sub(tree_leaves(grads), tree_leaves(state.c_local))
         torch._foreach_add_(g, tree_leaves(state.c_global))
-        upd, bstate = base.update(tree_unflatten(grads, g), state.base, params)
+        return tree_unflatten(grads, g)
+
+    def update(grads, state, params):
+        upd, bstate = base.update(corrected(grads, state), state.base, params)
         return upd, ScaffoldState(bstate, state.c_local, state.c_global,
                                   state.steps + 1)
 
-    return Optimizer(init, update)
+    def update_(grads, state, params):
+        base.update_(corrected(grads, state), state.base, params)
+
+    return Optimizer(init, update, update_)
+
+
+def advance_steps(state: PyTree, n: int) -> PyTree:
+    """``state`` after ``n`` in-place steps: SCAFFOLD's host step count
+    advanced by ``n`` (``update_`` leaves it to the caller); any other
+    state as it is."""
+    if isinstance(state, ScaffoldState):
+        return state._replace(steps=state.steps + n)
+    return state
 
 
 def scaffold_new_control(state: ScaffoldState, w_start: PyTree, w_end: PyTree,

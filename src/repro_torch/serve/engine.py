@@ -16,7 +16,14 @@ Each ``step()``:
      every slot.  Tokens, ``seq_lens`` and the remaining budgets stay on
      the device: argmax, the seq_len advance and the budget countdown run
      there, and no micro-step reads anything back to the host.  Inactive
-     slots carry ``seq_len == 0`` and an all-null block table.
+     slots carry ``seq_len == 0`` and an all-null block table.  Under the
+     step mode ``"scan"`` (the default on a card and on the CPU, as the
+     reference jits its chunk; ``REPRO_ENGINE_STEP_MODE`` overrides it)
+     the whole chunk is one step program (``core/step_graph.py``): a CUDA
+     graph on a card over the engine's static token, seq_len, budget and
+     block-table buffers, which ``step()`` refills with ``copy_`` and the
+     chunk's last node writes back in place.  ``"stepped"`` launches each
+     micro-step's ops from Python.  Prefill stays eager: its length varies.
   4. **Eviction**: finished requests free their blocks; their tokens are
      copied to the host only then, from the buffered chunk outputs.
 
@@ -28,12 +35,14 @@ from __future__ import annotations
 
 import math
 import time
+import weakref
 from collections import deque
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from repro_torch.core.step_graph import StepGraphs
 from repro_torch.serve import paged_cache as pc
 
 
@@ -110,9 +119,10 @@ class ContinuousEngine:
         # boundaries, and a lane finishing mid-chunk freezes via its rem
         # counter instead of shrinking the chunk
         self.chunk_steps = chunk_steps
-        # device state: pool + decode loop carries; the host never reads
-        # them mid-chunk
+        # device state: pool + decode loop carries, static buffers written in
+        # place; the host never reads them mid-chunk
         dev = self.device
+        self.graphs = StepGraphs(cpu_default="scan")   # the chunk jitted, as in the reference
         self.pool = model.init_paged_cache(num_blocks, block_size, device=dev)
         self._cur_tok = torch.zeros((max_batch,), dtype=torch.int32, device=dev)
         self._sl_dev = torch.zeros((max_batch,), dtype=torch.int32, device=dev)
@@ -245,13 +255,21 @@ class ContinuousEngine:
 
     # ---- the step ------------------------------------------------------
     def _decode_chunk(self, k: int) -> torch.Tensor:
-        """``k`` micro-steps, all on the device.  A lane whose budget (rem)
-        runs out mid-chunk freezes: its seq_len stops advancing, so its
-        repeated scatter lands on the one slot past its generated text and
-        its tokens are never read.  Live lanes only ever read positions
-        below their own seq_len."""
-        tok, sl, rem = self._cur_tok, self._sl_dev, self._rem_dev
+        """``k`` micro-steps, all on the device; returns their (k, B) tokens.
+        A lane whose budget (rem) runs out mid-chunk freezes: its seq_len
+        stops advancing, so its repeated scatter lands on the one slot past
+        its generated text and its tokens are never read.  Live lanes only
+        ever read positions below their own seq_len."""
+        if self.graphs.scan(self.device):
+            prog = self.graphs.program("decode/chunk", (k,), lambda: self._chunk_program(k))
+            prog()
+            return prog.buf["ys"].clone()
         ys = torch.empty((k, self.max_batch), dtype=torch.int32, device=self.device)
+        self._chunk_body(k, ys)
+        return ys
+
+    def _chunk_body(self, k: int, ys: torch.Tensor) -> None:
+        tok, sl, rem = self._cur_tok, self._sl_dev, self._rem_dev
         for i in range(k):
             logits, self.pool = self.model.paged_decode_step(
                 self.params, tok[:, None], self.pool, self._bt_dev, sl)
@@ -259,8 +277,15 @@ class ContinuousEngine:
             adv = (rem > 0).to(torch.int32)
             sl, rem = sl + adv, rem - adv
             ys[i] = tok
-        self._cur_tok, self._sl_dev, self._rem_dev = tok, sl, rem
-        return ys
+        # the carries go back into the static buffers in place
+        self._cur_tok.copy_(tok)
+        self._sl_dev.copy_(sl)
+        self._rem_dev.copy_(rem)
+
+    def _chunk_program(self, k: int):
+        buf = {"ys": torch.empty((k, self.max_batch), dtype=torch.int32, device=self.device)}
+        me = weakref.proxy(self)     # the engine owns the program: no cycle through it
+        return (lambda: me._chunk_body(k, buf["ys"])), buf
 
     @torch.inference_mode()
     def step(self) -> list[RequestResult]:
@@ -296,13 +321,11 @@ class ContinuousEngine:
                 finished.append(self._evict(grant[0]))
         if self.num_active:
             if self._dirty:
-                dev = self.device
-                # copies, never views: the host arrays keep changing
-                self._bt_dev = torch.tensor(self.block_tables, device=dev)
-                self._sl_dev = torch.tensor(self.seq_lens, device=dev)
-                self._rem_dev = torch.tensor(np.asarray(
-                    [0 if s is None else s.remaining for s in self.slots],
-                    np.int32), device=dev)
+                # copied into the static buffers: the host arrays keep changing
+                self._bt_dev.copy_(torch.from_numpy(self.block_tables))
+                self._sl_dev.copy_(torch.from_numpy(self.seq_lens))
+                self._rem_dev.copy_(torch.from_numpy(np.asarray(
+                    [0 if s is None else s.remaining for s in self.slots], np.int32)))
                 self._dirty = False
             k = self.chunk_steps
             self._step_toks.append(self._decode_chunk(k))

@@ -23,8 +23,10 @@
       side under a reordered sum and move the gradients upstream of it.
       With ``default_rng(5)`` one input is 2.2e-8 and the gradients differ
       by 3.6e-4; batches 0-4, 6 and 7 agree within 4.8e-7 (ROADMAP §C).
-  (d) ``FedConfig(execution="vectorized")`` validates; ``shard_map`` and a
-      ``"scan"`` step mode raise ``NotImplementedError`` naming their slice.
+  (d) ``FedConfig(execution="vectorized")`` validates; ``shard_map`` raises
+      ``NotImplementedError`` naming its slice; a ``"scan"`` step mode,
+      given or through ``REPRO_ENGINE_STEP_MODE``, builds and resolves to
+      scan (its parity is ``tests/test_torch_step_mode.py``'s).
 """
 import dataclasses
 
@@ -277,13 +279,13 @@ def test_vectorized_validates_and_unported_modes_raise(monkeypatch):
         FedConfig(execution="vectorized", client_sharding="shard_map").validate()
     with pytest.raises(NotImplementedError, match="torch.distributed slice"):
         engine.VectorizedClientEngine(lambda p, b: 0, sgd(0.1), client_sharding="shard_map")
-    with pytest.raises(NotImplementedError, match="CUDA-graph slice"):
-        engine.VectorizedClientEngine(lambda p, b: 0, sgd(0.1), step_mode="scan")
+    eng = engine.VectorizedClientEngine(lambda p, b: 0, sgd(0.1), step_mode="scan")
+    assert eng.graphs.scan("cpu")
     with pytest.raises(ValueError, match="step_mode"):
         engine.VectorizedClientEngine(lambda p, b: 0, sgd(0.1), step_mode="x")
     _, task = tasks(TINY_SHARD)
     monkeypatch.setenv("REPRO_ENGINE_STEP_MODE", "scan")
-    with pytest.raises(NotImplementedError, match="CUDA-graph slice"):
-        make_runner("fedavg", task, device="cpu", execution="vectorized", num_clients=6)
+    runner = make_runner("fedavg", task, device="cpu", execution="vectorized", num_clients=6)
+    assert runner._make_engine().graphs.scan("cpu")
     make_runner("fedavg", task, device="cpu", num_clients=6)   # sequential: no engine
     assert dataclasses.replace(FedConfig(), execution="vectorized").execution == "vectorized"
