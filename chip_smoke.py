@@ -148,7 +148,31 @@ Phases, each of which fails the run if it fails:
                decode micro-step; tokens/s, TTFT p50, the long prefill, peak
                memory; a profiled decode chunk as in phase 5 (launches per
                micro-step beside the earlier design's 2,360)
- 18. kernels   one JSON line per the port's kernel contract; kernel 12's
+ 18. overlap   phases 8 and 11's ResNet-56 FedSDD configuration, 3 rounds from
+               the same weights under sequential off and async, vectorized
+               off, async and fused (overlap=..., core/round_plan.py), cuDNN
+               deterministic: per round t_round and t_local (t_kd under off),
+               captures and paired-program captures, the drain's seconds,
+               launches (kernels 2 / 3 / 4: 3 / 600 / 600 in every mode,
+               kernel 5 once a round vectorized), peak memory; the drained
+               models against off: sequential within 2e-4; vectorized
+               printed beside the two engines' own spread (vectorized off
+               against sequential off), fused within 2e-4 of async, and
+               phase 10's CNN 3 rounds vectorized under off, async and
+               fused within 2e-4; overlap_summary (the port's
+               scheduler) of off's round-3 t_local and t_kd against the
+               mode's round-3 t_round; after each async run, its own KD
+               step program and client (bucket) step program timed with
+               CUDA events alone, issued together on the two streams and,
+               vectorized, as paired programs: the milliseconds hidden (the
+               two alone less together; it must be above 0)
+ 19. legacy    one round of that configuration with kd_pipeline="legacy"
+               (the host-loop oracle: kernel 2 once a server batch, kernels
+               3-4 eagerly) against the fused pipeline within 2e-4; paper
+               Table 5's metric on phase 18's sequential off run after 3
+               rounds: the K*R = 8 teacher ensemble's accuracy on the task's
+               test set (ensemble_eval_fn), beside the main model's
+ 20. kernels   one JSON line per the port's kernel contract; kernel 12's
                entry is its bf16 row at qwen2.5-14b's width (the configs'
                dtype), with the f32 row beside it under "f32"; kernel 1's
                also gives "starcoder2_ms", its times in the two starcoder2-3b
@@ -159,7 +183,7 @@ Phases, each of which fails the run if it fails:
                over the leaves flattened ("flat_library_ms") and the same
                inputs one launch a leaf ("before_loop_ms"); every entry's
                "host_ms" is its wrapper's host time a call
- 19. ok        {"ok": true, "device": {...}} as the last line
+ 21. ok        {"ok": true, "device": {...}} as the last line
 
 Tolerances, paged_decode: f32 kernel vs plain at rtol = atol = 1e-5 (only
 the order of summation differs).  bf16 per (request, query head) row: the row's max
@@ -2420,6 +2444,298 @@ def starcoder_serve_phase(serve, zoo, get_config, seed: int, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phase 18
+RESNET56_RUN = dict(K=4, R=2, num_clients=20, participation=0.4, client_batch=64,
+                    client_lr=0.05, server_lr=0.05, temperature=4.0, local_epochs=1,
+                    distill_steps=200)
+OVERLAP_RUNS = (("sequential", "off"), ("sequential", "async"), ("vectorized", "off"),
+                ("vectorized", "async"), ("vectorized", "fused"))
+OVERLAP_ROUNDS = 3               # round 1 captures, round 2 the KD's and the pairs', 3 steady
+OVERLAP_TOL = ROUND_TOL          # drained models against off
+PAIR = "fused/kd+bucket"
+
+
+def resnet56_task(seed: int):
+    """Phases 8 and 11's ResNet-56 task: 20 clients over 50,000 images."""
+    from repro_torch.core.tasks import classification_task
+    return classification_task(model="resnet56", num_clients=20, alpha=0.1, num_train=50000,
+                               num_server=2048, server_batch=256, seed=seed, device=DEV)
+
+
+def _replays(prog, n: int, counter=None, period: int = 0) -> None:
+    """``n`` calls of a step program; a step counter in its buffers restarts
+    every ``period`` calls (a schedule's length), as its loop restarts it."""
+    for i in range(n):
+        if counter is not None and i % period == 0:
+            counter.zero_()
+        prog()
+
+
+def replay_probe(runner, execution: str, reps: int = 3) -> dict:
+    """What two step programs gain from running at once on one card, timed
+    with CUDA events (median of ``reps``): the run's KD step program alone
+    on the KD stream, its client step program (sequential) or largest
+    bucket step program (vectorized) alone, both issued together on the two
+    streams, and, vectorized, one KD step and one bucket step a paired
+    program.  ``hidden_ms`` = alone + alone - together.  (torch.profiler
+    cannot show this: under its tracing two streams' graphs never ran at
+    once.)"""
+    from repro_torch.core.step_graph import StepGraphs
+    pipe = runner._kd_pipeline()
+    kd = next(p for (n, _), p in pipe.graphs.programs.items() if n == "kd/step")
+    name = "client/step" if execution == "sequential" else "engine/bucket"
+    cl = max((p for (n, _), p in runner.graphs.programs.items() if n == name),
+             key=lambda p: _leaves(p.buf["params"])[0].shape[0])
+    lane, cur = pipe.lane(), torch.cuda.current_stream()
+    n_kd, n_cl = (40, 100) if execution == "sequential" else (16, 16)
+    kd_run = (kd, n_kd, kd.buf["s"], pipe.steps)
+    cl_run = (cl, n_cl, *((cl.buf["si"], cl.buf["capacity"][0]) if "si" in cl.buf else ()))
+
+    def both():
+        lane.wait_stream(cur)
+        with torch.cuda.stream(lane):
+            _replays(*kd_run)
+        _replays(*cl_run)
+        cur.wait_stream(lane)
+
+    def timed(fn) -> float:
+        out = []
+        for _ in range(reps + 1):               # the first is a warm-up
+            torch.cuda.synchronize()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            out.append(a.elapsed_time(b))
+        return statistics.median(out[1:])
+
+    res = {"kd_steps": n_kd, f"{name}_steps": n_cl,
+           "kd_alone_ms": timed(lambda: _replays(*kd_run)),
+           "client_alone_ms": timed(lambda: _replays(*cl_run)), "together_ms": timed(both)}
+    res["hidden_ms"] = res["kd_alone_ms"] + res["client_alone_ms"] - res["together_ms"]
+    res["hidden_share_of_kd"] = res["hidden_ms"] / res["kd_alone_ms"]
+    if execution == "vectorized":
+        pair = StepGraphs().pair(PAIR, kd, cl)
+
+        def paired():
+            for i in range(n_kd):
+                if i % pipe.steps == 0:
+                    kd.buf["s"].zero_()
+                if i % cl.buf["capacity"][0] == 0:
+                    cl.buf["si"].zero_()
+                pair()
+
+        res["paired_ms"] = timed(paired)
+        res["paired_hidden_ms"] = res["kd_alone_ms"] + res["client_alone_ms"] - res["paired_ms"]
+    return res
+
+
+CNN_RUN = dict(K=4, R=2, num_clients=8, participation=1.0, local_epochs=1, distill_steps=20,
+               client_lr=0.05, server_lr=0.05)
+
+
+def vectorized_cnn_overlap(fed, seed: int) -> dict:
+    """Phase 10's CNN configuration, 3 rounds on the vectorized engine under
+    off, async and fused from the same weights, cuDNN deterministic: the
+    drained models' max abs difference from off, held at 2e-4."""
+    from repro_torch.core.tasks import classification_task
+    from repro_torch.utils.pytree import tree_map
+    task = classification_task(model="cnn", num_clients=8, seed=seed, device=DEV)
+    init = fed.make_runner("fedsdd", task, device=DEV, seed=seed,
+                           **CNN_RUN).init_state().global_models
+    states = {}
+    for mode in ("off", "async", "fused"):
+        runner = fed.make_runner("fedsdd", task, device=DEV, seed=seed, overlap=mode,
+                                 execution="vectorized", **CNN_RUN)
+        state = fed.FedState(round=0, global_models=[tree_map(torch.clone, m) for m in init],
+                             ensemble=fed.TeacherBank(4, 2))
+        states[mode] = runner.run(OVERLAP_ROUNDS, state=state)
+    return {mode: max(_tree_err(a, b) for a, b in zip(st.global_models,
+                                                      states["off"].global_models))
+            for mode, st in states.items() if mode != "off"}
+
+
+def overlap_phase(fed, task, seed: int, card: str):
+    """ResNet-56 FedSDD (phases 8 and 11's configuration), 3 rounds under
+    each engine and overlap mode from the same weights, cuDNN
+    deterministic; each overlapped run drained by finalize and held against
+    its engine's off run.  Returns the sequential off run's runner and
+    state (its ring holds K·R = 8 teachers)."""
+    from repro_torch import kernels
+    from repro_torch.core import step_graph
+    from repro_torch.core.scheduler import overlap_summary
+    from repro_torch.utils.pytree import tree_map
+    init = fed.make_runner("fedsdd", task, device=DEV, seed=seed,
+                           **RESNET56_RUN).init_state().global_models
+    torch.backends.cudnn.deterministic = True
+    results = {}
+    try:
+        for execution, mode in OVERLAP_RUNS:
+            gc.collect()
+            runner = fed.make_runner("fedsdd", task, device=DEV, seed=seed, overlap=mode,
+                                     execution=execution, **RESNET56_RUN)
+            state = fed.FedState(round=0,
+                                 global_models=[tree_map(torch.clone, m) for m in init],
+                                 ensemble=fed.TeacherBank(4, 2))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.launches.clear()
+            rounds = []
+            with card_launches() as ran:
+                t_run = time.perf_counter()
+                for _ in range(OVERLAP_ROUNDS):
+                    c0, p0 = captured(), step_graph.captures[PAIR]
+                    state = runner.run_round(state)
+                    rounds.append({"round": state.round, "captures": captured() - c0,
+                                   "paired_captures": step_graph.captures[PAIR] - p0,
+                                   **{k: state.history[-1][k] for k in
+                                      ("t_round", "t_local", "t_kd")
+                                      if k in state.history[-1]}})
+                t0 = time.perf_counter()
+                state = runner.finalize(state)
+                torch.cuda.synchronize()
+                t_drain, t_run = time.perf_counter() - t0, time.perf_counter() - t_run
+            peak, host = torch.cuda.max_memory_allocated() / 1e9, dict(kernels.launches)
+            probe = replay_probe(runner, execution) if mode == "async" else {}
+            results[execution, mode] = {
+                "runner": runner, "state": state, "rounds": rounds, "launches": dict(ran),
+                "wrapper_launches": host, "peak_mem_gb": peak,
+                "t_drain_s": t_drain, "t_run_s": t_run, "probe": probe,
+                "pairs": (len(runner._executor()._pairs.pairs)
+                          if runner._executor()._pairs is not None else 0)}
+            del runner, probe
+    finally:
+        torch.backends.cudnn.deterministic = False
+    steps_kd = RESNET56_RUN["distill_steps"]
+
+    def drained_err(a, b) -> float:
+        return max(_tree_err(x, y) for x, y in zip(results[a]["state"].global_models,
+                                                   results[b]["state"].global_models))
+
+    # the two engines' own spread on this configuration: the vectorized off
+    # run against the sequential one.  Overlapped, the vectorized engine
+    # trains the k>0 and main subsets as buckets of 6 and 2 clients, whose
+    # vmapped convolutions round otherwise than one of 8; these ResNet-56
+    # rounds carry such roundings far (the engines part by as much), so the
+    # vectorized runs are held at 2e-4 on phase 10's CNN instead, and the
+    # two overlapped vectorized modes against each other here
+    engines = drained_err(("vectorized", "off"), ("sequential", "off"))
+    fused_vs_async = drained_err(("vectorized", "fused"), ("vectorized", "async"))
+    cnn = vectorized_cnn_overlap(fed, seed)
+    print(json.dumps({"phase": "ResNet-56 overlapped: drained models", "card": card,
+                      "vectorized_off_vs_sequential_off": engines,
+                      "vectorized_fused_vs_async": fused_vs_async,
+                      "cnn_vectorized_vs_off": cnn, "tol": OVERLAP_TOL}), flush=True)
+    check(fused_vs_async <= OVERLAP_TOL,
+          f"overlap: vectorized fused and async drained {fused_vs_async} apart")
+    check(all(e <= OVERLAP_TOL for e in cnn.values()),
+          f"overlap: vectorized CNN rounds drained {cnn} from off (tol {OVERLAP_TOL})")
+    tols = {"sequential": OVERLAP_TOL, "vectorized": None}
+    for (execution, mode), r in results.items():
+        off = results[execution, "off"]
+        err = drained_err((execution, mode), (execution, "off"))
+        o3 = off["rounds"][-1]
+        summary = overlap_summary(o3["t_local"], o3["t_kd"], r["rounds"][-1]["t_round"])
+        line = {"phase": "ResNet-56 FedSDD, overlapped", "card": card, "engine": execution,
+                "overlap": mode, "rounds": r["rounds"], "t_drain_s": r["t_drain_s"],
+                "t_run_s": r["t_run_s"], "drained_max_abs_err_vs_off": err,
+                "tol": tols[execution], "overlap_summary_round3": summary,
+                "paired_programs": r["pairs"], "launches": r["launches"],
+                "wrapper_launches": r["wrapper_launches"], "peak_mem_gb": r["peak_mem_gb"],
+                "replay_probe": r["probe"] or None,
+                "acc_main": [h["acc_main"] for h in r["state"].history],
+                "kd_loss_last": [h["kd_loss_last"] for h in r["state"].history],
+                "cudnn_deterministic": True}
+        print(json.dumps(line), flush=True)
+        hist = r["state"].history
+        check(len(hist) == OVERLAP_ROUNDS and r["state"].pending_kd is None
+              and all(h.get("kd_steps") == steps_kd and math.isfinite(h["kd_loss_last"])
+                      for h in hist), f"overlap {execution}/{mode}: history {hist}")
+        check(math.isfinite(err) and (tols[execution] is None or err <= tols[execution]),
+              f"overlap {execution}/{mode}: drained models {err} from off "
+              f"(tol {tols[execution]})")
+        check(r["launches"].get("ensemble_softmax") == OVERLAP_ROUNDS
+              and r["launches"].get("kd_loss_fwd") == OVERLAP_ROUNDS * steps_kd
+              and r["launches"].get("kd_loss_bwd") == OVERLAP_ROUNDS * steps_kd,
+              f"overlap {execution}/{mode}: KD launches {r['launches']}")
+        check(execution == "sequential" or r["wrapper_launches"].get("multi_weighted_average")
+              == OVERLAP_ROUNDS, f"overlap {execution}/{mode}: kernel 5 {r['wrapper_launches']}")
+        check(r["rounds"][-1]["captures"] == off["rounds"][-1]["captures"],
+              f"overlap {execution}/{mode}: round 3 captured {r['rounds'][-1]['captures']}, "
+              f"off {off['rounds'][-1]['captures']} (a bucket outgrowing its capacity)")
+        check(mode != "off" or all("t_kd" in x for x in r["rounds"]),
+              f"overlap {execution}/{mode}: off rounds lack t_kd")
+        check(mode == "off" or not any("t_kd" in x for x in r["rounds"][1:]),
+              f"overlap {execution}/{mode}: an overlapped round recorded t_kd")
+        check((mode == "fused") == (r["pairs"] > 0 and sum(x["paired_captures"]
+                                                          for x in r["rounds"]) > 0),
+              f"overlap {execution}/{mode}: paired programs {r['pairs']}")
+        if mode == "async":
+            check(r["probe"]["hidden_ms"] > 0, f"overlap {execution}/async: KD and client step "
+                  f"programs on two streams took no less than one after the other "
+                  f"({r['probe']})")
+    off = results["sequential", "off"]
+    return off["runner"], off["state"]
+
+
+# ---------------------------------------------------------------- phase 19
+def legacy_phase(fed, task, seed: int, card: str, runner3, state3) -> None:
+    """One ResNet-56 round with the legacy host-loop KD oracle against the
+    fused pipeline from the same weights (cuDNN deterministic), then paper
+    Table 5's metric on phase 18's sequential off run after 3 rounds: the
+    K·R = 8 teacher ensemble's accuracy on the task's test set through
+    ensemble_eval_fn, beside the main model's."""
+    from repro_torch.data.synthetic import SyntheticClassification
+    from repro_torch.utils.pytree import tree_map
+    init = fed.make_runner("fedsdd", task, device=DEV, seed=seed,
+                           **RESNET56_RUN).init_state().global_models
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for pipeline in ("legacy", "fused"):
+            runner = fed.make_runner("fedsdd", task, device=DEV, seed=seed, kd_pipeline=pipeline,
+                                     **RESNET56_RUN)
+            state = fed.FedState(round=0,
+                                 global_models=[tree_map(torch.clone, m) for m in init],
+                                 ensemble=fed.TeacherBank(4, 2))
+            with card_launches() as ran:
+                state = runner.run(1, state=state)
+            runs[pipeline] = (runner, state, dict(ran))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (runner, leg, leg_launches), (_, fus, fus_launches) = runs["legacy"], runs["fused"]
+    err = max(_tree_err(a, b) for a, b in zip(leg.global_models, fus.global_models))
+    x_te, y_te = SyntheticClassification(num_train=50000, num_server=2048, seed=seed).test()
+    # the task's own test set (classification_task's SyntheticClassification)
+    ens = runner3.ensemble_eval_fn(state3)
+    hits = 0
+    for i in range(0, len(x_te), 500):
+        pred = ens({"x": torch.from_numpy(x_te[i:i + 500]).to(DEV)})
+        hits += int((pred.cpu().numpy() == y_te[i:i + 500]).sum())
+    ens_acc = hits / len(x_te)
+    rec = leg.history[-1]
+    print(json.dumps({"phase": "ResNet-56 FedSDD round, legacy KD oracle vs fused", "card": card,
+                      "models_max_abs_err": err, "tol": ROUND_TOL,
+                      "kd_loss_last": rec["kd_loss_last"],
+                      "kd_loss_last_fused": fus.history[-1]["kd_loss_last"],
+                      "t_kd_s": rec["t_kd"], "t_kd_fused_s": fus.history[-1]["t_kd"],
+                      "launches_legacy": leg_launches, "launches_fused": fus_launches,
+                      "table5_rounds": state3.round,
+                      "table5_teachers": state3.ensemble.num_members,
+                      "ensemble_acc_table5": ens_acc,
+                      "acc_main_table5": state3.history[-1]["acc_main"],
+                      "test_images": len(x_te), "cudnn_deterministic": True}), flush=True)
+    check(err <= ROUND_TOL, f"legacy vs fused: models {err} apart (tol {ROUND_TOL})")
+    n_batches = len(task.server_batches)
+    check(leg_launches.get("kd_loss_fwd") == RESNET56_RUN["distill_steps"]
+          and leg_launches.get("ensemble_softmax") == n_batches,
+          f"legacy: launches {leg_launches}, want {RESNET56_RUN['distill_steps']} of kernel 3 "
+          f"and one of kernel 2 a server batch ({n_batches})")
+    check(state3.ensemble.num_members == 8 and math.isfinite(ens_acc),
+          f"Table 5 ensemble: accuracy {ens_acc}, {state3.ensemble.num_members} teachers")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2539,7 +2855,15 @@ def main() -> int:
     phase("17. starcoder2-3b full width, bf16, 30 layers: serve 8 requests")
     starcoder_serve_phase(serve, zoo, get_config, args.seed, card)
 
-    phase("18. kernels")
+    phase("18. ResNet-56 FedSDD, overlapped rounds: off, async (both engines), fused")
+    r56 = resnet56_task(args.seed)
+    runner3, state3 = overlap_phase(fed, r56, args.seed, card)
+
+    phase("19. ResNet-56 FedSDD round: legacy KD oracle vs fused; Table 5 ensemble accuracy")
+    legacy_phase(fed, r56, args.seed, card, runner3, state3)
+    del r56, runner3, state3
+
+    phase("20. kernels")
     print(f"total {time.perf_counter() - T_START:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [entry, *kd_entries, wa_entry, single_entry,

@@ -35,8 +35,8 @@ import torch
 from repro_torch.core.aggregation import fedavg_aggregate_grouped
 from repro_torch.core.client_store import InMemoryStore
 from repro_torch.core.grouping import group_major_order
-from repro_torch.core.step_graph import (StepGraphs, clone_tensors, copy_into, shape_key,
-                                         static_like)
+from repro_torch.core.step_graph import (StepGraphs, StepProgram, clone_tensors, copy_into,
+                                         shape_key, static_like)
 from repro_torch.optim.optimizers import Optimizer, advance_steps, apply_updates
 from repro_torch.utils.pytree import (tree_leaves, tree_map, tree_stack, tree_unstack,
                                       tree_where)
@@ -252,7 +252,7 @@ class VectorizedClientEngine:
         state and the (C, S) losses."""
         p, s, data, indices, mask, num_steps = args
         if self.graphs.scan(indices.device):
-            return self._run_scan(p, s, data, indices, mask)
+            return self._run_scan(args)
         losses = []
         for si in range(mask.shape[1]):
             p, s, loss = self.step(p, s, data, indices, mask, si,
@@ -310,8 +310,11 @@ class VectorizedClientEngine:
 
         return body, buf
 
-    def _run_scan(self, p, s, data, indices, mask):
-        S = mask.shape[1]
+    def start_prepared(self, args) -> tuple[StepProgram, int]:
+        """Under scan: the bucket step program with a prepared bucket's inputs
+        loaded, and its step count S; the program's next S calls (alone or
+        paired) train the bucket, ``finish_prepared`` reads it."""
+        p, s, data, indices, mask, _ = args
         prog = self._bucket_program(p, s, data, indices, mask)
         b = prog.buf
         copy_into(b["params"], p)
@@ -320,13 +323,24 @@ class VectorizedClientEngine:
         copy_into(b["indices"], indices)
         copy_into(b["mask"], mask)
         b["si"].zero_()
-        for _ in range(S):
-            prog()
-        # the trained stacks leave as copies; a host counter of the state
-        # (SCAFFOLD's steps) is the input's advanced by S, as stepped gives
+        return prog, mask.shape[1]
+
+    @staticmethod
+    def finish_prepared(prog: StepProgram, args):
+        """The trained stacks of a bucket ``start_prepared`` loaded, as copies;
+        a host counter of the state (SCAFFOLD's steps) is the input's
+        advanced by S, as stepped gives."""
+        s, S = args[1], args[4].shape[1]
+        b = prog.buf
         state = tree_map(lambda x, y: x.clone() if isinstance(x, torch.Tensor) else y,
                          b["opt"], s)
         return clone_tensors(b["params"]), advance_steps(state, S), b["losses"][:, :S].clone()
+
+    def _run_scan(self, args):
+        prog, S = self.start_prepared(args)
+        for _ in range(S):
+            prog()
+        return self.finish_prepared(prog, args)
 
     def train_bucket(self, plan: ClientPlan, stacked_params: PyTree,
                      stacked_opt_state: PyTree):
@@ -334,22 +348,31 @@ class VectorizedClientEngine:
         return self.run_prepared(self.prepare_bucket(plan, stacked_params, stacked_opt_state))
 
     def train_round(self, rplan: RoundPlan, init_params_for: Callable,
-                    init_opt_state_for: Callable):
-        """Train every bucket; return the client stacks in round order.
+                    init_opt_state_for: Callable, run_buckets: Optional[Callable] = None):
+        """Train every bucket; return the client stacks in the plan's
+        group-major client order.
 
         ``init_params_for(plan) -> (Cb, ...) start params``;
         ``init_opt_state_for(plan, stacked_params) -> stacked opt state``.
+        ``run_buckets``, when given, replaces the per-bucket dispatch: it takes
+        the list of prepared args (``prepare_bucket``) and returns their
+        outputs, as ``run_prepared`` would (the overlap executor's paired
+        programs).
 
         Returns ``(stacked_params, group_ids, sizes, buckets)``: leaves (C,
-        ...) in the round's group-major client order, and per bucket
-        ``(plan, trained_params, final_opt_state, start_params)`` (SCAFFOLD's
-        control update needs the bucket view).
+        ...) in group-major client order, and per bucket ``(plan,
+        trained_params, final_opt_state, start_params)`` (SCAFFOLD's control
+        update needs the bucket view).
         """
-        buckets = []
+        prepared = []
         for plan in rplan.plans:
             w0 = init_params_for(plan)
-            p, s, _ = self.train_bucket(plan, w0, init_opt_state_for(plan, w0))
-            buckets.append((plan, p, s, w0))
+            prepared.append((plan, w0, self.prepare_bucket(plan, w0, init_opt_state_for(plan, w0))))
+        if run_buckets is None:
+            outs = [self.run_prepared(args) for _, _, args in prepared]
+        else:
+            outs = run_buckets([args for _, _, args in prepared])
+        buckets = [(plan, p, s, w0) for (plan, w0, _), (p, s, _) in zip(prepared, outs)]
         # bucket rows are in sorted-cid order, not round order: the
         # permutation is needed even for a single bucket
         inv = np.argsort(np.concatenate([b[0].order for b in buckets]))

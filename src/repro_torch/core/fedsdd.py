@@ -14,7 +14,10 @@ baseline is a preset:
     Table-6 "basic distillation" = FedSDD + distill_target='all'
 
 ``FedConfig`` keeps every field and every ``ValueError`` of the
-reference.  An option the reference takes but this port does not run
+reference.  ``overlap="async"|"fused"`` defers each round's KD into the next
+round's k>0 training (``core/round_plan.py``); ``kd_pipeline="legacy"`` runs
+the host-loop oracle (``core/distillation.py``) instead of the fused
+``KDPipeline``.  An option the reference takes but this port does not run
 yet raises ``NotImplementedError`` naming the slice that brings it,
 after the reference's own checks; nothing runs something else quietly.
 
@@ -33,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_lib
-from repro_torch.core import round_plan
+from repro_torch.core import distillation, round_plan
 from repro_torch.core.aggregation import fedavg_aggregate
 from repro_torch.core.client_store import InMemoryStore, make_client_store
 from repro_torch.core.engine import (VectorizedClientEngine, aggregate_groups,
@@ -140,7 +143,7 @@ class FedConfig:
                      "the compressed teacher cache lives in the fused "
                      "KDPipeline; the legacy host loop keeps f32 rows, so "
                      "a cache dtype there would be silently inert")
-        _choice("overlap", ("off", "async", "fused"))
+        _choice("overlap", round_plan.OVERLAP_MODES)
         _choice("teacher_dtype", (None, "float32", "bfloat16"))
         if self.overlap != "off":
             _require(self.kd_pipeline == "fused",
@@ -208,7 +211,8 @@ class FedConfig:
                 raise NotImplementedError(
                     f"FedConfig: {slice_}; this slice of the port runs the "
                     f"sequential and vectorized engines with the fused KD "
-                    f"pipeline, dense or Flash-KD")
+                    f"pipeline (dense or Flash-KD, overlapped or not) or the "
+                    f"legacy host loop")
 
     def _unported(self):
         """(condition, what and which later slice brings it) for each valid
@@ -218,12 +222,6 @@ class FedConfig:
              "client_sharding='shard_map' (the client axis over several cards) "
              "arrives with the torch.distributed slice; on one card 'auto' and "
              "'vmap' run vmap"),
-            (self.overlap != "off",
-             f"overlap={self.overlap!r} arrives with the overlap slice"),
-            (self.kd_pipeline == "legacy",
-             "kd_pipeline='legacy' (the host-loop oracle, core/distillation.py) "
-             "arrives with its own slice; the fused pipeline is held directly "
-             "against the JAX package"),
             (self.client_store == "spilling",
              "client_store='spilling' arrives with the robustness slice"),
             (self.faults is not None,
@@ -295,6 +293,12 @@ class FedState:
     store: Optional[InMemoryStore] = None
     scaffold_c_global: Optional[PyTree] = None
     history: list[dict] = field(default_factory=list)
+    # overlap modes: the deferred round-t KD job (resolved in round t+1,
+    # drained by FederatedRunner.finalize), and the newest resolved
+    # (round_idx, distilled main model): global_models[0] is the raw
+    # aggregate until its KD resolves
+    pending_kd: Optional[round_plan.PendingKD] = None
+    last_distilled: Optional[tuple] = None
 
 
 # =====================================================================
@@ -442,6 +446,10 @@ class FederatedRunner:
 
     # ---- distillation phase (Eq. 3-4) -------------------------------------
     def _kd_pipeline(self) -> KDPipeline:
+        """The fused KD pipeline.  Its step programs are of the runner's set
+        with ``overlap='off'`` (one model-sized buffer for the client and KD
+        steps); overlapped, a KD program may be in flight beside a client
+        one, so they are of a set of their own (``core/step_graph.py``)."""
         if self._kd_pipe is None:
             cfg = self.cfg
             self._kd_pipe = KDPipeline(
@@ -449,8 +457,14 @@ class FederatedRunner:
                 temperature=cfg.temperature, device=self.device,
                 kd_kernel=cfg.kd_kernel, cache_dtype=cfg.teacher_cache_dtype,
                 features_fn=self.task.features_fn, head_fn=self.task.head_fn,
-                head_fusion=cfg.kd_head_fusion, graphs=self.graphs)
+                head_fusion=cfg.kd_head_fusion,
+                graphs=self.graphs if cfg.overlap == "off" else self.graphs.separate())
         return self._kd_pipe
+
+    def _teacher_trust_weights(self, state, teachers):
+        """The (M,) trust weights of the round's KD ensemble: ``None`` while
+        ``teacher_trust`` is not ported (``FedConfig`` refuses it)."""
+        return None
 
     def _executor(self) -> round_plan.RoundExecutor:
         if self._exec is None:
@@ -464,8 +478,18 @@ class FederatedRunner:
         at a time, so a list of views into the ring is never copied.
         ``stacked_students``: the (K, ...) stack of ``new_globals`` when the
         caller has one (the vectorized engine)."""
+        cfg = self.cfg
+        if cfg.kd_pipeline == "legacy":
+            kd_info = {}
+            for k in (range(cfg.K) if cfg.distill_target == "all" else (0,)):
+                new_globals[k], kd_info = distillation.distill(
+                    new_globals[k], teachers, self.task.server_batches, self.task.logits_fn,
+                    steps=cfg.distill_steps, lr=cfg.server_lr, temperature=cfg.temperature,
+                    kd_kernel=cfg.kd_kernel, features_fn=self.task.features_fn,
+                    head_fn=self.task.head_fn, head_fusion=cfg.kd_head_fusion)
+            return kd_info
         pipe = self._kd_pipeline()
-        if self.cfg.distill_target == "all":
+        if cfg.distill_target == "all":
             if stacked_students is None:
                 stacked_students = tree_stack(new_globals)
             out, kd_info = pipe.distill_all(stacked_students, teachers,
@@ -489,9 +513,22 @@ class FederatedRunner:
         return self._executor().execute(state, t, len(active), ops)
 
     def finalize(self, state: FedState) -> FedState:
-        """Nothing is deferred with ``overlap='off'``; kept so callers of
-        the reference's API work unchanged."""
+        """Drain the deferred KD job (overlap modes): after this the state is
+        what ``overlap='off'`` gives.  ``run`` calls it; a loop of
+        ``run_round`` calls it once at its end."""
+        self._executor().resolve_pending(state)
+        self._executor().close()
         return state
+
+    def spill_pending(self, state: FedState, directory: str):
+        raise NotImplementedError(
+            "spill_pending (a pending KD job through fedckpt) arrives with the "
+            "robustness slice (checkpoints)")
+
+    def restore_pending(self, state: FedState, path: str):
+        raise NotImplementedError(
+            "restore_pending (a pending KD job through fedckpt) arrives with the "
+            "robustness slice (checkpoints)")
 
     def run(self, rounds: int | None = None, log_every: int = 0,
             state: FedState | None = None) -> FedState:
@@ -499,17 +536,35 @@ class FederatedRunner:
         for _ in range(rounds or self.cfg.rounds):
             state = self.run_round(state)
             if log_every and state.round % log_every == 0:
+                # overlap modes: the newest record's KD and eval fields land
+                # at its resolve, so log the newest complete one
                 rec = state.history[-1]
+                if state.pending_kd is not None:
+                    if len(state.history) < 2:
+                        continue
+                    rec = state.history[-2]
                 print(f"[round {rec['round']:3d}] " +
                       " ".join(f"{k}={v}" for k, v in rec.items() if k != "round"))
         return self.finalize(state)
+
+    # ---- evaluation helpers ----------------------------------------------
+    def ensemble_eval_fn(self, state: FedState):
+        """The K·R teacher ensemble as a classifier (paper Table 5): a
+        function of a batch giving each row's ensemble class.  It holds the
+        ring's members as copies, which a later push leaves alone."""
+        teachers = state.ensemble.members() or state.global_models
+        logits_fn = self.task.logits_fn
+        return lambda batch: distillation.ensemble_predict(teachers, batch, logits_fn)
 
 
 # =====================================================================
 # per-engine phase bodies (consumed by round_plan.RoundExecutor)
 # =====================================================================
 class _SequentialRoundOps:
-    """The oracle per-client Python loop, split into executor phases."""
+    """The oracle per-client Python loop, split into executor phases.  The
+    ``subset`` of ``train`` ("all", "rest" = groups k>0, "main" = group 0)
+    walks the pre-drawn entries in group-major order, so the phase split
+    changes when clients train, never what they compute."""
 
     def __init__(self, runner, state, groups, rng, t):
         self.runner, self.state = runner, state
@@ -518,9 +573,19 @@ class _SequentialRoundOps:
                                            store=runner._store(state))
         self.models: list = [None] * len(self.entries)   # by round position
 
-    def train(self) -> None:
+    def fused_capable(self) -> bool:
+        return False    # one client at a time: no bucket step to pair
+
+    def _subset(self, which: str):
+        if which == "all":
+            return self.entries
+        if which == "rest":
+            return [e for e in self.entries if e.group != 0]
+        return [e for e in self.entries if e.group == 0]
+
+    def train(self, which: str = "all", run_buckets=None) -> None:
         state = self.state
-        for e in self.entries:
+        for e in self._subset(which):
             self.models[e.pos] = self.runner._local_train_scheduled(
                 state.global_models[e.group], e.cid, state, e.idx)
 
@@ -558,11 +623,23 @@ class _SequentialRoundOps:
         # the views are read before the next push
         return runner._distill_models(new_globals, state.ensemble.member_views())
 
+    def kd_teachers(self, new_globals) -> tuple[list, Optional[TeacherBank]]:
+        """The deferred job's teachers and the ring they are views of (held
+        until the resolve; the next push comes after it), or the client
+        models and ``None``."""
+        if self.runner.cfg.ensemble_source == "clients":
+            return list(self.models), None
+        return self.state.ensemble.member_views(), self.state.ensemble
+
 
 class _VectorizedRoundOps:
     """The stacked engine's phase bodies: every bucket of the round trains
     as one vmapped program, and Eq. 2 for all K groups runs as one pass over
-    the round-ordered client stack (``aggregate_groups``)."""
+    the round-ordered client stack (``aggregate_groups``).  A phase split
+    trains each subset's buckets apart, padded to the round's pad targets so
+    that the subsets' bucket programs keep their shapes across rounds; the
+    subsets' stacks go back into round order before the one Eq. 2 launch,
+    which then sums in the order the undivided round does."""
 
     def __init__(self, runner, state, groups, rng, t):
         self.runner, self.state = runner, state
@@ -572,14 +649,29 @@ class _VectorizedRoundOps:
         self.entries = build_round_entries(runner.task, runner.cfg, groups, rng,
                                            store=self.store)
         self.pad_hints = entry_pad_hints(self.entries)
+        self.results: list = []     # (stacked, gids, sizes, orders) per trained subset
+        self.buckets: list = []     # SCAFFOLD's bookkeeping across subsets
 
-    def train(self) -> None:
+    def fused_capable(self) -> bool:
+        return self.eng.graphs.scan(self.runner.device)
+
+    def _subset(self, which: str):
+        if which == "all":
+            return self.entries
+        if which == "rest":
+            return [e for e in self.entries if e.group != 0]
+        return [e for e in self.entries if e.group == 0]
+
+    def train(self, which: str = "all", run_buckets=None) -> None:
+        ents = self._subset(which)
+        if not ents:
+            return
         runner, state, cfg = self.runner, self.state, self.runner.cfg
         optimizer, dev = self.eng.optimizer, runner.device
-        # pin the round's clients resident while their bucket stacks are
+        # pin the phase's clients resident while their bucket stacks are
         # assembled and consumed
-        with self.store.sampled_view([e.cid for e in self.entries]) as view:
-            rplan = plan_from_entries(runner.task, self.entries, self.groups,
+        with self.store.sampled_view([e.cid for e in ents]) as view:
+            rplan = plan_from_entries(runner.task, ents, self.groups,
                                       store=self.store, pad_to=self.pad_hints)
             stacked_k = stack_models(state.global_models)   # (K, ...)
 
@@ -597,8 +689,11 @@ class _VectorizedRoundOps:
                                      c_global=c_glob)
                 return s0
 
-            self.stacked, self.gids, self.sizes, self.buckets = self.eng.train_round(
-                rplan, init_params_for, init_opt_state_for)
+            stacked, gids, sizes, buckets = self.eng.train_round(
+                rplan, init_params_for, init_opt_state_for, run_buckets=run_buckets)
+        orders = np.sort(np.concatenate([p.order for p in rplan.plans]))
+        self.results.append((stacked, gids, sizes, orders))
+        self.buckets.extend(buckets)
 
     def finish_local(self) -> None:
         state, cfg = self.state, self.runner.cfg
@@ -612,7 +707,18 @@ class _VectorizedRoundOps:
             state.scaffold_c_global = self.store.control_mean()
 
     def aggregate(self) -> list[PyTree]:
-        """Eq. 2 for every group at once over the round-ordered client stack."""
+        """Eq. 2 for every group at once over the round-ordered client stack
+        (the subsets' stacks concatenated back into round order)."""
+        if len(self.results) == 1:
+            self.stacked, self.gids, self.sizes, _ = self.results[0]
+        else:
+            inv = np.argsort(np.concatenate([r[3] for r in self.results]))
+            perm = torch.from_numpy(inv).to(self.runner.device)
+            self.stacked = tree_map(lambda *xs: torch.cat(xs)[perm],
+                                    *[r[0] for r in self.results])
+            self.gids = np.concatenate([r[1] for r in self.results])[inv]
+            self.sizes = np.concatenate([r[2] for r in self.results])[inv]
+        self.results = []
         self.stacked_globals = aggregate_groups(self.stacked, self.sizes, self.gids,
                                                 self.runner.cfg.K)
         self.new_globals = unstack_models(self.stacked_globals)
@@ -630,6 +736,12 @@ class _VectorizedRoundOps:
             teachers = state.ensemble.member_views()   # read before the next push
         return runner._distill_models(new_globals, teachers,
                                       stacked_students=self.stacked_globals)
+
+    def kd_teachers(self, new_globals) -> tuple[list, Optional[TeacherBank]]:
+        """As the sequential ops' (the client models: the round's stack)."""
+        if self.runner.cfg.ensemble_source == "clients":
+            return unstack_models(self.stacked), None
+        return self.state.ensemble.member_views(), self.state.ensemble
 
 
 def make_runner(preset: str, task: FedTask, device=None, **overrides) -> FederatedRunner:

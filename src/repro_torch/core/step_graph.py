@@ -40,11 +40,34 @@ counts the launches it runs on the card (``kernels.counted``).  The warm-up
 makes that counter before any capture.  ``captures`` counts the captures by
 program name: a steady state, where the shapes repeat, captures nothing (the
 counterpart of the reference's ``TraceGuard``, no steady-state compile).
+
+Sets, and what may share.  The programs of one ``StepGraphs`` set share one
+graph memory pool, one capture stream and the buffers ``shared`` hands out
+(a sequential client step and a KD step use one model-sized buffer).  That
+is safe only while they run one at a time, in the order they are called, on
+one stream.  So a set is the unit of that contract: a program that may be in
+flight while another runs belongs to another set, with its own pool, stream
+and buffers (``separate``).  Under ``overlap="async"`` the KD pipeline owns
+such a set; its whole KD goes onto a KD stream (a *lane*, ``on_lane``) and
+the set is *held* there (``hold``) until the resolve waits for it
+(``release``).  A program called on another lane while its set is held
+raises, naming both: a second program in flight on a shared pool or buffer
+is an error, never a race.  On the CPU a lane is a label and a hold a flag,
+so the CPU tests see the same error.
+
+A *paired program* (``pair``, for ``overlap="fused"``) runs one step of a
+program of one set and one step of a program of another as one CUDA graph
+captured with two branches: the first body on a side stream forked inside
+the capture, the second on the capture stream, joined at the end.  Each body
+keeps its own buffers; the pair has its own pool.  On the CPU a pair runs
+the two bodies in turn.
 """
 from __future__ import annotations
 
+import contextvars
 import os
 from collections import Counter
+from contextlib import contextmanager
 from types import SimpleNamespace
 from typing import Any, Callable
 
@@ -110,17 +133,70 @@ def clone_tensors(tree: PyTree) -> PyTree:
     return tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, tree)
 
 
+_cpu_lane: contextvars.ContextVar = contextvars.ContextVar("step_graph_cpu_lane",
+                                                             default=None)
+
+
+def current_lane(device):
+    """Where work issued now on ``device`` goes: the current stream on a
+    card; on the CPU the label ``on_lane`` set (``None`` outside it)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return torch.cuda.current_stream(dev)
+    return _cpu_lane.get()
+
+
+@contextmanager
+def on_lane(lane, device):
+    """Issue the block's work on ``lane``: a ``torch.cuda.Stream`` on a card
+    (its current stream for the block), a label on the CPU."""
+    if torch.device(device).type == "cuda":
+        with torch.cuda.stream(lane):
+            yield
+        return
+    token = _cpu_lane.set(lane)
+    try:
+        yield
+    finally:
+        _cpu_lane.reset(token)
+
+
+class _InFlight:
+    """A set's in-flight state, ``(lane, event)`` or ``None``: held by the
+    set and by each of its programs (the programs hold no reference to the
+    set itself, so that a set and its programs form no cycle, which would
+    keep their graph pools until the cyclic collector ran)."""
+    __slots__ = ("flight",)
+
+    def __init__(self):
+        self.flight = None
+
+
+def _check_lane(name: str, state: _InFlight, device) -> None:
+    """Raise if the set of ``state`` is in flight on a lane other than the
+    current one."""
+    held = state.flight
+    if held is not None and held[0] != current_lane(device):
+        raise RuntimeError(
+            f"step program {name!r}: its set (graph pool, stream and shared "
+            f"buffers) is in flight on lane {held[0]!r} and this call is on "
+            f"{current_lane(device)!r}; programs that may run at once need "
+            f"separate sets (StepGraphs.separate)")
+
+
 class StepProgram:
     """One step body over its static buffers ``buf``; calling it runs one
     step (see the module docstring)."""
 
     def __init__(self, name: str, body: Callable[[], None], buf: dict, device: torch.device,
-                 stream: torch.cuda.Stream | None, pool):
+                 stream: torch.cuda.Stream | None, pool, state: _InFlight):
         self.name, self.body, self.buf = name, body, buf
-        self.device, self.stream, self.pool = device, stream, pool
+        self.device, self.stream, self.pool, self.state = device, stream, pool, state
         self.graph: torch.cuda.CUDAGraph | None = None
+        self.dropped = False
 
     def __call__(self) -> None:
+        _check_lane(self.name, self.state, self.device)
         if self.device.type != "cuda":
             self.body()
         elif self.graph is None:
@@ -145,23 +221,85 @@ class StepProgram:
         captures[self.name] += 1
 
 
+class PairedProgram:
+    """One step of program ``a`` and one of program ``b``, of two sets, as
+    one program: on a card a CUDA graph with ``a``'s body on a side branch
+    and ``b``'s on the capture stream (see the module docstring)."""
+
+    def __init__(self, name: str, a: StepProgram, b: StepProgram, stream, side, pool):
+        if a.state is b.state:
+            raise RuntimeError(
+                f"paired program {name!r}: {a.name!r} and {b.name!r} are of one set "
+                f"(one graph pool and shared buffers); their branches would run at "
+                f"once, so they need separate sets (StepGraphs.separate)")
+        self.name, self.a, self.b = name, a, b
+        self.device, self.stream, self.side, self.pool = a.device, stream, side, pool
+        self.graph: torch.cuda.CUDAGraph | None = None
+
+    def __call__(self) -> None:
+        for prog in (self.a, self.b):
+            _check_lane(prog.name, prog.state, prog.device)
+        if self.device.type != "cuda":
+            self.a.body()
+            self.b.body()
+        elif self.graph is None:
+            self._capture()
+        else:
+            self.graph.replay()
+
+    def _branches(self, cap, side) -> None:
+        side.wait_stream(cap)                   # fork
+        with torch.cuda.stream(side):
+            self.a.body()
+        self.b.body()
+        cap.wait_stream(side)                   # join
+
+    def _capture(self) -> None:
+        dev, cap, side = self.device, self.stream, self.side
+        cur = torch.cuda.current_stream(dev)
+        cap.wait_stream(cur)
+        with torch.cuda.stream(cap):
+            self._branches(cap, side)           # the warm-up: a real step of each
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool, stream=cap):
+                self._branches(cap, side)
+        except Exception as e:
+            raise RuntimeError(f"paired program {self.name!r}: CUDA graph capture "
+                               f"failed: {e}") from e
+        cur.wait_stream(cap)
+        self.graph = graph
+        captures[self.name] += 1
+
+
+def _new_store():
+    return SimpleNamespace(programs={}, shared={}, pairs={}, stream=None, side=None,
+                           pool=None, state=_InFlight())
+
+
 class StepGraphs:
-    """The step programs of one runner or serve engine, cached by name and
-    the static shapes and dtypes of their inputs; on a card they share one
-    graph memory pool and one side stream.  ``mode`` and ``cpu_default``
-    are the owner's step-mode policy; ``with_mode`` gives another owner's
-    policy over the same programs, pool and buffers."""
+    """A set of step programs, of one runner, KD pipeline or serve engine,
+    cached by name and the static shapes and dtypes of their inputs; on a
+    card they share one graph memory pool and one capture stream and run
+    one at a time (the module docstring).  ``mode`` and ``cpu_default`` are
+    the owner's step-mode policy; ``with_mode`` gives another owner's policy
+    over the same set, ``separate`` over a set of its own."""
 
     def __init__(self, mode: str = "auto", cpu_default: str = "stepped"):
         if mode not in STEP_MODES:
             raise ValueError(f"step_mode={mode!r} not in {STEP_MODES}")
         self.mode, self.cpu_default = mode, cpu_default
-        self._store = SimpleNamespace(programs={}, shared={}, stream=None, pool=None)
+        self._store = _new_store()
 
     def with_mode(self, mode: str = "auto", cpu_default: str = "stepped") -> "StepGraphs":
         view = StepGraphs(mode, cpu_default)
         view._store = self._store
         return view
+
+    def separate(self, mode: str = "auto", cpu_default: str = "stepped") -> "StepGraphs":
+        """A set of its own (pool, stream, shared buffers) under this
+        policy: for programs that may be in flight beside this set's."""
+        return StepGraphs(mode, cpu_default)
 
     def scan(self, device) -> bool:
         """Whether a loop on ``device`` runs as step programs now."""
@@ -179,23 +317,80 @@ class StepGraphs:
         if prog is None:
             body, buf = build()
             dev = next(x.device for x in tree_leaves(buf) if isinstance(x, torch.Tensor))
+            self._card_resources(dev)
             st = self._store
-            if dev.type == "cuda" and st.stream is None:
-                st.stream, st.pool = torch.cuda.Stream(dev), torch.cuda.graph_pool_handle()
             prog = self.programs[(name, key)] = StepProgram(name, body, buf, dev, st.stream,
-                                                            st.pool)
+                                                            st.pool, st.state)
         return prog
+
+    def _card_resources(self, dev: torch.device) -> None:
+        st = self._store
+        if dev.type == "cuda" and st.stream is None:
+            st.stream, st.pool = torch.cuda.Stream(dev), torch.cuda.graph_pool_handle()
+
+    def pair(self, name: str, a: StepProgram, b: StepProgram) -> PairedProgram:
+        """The paired program of ``a`` (the side branch) and ``b``, cached in
+        this set, which holds neither: its pool is the pair's alone.  A pair
+        whose program its set has since dropped is dropped too."""
+        st = self._store
+        for k in [k for k, p in st.pairs.items() if p.a.dropped or p.b.dropped]:
+            del st.pairs[k]
+        key = (name, id(a), id(b))
+        prog = st.pairs.get(key)
+        if prog is None:
+            self._card_resources(a.device)
+            if a.device.type == "cuda" and st.side is None:
+                st.side = torch.cuda.Stream(a.device)
+            prog = st.pairs[key] = PairedProgram(name, a, b, st.stream, st.side, st.pool)
+        return prog
+
+    @property
+    def pairs(self) -> dict:
+        return self._store.pairs
 
     def shared(self, name: str, like: PyTree) -> PyTree:
         """A static buffer tree like ``like``, one per ``name`` and shapes,
-        handed to every program that asks: programs of one owner run one at
-        a time and each fills its inputs before it runs, so a sequential
-        client step and a KD step can share one model-sized buffer."""
+        handed to every program of the set that asks: they run one at a
+        time and each fills its inputs before it runs, so a sequential
+        client step and a KD step of one set can share one model-sized
+        buffer.  Programs that may be in flight at once are of separate
+        sets and never share one."""
         key = (name, shape_key(like))
         if key not in self._store.shared:
             self._store.shared[key] = static_like(like)
         return self._store.shared[key]
 
     def drop(self, prog: StepProgram) -> None:
+        prog.dropped = True
         for k in [k for k, p in self.programs.items() if p is prog]:
             del self.programs[k]
+
+    # ---- in flight on a lane -----------------------------------------
+    def hold(self, lane, device) -> None:
+        """The set is in flight on ``lane`` from now until ``release``: its
+        work was issued there and the issuer does not wait for it.  A
+        program of the set called on another lane meanwhile raises."""
+        state = self._store.state
+        if state.flight is not None:
+            raise RuntimeError(f"step program set already in flight on lane "
+                               f"{state.flight[0]!r}")
+        event = None
+        if torch.device(device).type == "cuda":
+            event = torch.cuda.Event()
+            event.record(lane)
+        state.flight = (lane, event)
+
+    def release(self, device) -> None:
+        """The current lane waits for the set's work (an event wait on a
+        card: no host sync) and the set is free again."""
+        state = self._store.state
+        if state.flight is None:
+            return
+        _, event = state.flight
+        if event is not None:
+            torch.cuda.current_stream(torch.device(device)).wait_event(event)
+        state.flight = None
+
+    @property
+    def in_flight(self) -> bool:
+        return self._store.state.flight is not None

@@ -38,6 +38,17 @@ One round's distillation phase:
   3. **Multi-student** — ``distill_all`` runs the K students one after the
      other over the same cache and the same step program (the reference
      vmaps them); the reported losses are the main model's.
+  4. **Overlapped rounds** — ``distill_async`` issues the whole phase (the
+     cache build and every step) on the pipeline's KD lane, a CUDA stream of
+     its own, with no host sync, and returns device tensors; its step
+     programs' set is then held on that lane (``core/step_graph.py``) until
+     ``join``, an event wait of the caller's stream, and ``losses_info``,
+     the one host pull.  Tensors cross the two streams under
+     ``record_stream``, so the caching allocator never hands one out while
+     the other stream may still read it.  On the CPU the lane is a label
+     and the phase runs at the call.  ``start_steps`` / ``finish_steps``
+     split the scan loop around its steps for the executor's paired
+     programs (``overlap="fused"``).
 
 Teacher trust weights and the sharded precompute arrive with later
 slices.
@@ -51,7 +62,8 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_lib
-from repro_torch.core.step_graph import StepGraphs, copy_into, shape_key, static_like
+from repro_torch.core.step_graph import (StepGraphs, StepProgram, copy_into, on_lane,
+                                         shape_key, static_like)
 from repro_torch.kernels.kd_loss import ops as kd_ops
 from repro_torch.optim.optimizers import apply_updates, sgd, value_and_grad
 from repro_torch.utils.pytree import (tree_cast, tree_leaves, tree_map, tree_stack,
@@ -119,6 +131,7 @@ class KDPipeline:
                        else StepGraphs(step_mode, "scan"))
         self._batches: PyTree | None = None
         self._batches_src: Sequence[Any] | None = None
+        self._lane = None
 
     # ------------------------------------------------- server batch cache
     def batches_for(self, server_batches: Sequence[Any]) -> PyTree:
@@ -286,7 +299,9 @@ class KDPipeline:
 
         return self.graphs.program("kd/step", key, build)
 
-    def _run_scan(self, student: PyTree, batches: PyTree, cache):
+    def _start_scan(self, student: PyTree, batches: PyTree, cache) -> StepProgram:
+        """The KD step program with the schedule's inputs loaded: its next
+        ``steps`` calls run the schedule."""
         prog = self._step_program(student, batches, cache)
         b = prog.buf
         copy_into(b["student"], student)
@@ -294,9 +309,20 @@ class KDPipeline:
         copy_into(b["batches"], batches)
         copy_into(b["cache"], cache)
         b["s"].zero_()
+        return prog
+
+    @staticmethod
+    def finish_steps(prog: StepProgram):
+        """The distilled student and the (steps,) losses of a schedule the
+        program ran, as copies."""
+        b = prog.buf
+        return tree_map(torch.clone, b["student"]), b["losses"].clone()
+
+    def _run_scan(self, student: PyTree, batches: PyTree, cache):
+        prog = self._start_scan(student, batches, cache)
         for _ in range(self.steps):
             prog()
-        return tree_map(torch.clone, b["student"]), b["losses"].clone()
+        return self.finish_steps(prog)
 
     # ------------------------------------------------------------- public
     def distill(self, student: PyTree, teachers: Sequence[PyTree],
@@ -317,6 +343,64 @@ class KDPipeline:
         cache = self._cache(students[0], teachers, batches)
         outs, losses = zip(*(self._run(st, batches, cache) for st in students))
         return tree_stack(list(outs)), self._info(torch.stack(losses))
+
+    # ------------------------------------------------------ overlapped KD
+    def scan_capable(self) -> bool:
+        """Whether the KD steps run as step programs on this device: the
+        form the overlap executor pairs with the engine's bucket steps."""
+        return self.graphs.scan(self.device)
+
+    def lane(self):
+        """The KD lane: a CUDA stream of the pipeline's own on a card, the
+        label ``"kd"`` on the CPU."""
+        if self._lane is None:
+            self._lane = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
+                          else "kd")
+        return self._lane
+
+    def distill_async(self, student: PyTree, teachers: Sequence[PyTree],
+                      server_batches: Sequence[Any]):
+        """Issue the whole single-student KD phase on the KD lane and return
+        the device tensors ``(student, losses)``: no host sync.  On a card
+        the lane first waits for the caller's stream (the student and the
+        ring are written there); the cache build, its kernel (2 or none) and
+        the ``steps`` replays go onto the lane; then the step programs' set
+        is held there until ``join``.  The student, the teachers and the
+        server batches are marked in use on the lane."""
+        dev, lane = self.device, self.lane()
+        batches = self.batches_for(server_batches)
+        if dev.type == "cuda":
+            lane.wait_stream(torch.cuda.current_stream(dev))
+            for x in tree_leaves((student, list(teachers), batches)):
+                x.record_stream(lane)
+        with on_lane(lane, dev):
+            out = self._run(student, batches, self._cache(student, teachers, batches))
+        self.graphs.hold(lane, dev)
+        return out
+
+    def join(self, dispatched):
+        """The caller's stream waits for the KD that ``distill_async`` issued
+        (an event wait, no host sync) and takes over its outputs."""
+        self.graphs.release(self.device)
+        if self.device.type == "cuda":
+            cur = torch.cuda.current_stream(self.device)
+            for x in tree_leaves(dispatched):
+                x.record_stream(cur)
+        return dispatched
+
+    def losses_info(self, losses: torch.Tensor) -> dict:
+        """The per-round KD record of ``distill_async``'s losses: the one
+        host pull, at resolve."""
+        return self._info(losses)
+
+    def start_steps(self, student: PyTree, teachers: Sequence[PyTree],
+                    server_batches: Sequence[Any]) -> StepProgram:
+        """Under scan: build the round's teacher cache into the KD step
+        program and load the schedule's inputs; the program's next ``steps``
+        calls (alone or paired) run the schedule, ``finish_steps`` reads it."""
+        batches = self.batches_for(server_batches)
+        cache = self._cache(student, teachers, batches)
+        return self._start_scan(student, batches, cache)
 
     def _info(self, losses: torch.Tensor) -> dict:
         """The per-round KD record: the one host pull of the phase."""

@@ -10,7 +10,10 @@ own main model and must not change the teacher it just pushed.
 that survive a later ``push``, as the reference's do;
 ``member_views`` lists the same members as views into the ring for the KD
 pipeline, which reads them before the next ``push``; ``members_stacked``
-gathers them into one ``(M, ...)`` copy.
+gathers them into one ``(M, ...)`` copy.  An overlapped round's pending KD
+job reads the views after its round has ended: it ``hold``s the ring until
+its resolve ``release``s it, and a ``push`` meanwhile raises instead of
+overwriting what the job still reads.
 Spilling evicted rounds to disk is not ported.
 """
 from __future__ import annotations
@@ -46,6 +49,7 @@ class TeacherBank:
         self._slot_rounds: list[int | None] = [None] * R
         self._cursor = 0
         self._degraded: dict[int, tuple] = {}
+        self._holds = 0
 
     def _store_dtype(self, leaf: torch.Tensor) -> torch.dtype:
         if self.dtype is not None and leaf.is_floating_point():
@@ -59,8 +63,13 @@ class TeacherBank:
 
         ``global_models``: a list of K trees, or one tree whose leaves carry
         the leading (K, ...) model axis.  ``degraded`` names the groups whose
-        model is a carry-forward this round.
+        model is a carry-forward this round.  Raises while a pending KD job
+        holds the ring's views (``hold``).
         """
+        if self._holds:
+            raise RuntimeError(
+                f"TeacherBank.push(round {round_idx}): a pending KD job still reads "
+                f"the ring through member_views(); resolve it before the push")
         if degraded:
             self._degraded[int(round_idx)] = tuple(sorted(int(k) for k in degraded))
         if isinstance(global_models, (list, tuple)):
@@ -114,6 +123,19 @@ class TeacherBank:
             return []
         return [tree_map(lambda b, s=s, k=k: b[s, k], self._bank)
                 for s in self._slots_newest_first() for k in range(self.K)]
+
+    def hold(self) -> None:
+        """A pending KD job reads ``member_views()`` until ``release``."""
+        self._holds += 1
+
+    def release(self) -> None:
+        if self._holds == 0:
+            raise RuntimeError("TeacherBank.release without a hold")
+        self._holds -= 1
+
+    @property
+    def held(self) -> bool:
+        return self._holds > 0
 
     @property
     def num_members(self) -> int:

@@ -9,13 +9,18 @@ architecture, on either client engine:
   PYTHONPATH=src python -m repro_torch.launch.train --model resnet56 --execution vectorized
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b --kd-kernel flash --kd-head-fusion
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --rounds 2
+  PYTHONPATH=src python -m repro_torch.launch.train --execution vectorized --overlap fused
+  PYTHONPATH=src python -m repro_torch.launch.train --kd-pipeline legacy
 
 The flags are the reference's, plus ``--device`` (default cuda; no GPU is
-an error, not a fallback).  A flag for what the port does not run yet
-raises ``NotImplementedError`` naming the slice that brings it: an
-``--arch`` outside the dense GQA families, the fault and checkpoint flags
-here, and the runner's own options (``--overlap`` and the rest) through
-``FedConfig``.
+an error, not a fallback).  ``--overlap async|fused`` defers each round's KD
+into the next round's k>0 training; a round's line then shows its accuracy
+and KD loss only once its KD has resolved, and the run ends with
+``runner.finalize``, which drains the last round's KD.  A flag for what the
+port does not run yet raises ``NotImplementedError`` naming the slice that
+brings it: an ``--arch`` outside the dense GQA families, the fault and
+checkpoint flags here, and the runner's own options (robust aggregation and
+the rest) through ``FedConfig``.
 """
 from __future__ import annotations
 
@@ -145,6 +150,8 @@ def main() -> None:
         if rec.get("kd_loss_last") is not None:
             msg += f" kd={rec['kd_loss_last']:.4f}"
         print(msg, flush=True)
+    # overlap modes defer the last round's KD: drain it, so that the final
+    # model is the overlap="off" one
     state = runner.finalize(state)
     print(f"done in {time.perf_counter() - t0:.1f}s")
     if args.out:

@@ -100,8 +100,7 @@ def test_value_errors_match_reference(kw):
 
 UNPORTED = [
     pytest.param(dict(execution="vectorized", client_sharding="shard_map"), id="execution"),
-    dict(client_sharding="shard_map"), dict(overlap="async"),
-    dict(overlap="fused"), dict(kd_pipeline="legacy"), dict(client_store="spilling"),
+    dict(client_sharding="shard_map"), dict(client_store="spilling"),
     dict(faults=FaultPlan()), dict(aggregator="median"), dict(clip_norm=1.0),
     dict(teacher_trust=True), dict(secure_aggregation=True),
     dict(ensemble_extra_sampled=3),
@@ -113,6 +112,17 @@ def test_unported_options_raise_not_implemented(kw):
     JaxFedConfig(**kw).validate()            # valid in the reference
     with pytest.raises(NotImplementedError, match="slice"):
         FedConfig(**kw).validate()
+
+
+@pytest.mark.parametrize("kw", [dict(overlap="async"), dict(overlap="fused"),
+                                dict(kd_pipeline="legacy"),
+                                dict(overlap="fused", execution="vectorized")],
+                         ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
+def test_overlap_and_legacy_options_validate(kw):
+    """Overlapped rounds and the legacy KD oracle run in the port (their
+    parity is in tests/test_torch_overlap.py and test_torch_distillation.py)."""
+    JaxFedConfig(**kw).validate()
+    FedConfig(**kw).validate()
 
 
 @pytest.mark.parametrize("kw", [

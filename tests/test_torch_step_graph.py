@@ -7,7 +7,10 @@ where there is a GPU and no JAX; they skip themselves where
 the JAX package is ``tests/test_torch_step_mode.py``'s.
 
 On the CPU: the buffer helpers; a program runs its body at every call and
-captures nothing; ``update_`` gives ``update``'s bits for SGD (with and
+captures nothing; a program called on another lane while its set is held
+in flight there raises (the planted misuse of a shared pool and buffer),
+and a paired program runs its two bodies in turn and refuses two programs
+of one set; ``update_`` gives ``update``'s bits for SGD (with and
 without momentum and weight decay), FedProx and SCAFFOLD; and the scan
 mode gives the stepped mode's bits for the vectorized engine (a padded
 multi-bucket round), the sequential runner, the KD pipeline and the serve
@@ -122,6 +125,71 @@ def test_shared_buffers_are_one_per_name_and_shapes():
     # another owner's policy over the same programs and buffers
     view = graphs.with_mode("scan", "stepped")
     assert view.shared("model", a) is buf and view.programs is graphs.programs
+    # a set of its own: its own programs and buffers
+    other = graphs.separate("scan", "scan")
+    assert other.shared("model", a) is not buf and other.programs is not graphs.programs
+
+
+def _model_programs(graphs, names):
+    """Programs ``names`` of ``graphs``, each adding its index to the set's
+    shared model-sized buffer (as the client and KD steps share one)."""
+    model = graphs.shared("model", {"w": torch.zeros(3)})
+    model["w"].zero_()                  # a static buffer starts uninitialised
+
+    def build(i):
+        return (lambda: model["w"].add_(i)), {"model": model}
+
+    return [graphs.program(n, (), lambda i=i: build(i)) for i, n in enumerate(names, 1)]
+
+
+def test_a_second_program_in_flight_on_a_shared_set_raises():
+    """The planted misuse: a set is held in flight on a lane (its work
+    issued there and not waited for), and a program of the same set, which
+    shares its pool and model buffer, is called on another lane."""
+    graphs = step_graph.StepGraphs()
+    kd, client = _model_programs(graphs, ["kd/step", "client/step"])
+    with step_graph.on_lane("kd", "cpu"):
+        kd()
+    graphs.hold("kd", "cpu")
+    assert graphs.in_flight
+    with pytest.raises(RuntimeError, match="'client/step'.*in flight on lane 'kd'"):
+        client()
+    with pytest.raises(RuntimeError, match="already in flight"):
+        graphs.hold("kd", "cpu")
+    with step_graph.on_lane("kd", "cpu"):
+        kd()                          # the holding lane goes on
+        assert step_graph.current_lane("cpu") == "kd"
+    assert step_graph.current_lane("cpu") is None
+    graphs.release("cpu")
+    client()
+    assert torch.equal(client.buf["model"]["w"], torch.full((3,), 4.0))
+    # programs of a separate set run beside a held one
+    other = graphs.separate()
+    (mine,) = _model_programs(other, ["client/step"])
+    graphs.hold("kd", "cpu")
+    mine()
+    graphs.release("cpu")
+
+
+def test_paired_program_runs_both_bodies_and_needs_two_sets():
+    graphs, pairs = step_graph.StepGraphs(), step_graph.StepGraphs()
+    (kd,) = _model_programs(graphs.separate(), ["kd/step"])
+    (bucket,) = _model_programs(graphs, ["engine/bucket"])
+    pair = pairs.pair("fused/kd+bucket", kd, bucket)
+    assert pairs.pair("fused/kd+bucket", kd, bucket) is pair
+    for _ in range(3):
+        pair()
+    assert torch.equal(kd.buf["model"]["w"], torch.full((3,), 3.0))
+    assert torch.equal(bucket.buf["model"]["w"], torch.full((3,), 3.0))
+    assert pair.graph is None and list(pairs.pairs.values()) == [pair]
+    (same,) = _model_programs(graphs, ["kd/step"])
+    with pytest.raises(RuntimeError, match="of one set"):
+        pairs.pair("fused/kd+bucket", same, bucket)
+    # a pair whose program its set dropped goes with it
+    graphs.drop(bucket)
+    (bucket2,) = _model_programs(graphs, ["engine/bucket2"])
+    pairs.pair("fused/kd+bucket", kd, bucket2)
+    assert [p.b for p in pairs.pairs.values()] == [bucket2]
 
 
 OPTIMIZERS = {

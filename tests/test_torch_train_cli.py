@@ -1,7 +1,9 @@
 """The port's training CLI, ``python -m repro_torch.launch.train``, on the
 CPU: a few clients, 2 rounds on each engine, the reference's per-round
-line (``[preset] round t/T acc=… kd=…``) and history file; a flag for what
-the port does not run yet raises ``NotImplementedError`` naming its slice.
+line (``[preset] round t/T acc=… kd=…``) and history file; ``--overlap``
+and ``--kd-pipeline legacy`` run to a drained, complete history; a flag for
+what the port does not run yet raises ``NotImplementedError`` naming its
+slice.
 """
 import json
 import re
@@ -16,6 +18,16 @@ from repro_torch.launch import train  # noqa: E402
 ROUND_LINE = re.compile(r"^\[fedsdd\] round (\d+)/2 acc=\d\.\d{4} kd=\d+\.\d{4}$")
 SMALL = ["--device", "cpu", "--model", "cnn", "--clients", "4", "--rounds", "2",
          "--local-epochs", "1", "--distill-steps", "3", "--K", "2", "--R", "2"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """These small CPU runs are faster on one thread, and much faster where
+    several test workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _main(monkeypatch, *argv):
@@ -66,9 +78,26 @@ def test_cli_lm_task_with_head_fused_flash_kd(monkeypatch, capsys, tmp_path):
     (["--arch", "deepseek-v2-lite-16b"], "own slice"),
     (["--dropout-rate", "0.1"], "robustness slice"),
     (["--ckpt-dir", "ckpts"], "robustness slice"),
-    (["--kd-pipeline", "legacy"], "its own slice"),
-    (["--overlap", "async"], "overlap slice"),
-], ids=["arch", "faults", "checkpoints", "legacy", "overlap"])
+    (["--aggregator", "median"], "robustness slice"),
+], ids=["arch", "faults", "checkpoints", "aggregator"])
 def test_cli_unported_flags_raise(flags, slice_, monkeypatch):
     with pytest.raises(NotImplementedError, match=slice_):
         _main(monkeypatch, *SMALL, *flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--overlap", "async", "--execution", "vectorized"], ["--kd-pipeline", "legacy"]],
+    ids=["async", "legacy"])
+def test_cli_overlap_and_legacy_run(flags, monkeypatch, capsys, tmp_path):
+    """``--overlap`` and the legacy KD oracle run; the run ends with the
+    drain, so every record is complete (the runner's parity with the
+    off-mode run is tests/test_torch_overlap.py's and
+    test_torch_distillation.py's)."""
+    out = tmp_path / "history.json"
+    _main(monkeypatch, *SMALL, *flags, "--out", str(out))
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[-1].startswith("done in ")
+    history = json.loads(out.read_text())
+    assert [rec["round"] for rec in history] == [1, 2]
+    assert all({"acc_main", "kd_loss_last", "kd_steps", "t_round"} <= rec.keys()
+               for rec in history)
