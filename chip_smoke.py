@@ -172,7 +172,27 @@ Phases, each of which fails the run if it fails:
                Table 5's metric on phase 18's sequential off run after 3
                rounds: the K*R = 8 teacher ensemble's accuracy on the task's
                test set (ensemble_eval_fn), beside the main model's
- 20. kernels   one JSON line per the port's kernel contract; kernel 12's
+ 20. robust    seeded faults (FaultPlan: dropout 0.2, stragglers 0.3,
+               corruption 0.1, sign-flip attacks 0.15 at scale 10, spill
+               failures 0.5), aggregator="trimmed_mean", clip_norm=2.0,
+               teacher_trust, the spilling store, cuDNN deterministic:
+               (a) phase 10's CNN, 3 rounds on each engine from the same
+               weights: fault fields equal across engines and to the host's
+               own draws, models within 2e-4, no capture in rounds 2-3, I/O
+               retries fired, a vectorized save_state's npz within 1% (plus
+               4 KB) of its leaves' bytes; (b) phase 8's ResNet-56
+               configuration, sequential, 2 rounds: trust weights summing to
+               1, kernel 2 over the weighted M = 1 stack against its plain
+               version (the KD tolerance), launches 2 / 400 / 400, the last
+               round's robust Eq. 2 on the card against the port's CPU run of
+               the same stacked updates (rtol 1e-6, atol 1e-7), Krum's score
+               gap printed; (c) kill and restart: sequential overlap="async",
+               SCAFFOLD, the spilling store, the ring in bf16; 3 rounds
+               uninterrupted against 2 rounds, save_state with the KD job in
+               flight, a fresh runner restored, round 3 and the drain: models
+               and c_global bit for bit; save and restore seconds, the
+               checkpoint's and the pending spill's bytes
+ 21. kernels   one JSON line per the port's kernel contract; kernel 12's
                entry is its bf16 row at qwen2.5-14b's width (the configs'
                dtype), with the f32 row beside it under "f32"; kernel 1's
                also gives "starcoder2_ms", its times in the two starcoder2-3b
@@ -183,7 +203,7 @@ Phases, each of which fails the run if it fails:
                over the leaves flattened ("flat_library_ms") and the same
                inputs one launch a leaf ("before_loop_ms"); every entry's
                "host_ms" is its wrapper's host time a call
- 21. ok        {"ok": true, "device": {...}} as the last line
+ 22. ok        {"ok": true, "device": {...}} as the last line
 
 Tolerances, paged_decode: f32 kernel vs plain at rtol = atol = 1e-5 (only
 the order of summation differs).  bf16 per (request, query head) row: the row's max
@@ -2736,6 +2756,281 @@ def legacy_phase(fed, task, seed: int, card: str, runner3, state3) -> None:
           f"Table 5 ensemble: accuracy {ens_acc}, {state3.ensemble.num_members} teachers")
 
 
+# ---------------------------------------------------------------- phase 20
+ROBUST_PLAN = dict(seed=0, dropout=0.2, straggler=0.3, corrupt=0.1, attack="sign_flip",
+                   attack_rate=0.15, attack_scale=10.0, spill_fail=0.5)
+ROBUST_RUN = dict(aggregator="trimmed_mean", clip_norm=2.0, teacher_trust=True,
+                  client_store="spilling")
+ROBUST_RTOL, ROBUST_ATOL = 1e-6, 1e-7    # the card's robust Eq. 2 against the CPU's
+FAULT_KEYS = ("survivors", "dropped", "stragglers", "rejected", "attacked", "degraded_groups")
+
+
+def _fault_trace(state) -> list:
+    return [{k: r.get(k) for k in FAULT_KEYS} for r in state.history]
+
+
+@contextmanager
+def io_attempts():
+    """The block's fedckpt I/O attempts (a list of attempt numbers): the
+    installed injector, counted; the hook is cleared afterwards."""
+    from repro_torch.fedckpt import checkpointer as fedckpt
+    inner, seen = fedckpt._io_fault_injector, []
+
+    def counting(path, attempt):
+        seen.append(attempt)
+        if inner is not None:
+            inner(path, attempt)
+
+    fedckpt.set_io_fault_injector(counting)
+    try:
+        yield seen
+    finally:
+        fedckpt.set_io_fault_injector(None)
+
+
+def robust_cnn_part(fed, seed: int, tmp: str) -> dict:
+    """(a) Phase 10's CNN, 3 faulted rounds on each engine from the same
+    weights: the fault fields against each other and against the host's
+    own draws, the models within 2e-4, no capture in rounds 2-3, the I/O
+    retries, and a vectorized save_state's bytes against its leaves'."""
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.core.tasks import classification_task
+    from repro_torch.fedckpt.checkpointer import Checkpointer
+    from repro_torch.utils.pytree import tree_map
+    task = classification_task(model="cnn", num_clients=8, seed=seed, device=DEV)
+    plan = FaultPlan(**ROBUST_PLAN)
+    init = fed.make_runner("fedsdd", task, device=DEV, seed=seed,
+                           **CNN_RUN).init_state().global_models
+    runs = {}
+    for execution in ("sequential", "vectorized"):
+        runner = fed.make_runner("fedsdd", task, device=DEV, seed=seed, execution=execution,
+                                 faults=plan, client_store_dir=os.path.join(tmp, execution),
+                                 **ROBUST_RUN, **CNN_RUN)
+        with io_attempts() as attempts:
+            state = fed.FedState(round=0, global_models=[tree_map(torch.clone, m) for m in init],
+                                 ensemble=fed.TeacherBank(4, 2))
+            caps = []
+            for _ in range(OVERLAP_ROUNDS):
+                c0 = captured()
+                state = runner.run_round(state)
+                caps.append(captured() - c0)
+            state = runner.finalize(state)
+            ck = Checkpointer(os.path.join(tmp, f"ckpt_{execution}"), prefix="state")
+            path = runner.save_state(ck, state)
+        torch.cuda.synchronize()
+        tree_bytes = (sum(x.numel() * 4 for m in state.global_models for x in _leaves(m))
+                      + sum(x.numel() * 4 for x in _leaves(state.ensemble.export_state()[0])))
+        runs[execution] = {"state": state, "captures": caps, "retries": attempts.count(1),
+                           "attempts": len(attempts), "npz_bytes": os.path.getsize(path),
+                           "leaf_bytes": tree_bytes}
+        del runner
+    seq, vec = runs["sequential"]["state"], runs["vectorized"]["state"]
+    host = []
+    for t in range(1, OVERLAP_ROUNDS + 1):       # participation 1: every client sampled
+        draws = {c: plan.client_faults(t, c) for c in range(CNN_RUN["num_clients"])}
+        host.append({"dropped": sorted(c for c, d in draws.items() if d[0]),
+                     "attacked": sorted(c for c, d in draws.items() if d[3]),
+                     "straggled": sorted(c for c, d in draws.items() if d[1])})
+    errs = [_tree_err(a, b) for a, b in zip(seq.global_models, vec.global_models)]
+    v = runs["vectorized"]
+    out = {"trace": _fault_trace(seq), "models_max_abs_err": errs, "tol": ROUND_TOL,
+           **{f"{e}_{k}": runs[e][k] for e in runs
+              for k in ("captures", "retries", "attempts", "npz_bytes", "leaf_bytes")},
+           "teacher_trust": [r.get("teacher_trust") for r in seq.history]}
+    check(_fault_trace(seq) == _fault_trace(vec),
+          f"robust CNN: fault traces differ across engines {_fault_trace(seq)} {_fault_trace(vec)}")
+    for rec, h in zip(_fault_trace(seq), host):
+        check(rec["dropped"] == h["dropped"] and rec["attacked"] == h["attacked"]
+              and set(rec["stragglers"]) <= set(h["straggled"]),
+              f"robust CNN: trace {rec} is not the host's draws {h}")
+    check(any(r["dropped"] or r["rejected"] or r["attacked"] for r in _fault_trace(seq)),
+          f"robust CNN: no fault fired {_fault_trace(seq)}")
+    check(max(errs) <= ROUND_TOL, f"robust CNN: engines' models {errs} apart (tol {ROUND_TOL})")
+    for e, r in runs.items():
+        check(not any(r["captures"][1:]), f"robust CNN {e}: rounds 2-3 captured {r['captures']}")
+        check(r["retries"] > 0, f"robust CNN {e}: no I/O retry fired ({r['attempts']} attempts)")
+    check(v["leaf_bytes"] <= v["npz_bytes"] <= 1.01 * v["leaf_bytes"] + 4096,
+          f"robust CNN: vectorized save_state wrote {v['npz_bytes']} bytes for "
+          f"{v['leaf_bytes']} of leaves")
+    return out
+
+
+def robust_resnet56_part(fed, kd_ops, kd_ref, task, seed: int, tmp: str) -> dict:
+    """(b) Phase 8's ResNet-56 configuration, sequential, faulted, with the
+    trimmed mean, clipping, trust-weighted teachers and the spilling store,
+    2 rounds: the trust weights, kernel 2 over the weighted M = 1 stack
+    against its plain version, the card's robust Eq. 2 against the port's
+    CPU run of the same stacked updates, and Krum's score gap."""
+    from repro_torch.core import robust_agg as ra
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.utils.pytree import tree_map
+    calls = []
+    real = fed.robust_aggregate_grouped
+
+    def recording(stacked, sizes, gids, K, **kw):
+        agg, deg = real(stacked, sizes, gids, K, **kw)
+        calls.append((stacked, sizes, gids, K, kw, agg, deg))
+        return agg, deg
+
+    runner = fed.make_runner("fedsdd", task, device=DEV, seed=seed, faults=FaultPlan(**ROBUST_PLAN),
+                             client_store_dir=os.path.join(tmp, "r56"), **ROBUST_RUN,
+                             **RESNET56_RUN)
+    fed.robust_aggregate_grouped = recording
+    try:
+        with io_attempts(), card_launches() as ran:
+            t0 = time.perf_counter()
+            state = runner.run(2)
+            torch.cuda.synchronize()
+            t_run = time.perf_counter() - t0
+    finally:
+        fed.robust_aggregate_grouped = real
+    trust = [r["teacher_trust"] for r in state.history]
+    # kernel 2 over the round's weighted M = 1 stack, against its plain version
+    pipe = runner._kd_pipeline()
+    teachers = state.ensemble.member_views()
+    w = runner._teacher_trust_weights(state, teachers)
+    batches = pipe.batches_for(task.server_batches)
+    wsum = pipe.precompute_weighted_logits(teachers, batches, w)
+    V = wsum.shape[-1]
+    probs = kd_ops.ensemble_softmax_many(wsum[None], pipe.temperature)
+    plain = kd_ref.ensemble_softmax_ref(wsum.reshape(1, -1, V), pipe.temperature)
+    m1_ok = rows_within(probs.reshape(-1, V), plain, KD_F32_ROW_TOL)
+    m1_err = float((probs.reshape(-1, V) - plain).abs().max())
+    # the last round's robust Eq. 2 on the card against the CPU's
+    stacked, sizes, gids, K, kw, agg, deg = calls[-1]
+    def cpu(tree):
+        return tree_map(lambda t: t.detach().cpu(), tree)
+
+    agg_cpu, deg_cpu = ra.robust_aggregate_grouped(
+        cpu(stacked), sizes, gids, K, **{**kw, "fallback_stacked": cpu(kw["fallback_stacked"])})
+    rel = max(float(((a.cpu() - b).abs() / (b.abs() + ROBUST_ATOL / ROBUST_RTOL)).max())
+              for a, b in zip(_leaves(agg), _leaves(agg_cpu)))
+    agg_ok = deg == deg_cpu and all(
+        torch.allclose(a.cpu(), b, rtol=ROBUST_RTOL, atol=ROBUST_ATOL)
+        for a, b in zip(_leaves(agg), _leaves(agg_cpu)))
+    # Krum's scores over the round's survivors taken as one group (a group
+    # of this configuration has 2 clients, where Krum's scores tie): the gap
+    # between the two best, beside the attacked rows
+    mask = kw["survivor_mask"]
+    rows = torch.from_numpy(np.nonzero(mask)[0]).to(DEV)
+    sub = tree_map(lambda x: x.index_select(0, rows), stacked)
+    f = ra._byzantine_f(runner.cfg.trim_frac, len(rows))
+    scores = ra.krum_scores(ra._flatten_rows(sub), f)
+    scores_cpu = ra.krum_scores(ra._flatten_rows(cpu(sub)), f)
+    srt = torch.sort(scores).values.tolist()
+    out = {"t_run_s": t_run, "rounds": [{k: r.get(k) for k in ("t_local", "t_kd", "t_round")}
+                                        for r in state.history],
+           "trace": _fault_trace(state), "teacher_trust": trust,
+           "launches": dict(ran), "weighted_m1_max_abs_err": m1_err,
+           "weighted_m1_rows": int(probs.numel() // V), "robust_eq2_max_rel_err": rel,
+           "robust_eq2_rtol": ROBUST_RTOL, "robust_eq2_atol": ROBUST_ATOL,
+           "krum_survivors": len(rows), "krum_scores_sorted": srt,
+           "krum_gap": (srt[1] - srt[0]) if len(srt) > 1 else None,
+           "krum_argmin_card": int(torch.argmin(scores)),
+           "krum_argmin_cpu": int(torch.argmin(scores_cpu))}
+    steps = RESNET56_RUN["distill_steps"]
+    check(all(abs(sum(t) - 1.0) < 1e-3 for t in trust), f"robust ResNet-56: trust weights {trust}")
+    check(m1_ok, f"robust ResNet-56: kernel 2 over the weighted M = 1 stack {m1_err} from plain")
+    check(ran.get("ensemble_softmax") == 2 and ran.get("kd_loss_fwd") == 2 * steps
+          and ran.get("kd_loss_bwd") == 2 * steps, f"robust ResNet-56: launches {dict(ran)}")
+    check(agg_ok, f"robust ResNet-56: card's robust Eq. 2 vs the CPU's: rel {rel}, "
+          f"degraded {deg} / {deg_cpu}")
+    return out
+
+
+def kill_restart_part(fed, task, seed: int, tmp: str) -> dict:
+    """(c) ResNet-56, sequential, overlap="async", SCAFFOLD, the spilling
+    store, the ring in bf16, cuDNN deterministic: 3 rounds uninterrupted
+    against 2 rounds, save_state with the round-2 KD job dispatched on the
+    KD stream, the runner dropped, a fresh runner restored, round 3 and the
+    drain.  Models and c_global bit for bit."""
+    from repro_torch.fedckpt.checkpointer import Checkpointer
+    cfg = dict(RESNET56_RUN, overlap="async", local_algo="scaffold", client_store="spilling",
+               teacher_dtype="bfloat16", seed=seed)
+    whole = fed.make_runner("fedsdd", task, device=DEV,
+                            client_store_dir=os.path.join(tmp, "store_a"), **cfg)
+    sa = whole.init_state()
+    for _ in range(3):
+        sa = whole.run_round(sa)
+    sa = whole.finalize(sa)
+    torch.cuda.synchronize()
+    del whole
+    ckpt_dir = os.path.join(tmp, "ckpt")
+    rb = fed.make_runner("fedsdd", task, device=DEV, client_store_dir=os.path.join(tmp, "store_b"),
+                         **cfg)
+    sb = rb.init_state()
+    for _ in range(2):
+        sb = rb.run_round(sb)
+    in_flight = sb.pending_kd is not None and sb.pending_kd.dispatched is not None
+    t0 = time.perf_counter()
+    path = rb.save_state(Checkpointer(ckpt_dir, prefix="state"), sb)
+    t_save = time.perf_counter() - t0
+    # the "killed" process's KD still drains (no graph may go while the
+    # card replays it); nothing of it reaches the checkpoint directory
+    rb.finalize(sb)
+    torch.cuda.synchronize()
+    del rb, sb
+    gc.collect()
+    rc = fed.make_runner("fedsdd", task, device=DEV, client_store_dir=os.path.join(tmp, "store_b"),
+                         **cfg)
+    t0 = time.perf_counter()
+    sc = rc.restore_state(Checkpointer(ckpt_dir, prefix="state"))
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    restored_round, restored_pending = sc.round, sc.pending_kd is not None
+    sc = rc.finalize(rc.run_round(sc))
+    torch.cuda.synchronize()
+    pend = os.path.join(ckpt_dir, "pending_kd_r00002.npz")
+    errs = [_tree_err(a, b) for a, b in zip(sa.global_models, sc.global_models)]
+    c_err = _tree_err(sa.scaffold_c_global, sc.scaffold_c_global)
+    same = (all(torch.equal(x, y) for a, b in zip(sa.global_models, sc.global_models)
+                for x, y in zip(_leaves(a), _leaves(b)))
+            and all(torch.equal(x, y) for x, y in zip(_leaves(sa.scaffold_c_global),
+                                                      _leaves(sc.scaffold_c_global))))
+    out = {"in_flight_at_save": in_flight, "t_save_s": t_save, "t_restore_s": t_restore,
+           "checkpoint_bytes": os.path.getsize(path),
+           "pending_spill_bytes": os.path.getsize(pend) if os.path.exists(pend) else None,
+           "restored_round": restored_round, "models_max_abs_err": errs,
+           "c_global_max_abs_err": c_err, "bit_identical": same,
+           "kd_loss_last": [r.get("kd_loss_last") for r in sc.history],
+           "kd_loss_last_uninterrupted": [r.get("kd_loss_last") for r in sa.history]}
+    check(in_flight and restored_round == 2 and restored_pending,
+          f"kill and restart: in flight {in_flight}, restored round {restored_round}, "
+          f"pending {restored_pending}")
+    check(same, f"kill and restart: models {errs}, c_global {c_err} from the uninterrupted run")
+    return out
+
+
+def robust_phase(fed, kd_ops, kd_ref, task, seed: int, card: str) -> dict:
+    """Phase 20: seeded faults, Byzantine-robust Eq. 2, trust-weighted
+    teachers, the spilling store and kill-and-restart (parts a-c above);
+    the kernels' launches counted over the phase."""
+    import tempfile
+    from repro_torch import kernels
+    line = {"phase": "robustness and checkpoints", "card": card, "plan": ROBUST_PLAN,
+            **ROBUST_RUN, "cudnn_deterministic": True}
+    kernels.reset()
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-robust-") as tmp, \
+                card_launches() as ran:
+            t0 = time.perf_counter()
+            line["cnn"] = robust_cnn_part(fed, seed, tmp)
+            t1 = time.perf_counter()
+            line["resnet56"] = robust_resnet56_part(fed, kd_ops, kd_ref, task, seed, tmp)
+            t2 = time.perf_counter()
+            line["kill_restart"] = kill_restart_part(fed, task, seed, tmp)
+            line["seconds"] = {"cnn": t1 - t0, "resnet56": t2 - t1,
+                               "kill_restart": time.perf_counter() - t2}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    line["launches"] = dict(ran)
+    print(json.dumps(line), flush=True)
+    check(all(ran.get(n, 0) > 0 for n in ("ensemble_softmax", "kd_loss_fwd", "kd_loss_bwd")),
+          f"robust phase: a kernel of its path did not run: {dict(ran)}")
+    return dict(ran)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2861,9 +3156,13 @@ def main() -> int:
 
     phase("19. ResNet-56 FedSDD round: legacy KD oracle vs fused; Table 5 ensemble accuracy")
     legacy_phase(fed, r56, args.seed, card, runner3, state3)
-    del r56, runner3, state3
+    del runner3, state3
 
-    phase("20. kernels")
+    phase("20. robustness: faults, robust Eq. 2, trust-weighted teachers, kill and restart")
+    robust_phase(fed, kd_ops, kd_ref, r56, args.seed, card)
+    del r56
+
+    phase("21. kernels")
     print(f"total {time.perf_counter() - T_START:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [entry, *kd_entries, wa_entry, single_entry,

@@ -6,9 +6,12 @@ The sequential engine averages a list of client models
 over its client-stacked tree (``fedavg_aggregate_grouped``): uniform,
 group-major groups on a CUDA device go through the ``weight_avg`` kernel
 (``multi_weighted_average``); anything else through the segment reduction
-``tree_group_weighted_mean``, as the reference routes them.  Survivor
-masks belong to the robustness slice; secure aggregation's masks are drawn
-with ``jax.random`` and are not ported.
+``tree_group_weighted_mean``, as the reference routes them.  Under
+faults, ``fedavg_aggregate_grouped_masked`` restricts Eq. 2 to the
+surviving clients (``survivor_group_weights``); a round whose clients all
+survive short-circuits to ``fedavg_aggregate_grouped``, kernel 5 on a
+card.  Secure aggregation's masks are drawn with ``jax.random`` and are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -66,3 +69,61 @@ def fedavg_aggregate_grouped(stacked: PyTree, num_samples, group_ids,
                              stacked)
         return wops.group_weighted_average_pytree(regrouped, w)
     return tree_group_weighted_mean(stacked, num_samples, gid, num_groups)
+
+
+def survivor_group_weights(num_samples, group_ids, num_groups: int,
+                           survivor_mask) -> tuple:
+    """(masked per-client weights, per-group live weight, empty groups):
+    non-survivors weigh zero, and a group whose surviving weight is zero is
+    ``empty`` (its aggregate comes from the carry-forward fallback).
+    Shared by the masked Eq. 2 and the robust statistics."""
+    mask = np.asarray(survivor_mask, bool)  # lint-ok: RA101 host fault mask
+    gid = np.asarray(group_ids)             # lint-ok: RA101 host group map
+    w_full = np.asarray(num_samples, np.float64)  # lint-ok: RA101 host counts
+    w = np.where(mask, w_full, 0.0)
+    live_w = np.bincount(gid, weights=w, minlength=num_groups)
+    empty = [k for k in range(num_groups) if live_w[k] == 0.0]
+    return w, live_w, empty
+
+
+def fedavg_aggregate_grouped_masked(
+        stacked: PyTree, num_samples, group_ids, num_groups: int,
+        survivor_mask, fallback_stacked: PyTree,
+        zero_fill: bool = False) -> tuple[PyTree, list[int]]:
+    """Eq. 2 under partial participation; returns (aggregate, degraded).
+
+    Non-survivors weigh zero and each group renormalises over its surviving
+    weight (``zero_fill=True``, the ablation, keeps the whole group's
+    denominator, shrinking the aggregate by the lost fraction).  A group
+    with no survivor takes its row from ``fallback_stacked`` (the (K, ...)
+    previous globals) and is reported in ``degraded``.  An all-True mask
+    without zero_fill is ``fedavg_aggregate_grouped`` as it is, so a
+    fault-free round is bit-identical to a run with no faults.
+    """
+    mask = np.asarray(survivor_mask, bool)  # lint-ok: RA101 host fault mask
+    gid = np.asarray(group_ids)             # lint-ok: RA101 host group map
+    if mask.all() and not zero_fill:
+        return fedavg_aggregate_grouped(stacked, num_samples, gid, num_groups), []
+    w_full = np.asarray(num_samples, np.float64)  # lint-ok: RA101 host counts
+    w, live_w, empty = survivor_group_weights(num_samples, gid, num_groups, mask)
+    # a zero weight does not silence a poisoned row (0·NaN = NaN, summed
+    # into its group): dead rows are zeroed outright
+    dev = tree_leaves(stacked)[0].device
+    maskt = torch.from_numpy(mask).to(dev)
+    stacked = tree_map(
+        lambda x: torch.where(maskt.reshape((-1,) + (1,) * (x.ndim - 1)), x,
+                              torch.zeros((), dtype=x.dtype, device=dev))
+        if x.is_floating_point() else x, stacked)
+    # an empty group's row divides 0/0 into NaN; the fallback overwrites it
+    agg = tree_group_weighted_mean(stacked, w, gid, num_groups)
+    if zero_fill:
+        total_w = np.bincount(gid, weights=w_full, minlength=num_groups)
+        frac = torch.from_numpy((live_w / np.maximum(total_w, 1e-300)).astype(np.float32)).to(dev)
+        agg = tree_map(
+            lambda x: x * frac.reshape((num_groups,) + (1,) * (x.ndim - 1)).to(x.dtype)
+            if x.is_floating_point() else x, agg)
+    if empty:
+        idx = torch.tensor(empty, dtype=torch.int64, device=dev)
+        agg = tree_map(lambda a, f: a.index_copy(0, idx, f.index_select(0, idx).to(a.dtype)),
+                       agg, fallback_stacked)
+    return agg, empty

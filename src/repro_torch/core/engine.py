@@ -85,6 +85,10 @@ class ClientEntry:
     n: int                    # dataset size |X_i|
     bs: int                   # local batch size min(client_batch, n)
     idx: np.ndarray           # (S_c, bs) int32 minibatch index rows
+    # fault injection (core/faults.py): a dropped client keeps a 1-step
+    # schedule, so bucket shapes stay those of a clean round, but weighs
+    # zero in Eq. 2 and never commits its controls
+    dropped: bool = False
 
 
 def _store_for(task, store):
@@ -117,7 +121,9 @@ def build_round_entries(task, cfg, groups: Sequence[np.ndarray],
 
 def entry_pad_hints(entries: Sequence[ClientEntry]) -> dict[int, tuple]:
     """Per-batch-size (S, n_pad) maxima over a whole round's entries: the
-    pad targets of the round's buckets."""
+    pad targets of the round's buckets.  Taken before the round's faults
+    truncate schedules, so a degraded round pads back up to a clean one's
+    shapes and replays its step programs."""
     hints: dict[int, tuple] = {}
     for e in entries:
         s, n = hints.get(e.bs, (0, 0))
@@ -386,8 +392,8 @@ class VectorizedClientEngine:
 
 def aggregate_groups(stacked_params: PyTree, sizes, group_ids,
                      num_groups: int) -> PyTree:
-    """Eq. 2 for every group at once over the client axis (the mean; the
-    robust statistics arrive with the robustness slice)."""
+    """Eq. 2 for every group at once over the client axis (the mean of a
+    round with no faults and no robust statistic)."""
     return fedavg_aggregate_grouped(stacked_params, sizes, group_ids, num_groups)
 
 

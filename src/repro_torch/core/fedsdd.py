@@ -17,9 +17,17 @@ baseline is a preset:
 reference.  ``overlap="async"|"fused"`` defers each round's KD into the next
 round's k>0 training (``core/round_plan.py``); ``kd_pipeline="legacy"`` runs
 the host-loop oracle (``core/distillation.py``) instead of the fused
-``KDPipeline``.  An option the reference takes but this port does not run
-yet raises ``NotImplementedError`` naming the slice that brings it,
-after the reference's own checks; nothing runs something else quietly.
+``KDPipeline``.  Robustness: ``faults`` (a ``core/faults.py`` ``FaultPlan``)
+drops, truncates, corrupts and attacks clients from a seed; Eq. 2 then runs
+over the survivors of the isfinite guard, or as a Byzantine-robust
+statistic (``aggregator``, ``clip_norm``: ``core/robust_agg.py``);
+``teacher_trust`` weights the KD teachers by their agreement; the
+spilling client store keeps O(sampled) clients resident; and
+``save_state`` / ``restore_state`` checkpoint the whole state, a pending KD
+job included, so that a killed run resumes bit for bit.  An option the
+reference takes but this port does not run yet raises
+``NotImplementedError`` naming the slice that brings it, after the
+reference's own checks; nothing runs something else quietly.
 
 Everything runs on one device, ``cuda`` unless the caller passes
 ``device="cpu"``: the task's tensors, the K global models, the teacher
@@ -29,6 +37,8 @@ runner does.
 """
 from __future__ import annotations
 
+import glob
+import os
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional, Sequence
 
@@ -37,24 +47,24 @@ import torch
 
 from repro_torch import device as device_lib
 from repro_torch.core import distillation, round_plan
-from repro_torch.core.aggregation import fedavg_aggregate
-from repro_torch.core.client_store import InMemoryStore, make_client_store
+from repro_torch.core import faults as faults_lib
+from repro_torch.core.aggregation import fedavg_aggregate, fedavg_aggregate_grouped_masked
+from repro_torch.core.client_store import ClientStore, make_client_store
 from repro_torch.core.engine import (VectorizedClientEngine, aggregate_groups,
                                      build_round_entries, entry_pad_hints,
                                      plan_from_entries, stack_models, unstack_models)
+from repro_torch.core.faults import FaultPlan
 from repro_torch.core.grouping import assign_groups, sample_clients
+from repro_torch.core.robust_agg import AGGREGATORS, robust_aggregate_grouped
 from repro_torch.core.step_graph import StepGraphs, copy_into, shape_key, static_like
 from repro_torch.distill import KDPipeline, TeacherBank
+from repro_torch.fedckpt import checkpointer as fedckpt
 from repro_torch.optim.optimizers import (Optimizer, advance_steps, apply_updates,
                                           scaffold_new_control, sgd, value_and_grad,
                                           with_fedprox, with_scaffold)
 from repro_torch.utils.pytree import tree_map, tree_stack, tree_zeros_like
 
 PyTree = Any
-
-# the reference's robust aggregators (repro/core/robust_agg.py); only the
-# weighted mean is ported
-AGGREGATORS = ("mean", "trimmed_mean", "median", "krum", "multi_krum")
 
 
 # =====================================================================
@@ -96,11 +106,15 @@ class FedConfig:
     client_store: str = "memory"    # memory (oracle) | spilling
     client_store_dir: Optional[str] = None
     client_cache_buckets: int = 64
-    faults: Optional[Any] = None    # the reference's FaultPlan
+    # seeded fault injection (core/faults.py): None is the clean world; a
+    # plan whose rates are all zero is bit-identical to None
+    faults: Optional[FaultPlan] = None
+    # Byzantine-robust Eq. 2 (core/robust_agg.py); clip_norm composes with
+    # every aggregator, the mean included
     aggregator: str = "mean"        # mean | trimmed_mean | median | krum | multi_krum
     trim_frac: float = 0.2
     clip_norm: Optional[float] = None
-    teacher_trust: bool = False
+    teacher_trust: bool = False     # trust-weighted KD teachers (fused pipeline)
     # misc
     secure_aggregation: bool = False
     seed: int = 0
@@ -212,7 +226,8 @@ class FedConfig:
                     f"FedConfig: {slice_}; this slice of the port runs the "
                     f"sequential and vectorized engines with the fused KD "
                     f"pipeline (dense or Flash-KD, overlapped or not) or the "
-                    f"legacy host loop")
+                    f"legacy host loop, with faults, robust aggregation, "
+                    f"trust-weighted teachers and either client store")
 
     def _unported(self):
         """(condition, what and which later slice brings it) for each valid
@@ -222,21 +237,13 @@ class FedConfig:
              "client_sharding='shard_map' (the client axis over several cards) "
              "arrives with the torch.distributed slice; on one card 'auto' and "
              "'vmap' run vmap"),
-            (self.client_store == "spilling",
-             "client_store='spilling' arrives with the robustness slice"),
-            (self.faults is not None,
-             "faults arrive with the robustness slice"),
-            (self.aggregator != "mean" or self.clip_norm is not None,
-             "robust aggregation (aggregator != 'mean', clip_norm) arrives "
-             "with the robustness slice"),
-            (self.teacher_trust,
-             "teacher_trust arrives with the robustness slice"),
             (self.secure_aggregation,
-             "secure_aggregation arrives with the robustness slice (its masks "
-             "are drawn with jax.random, which no port matches bit for bit)"),
+             "secure_aggregation arrives with the FedBE and secure-aggregation "
+             "slice (its masks are drawn with jax.random, which no port "
+             "matches bit for bit)"),
             (self.ensemble_extra_sampled > 0,
-             "ensemble_extra_sampled > 0 (FedBE) arrives with the robustness "
-             "slice (its posterior draws use jax.random)"),
+             "ensemble_extra_sampled > 0 (FedBE) arrives with the FedBE and "
+             "secure-aggregation slice (its posterior draws use jax.random)"),
         )
 
 
@@ -290,7 +297,7 @@ class FedState:
     round: int
     global_models: list[PyTree]          # index 0 = main global model
     ensemble: TeacherBank                # device-resident K·R teacher ring
-    store: Optional[InMemoryStore] = None
+    store: Optional[ClientStore] = None
     scaffold_c_global: Optional[PyTree] = None
     history: list[dict] = field(default_factory=list)
     # overlap modes: the deferred round-t KD job (resolved in round t+1,
@@ -324,6 +331,11 @@ class FederatedRunner:
         self.graphs = StepGraphs()
         if cfg.execution == "vectorized":
             self._make_engine()
+        if cfg.faults is not None and cfg.faults.spill_fail > 0:
+            # chaos I/O: every fedckpt write and read goes through the plan's
+            # first-attempt failures (a process-wide hook: the caller clears
+            # it with fedckpt.set_io_fault_injector(None))
+            fedckpt.set_io_fault_injector(cfg.faults.io_injector())
 
     # ---- init ----------------------------------------------------------
     def init_state(self) -> FedState:
@@ -385,7 +397,7 @@ class FederatedRunner:
 
         return self.graphs.program("client/step", key, build)
 
-    def _store(self, state: FedState) -> InMemoryStore:
+    def _store(self, state: FedState) -> ClientStore:
         """The state's client store; states built by hand (tests) get one
         lazily."""
         if state.store is None:
@@ -395,11 +407,15 @@ class FederatedRunner:
         return state.store
 
     def _local_train_scheduled(self, params: PyTree, client_id: int,
-                               state: FedState, idx_rows) -> PyTree:
+                               state: FedState, idx_rows,
+                               control_out: Optional[dict] = None) -> PyTree:
         """One client's local training over a pre-drawn minibatch schedule
         (one index row per step, from ``engine.build_round_entries``).
         ``params`` are the group's global tensors: every step is out of
-        place, so they stay as they were for the group's next client."""
+        place, so they stay as they were for the group's next client.
+        ``control_out``: where given, SCAFFOLD's new control is stashed there
+        instead of committed (a faulted round commits survivors' only, after
+        the isfinite guard)."""
         cfg = self.cfg
         store = self._store(state)
         ds = store.client_shard(client_id)
@@ -432,8 +448,11 @@ class FederatedRunner:
                 batch = self.task.make_batch(ds, row)
                 params, opt_state, _ = step(params, opt_state, batch)
         if cfg.local_algo == "scaffold":
-            store.put_control(client_id, scaffold_new_control(
-                opt_state, w_start, params, cfg.client_lr))
+            new_c = scaffold_new_control(opt_state, w_start, params, cfg.client_lr)
+            if control_out is None:
+                store.put_control(client_id, new_c)
+            else:
+                control_out[int(client_id)] = new_c
         return params
 
     # ---- vectorized engine ----------------------------------------------
@@ -462,9 +481,17 @@ class FederatedRunner:
         return self._kd_pipe
 
     def _teacher_trust_weights(self, state, teachers):
-        """The (M,) trust weights of the round's KD ensemble: ``None`` while
-        ``teacher_trust`` is not ported (``FedConfig`` refuses it)."""
-        return None
+        """The (M,) trust weights of the round's KD ensemble on the device,
+        or None with ``teacher_trust`` off: agreement on the probe batch
+        (``KDPipeline.trust_weights``) and the ring's degraded log, so that a
+        poisoned or carried-forward teacher weighs (down to exactly) zero in
+        Eq. 3's mean."""
+        if not self.cfg.teacher_trust or not teachers:
+            return None
+        degraded = (state.ensemble.degraded_mask_stacked()
+                    if self.cfg.ensemble_source == "aggregated" else None)
+        return self._kd_pipeline().trust_weights(teachers, self.task.server_batches,
+                                                 degraded_mask=degraded)
 
     def _executor(self) -> round_plan.RoundExecutor:
         if self._exec is None:
@@ -472,12 +499,14 @@ class FederatedRunner:
         return self._exec
 
     def _distill_models(self, new_globals: list[PyTree], teachers: list[PyTree], *,
-                        stacked_students: PyTree | None = None) -> dict:
+                        stacked_students: PyTree | None = None,
+                        teacher_weights=None) -> dict:
         """Distill the round's targets in place; returns the KD record.
         ``teachers``: the list of member trees; the pipeline reads one member
         at a time, so a list of views into the ring is never copied.
         ``stacked_students``: the (K, ...) stack of ``new_globals`` when the
-        caller has one (the vectorized engine)."""
+        caller has one (the vectorized engine).  ``teacher_weights``: the
+        (M,) trust weights (fused only, as ``FedConfig`` requires)."""
         cfg = self.cfg
         if cfg.kd_pipeline == "legacy":
             kd_info = {}
@@ -493,11 +522,15 @@ class FederatedRunner:
             if stacked_students is None:
                 stacked_students = tree_stack(new_globals)
             out, kd_info = pipe.distill_all(stacked_students, teachers,
-                                            self.task.server_batches)
+                                            self.task.server_batches,
+                                            teacher_weights=teacher_weights)
             new_globals[:] = unstack_models(out)
         else:
             new_globals[0], kd_info = pipe.distill(new_globals[0], teachers,
-                                                   self.task.server_batches)
+                                                   self.task.server_batches,
+                                                   teacher_weights=teacher_weights)
+        if teacher_weights is not None:
+            kd_info = {**kd_info, "teacher_trust": round_plan.trust_record(teacher_weights)}
         return kd_info
 
     # ---- one round (Algorithm 1) -----------------------------------------
@@ -520,15 +553,118 @@ class FederatedRunner:
         self._executor().close()
         return state
 
-    def spill_pending(self, state: FedState, directory: str):
-        raise NotImplementedError(
-            "spill_pending (a pending KD job through fedckpt) arrives with the "
-            "robustness slice (checkpoints)")
+    # ---- pending-KD spill and restore -----------------------------------
+    def spill_pending(self, state: FedState, directory: str) -> str | None:
+        """Persist the deferred KD job's inputs beside a checkpoint
+        (overlap modes; the job may still run on the KD stream and is not
+        waited for); the npz path, or None with no job pending."""
+        if state.pending_kd is None:
+            return None
+        return round_plan.spill_pending_kd(directory, state.pending_kd)
 
-    def restore_pending(self, state: FedState, path: str):
-        raise NotImplementedError(
-            "restore_pending (a pending KD job through fedckpt) arrives with the "
-            "robustness slice (checkpoints)")
+    def restore_pending(self, state: FedState, path: str) -> round_plan.PendingKD:
+        """Reload a spilled job into ``state``; the next resolve (or
+        ``finalize``) issues it again from its inputs, which gives the
+        drained result bit for bit.  Its record is the live history record
+        of its round where there is one, so the late KD fields land there."""
+        pending = round_plan.restore_pending_kd(path, state.global_models[0])
+        if state.history and state.history[-1].get("round") == pending.round_idx:
+            state.history[-1].update(pending.record)
+            pending.record = state.history[-1]
+        else:
+            state.history.append(pending.record)
+        state.pending_kd = pending
+        return pending
+
+    # ---- crash-safe full-state checkpoints --------------------------------
+    def save_state(self, ckpt: fedckpt.Checkpointer, state: FedState) -> str:
+        """One atomic full-state checkpoint at a round boundary: the K
+        global models, the teacher ring (with its slot map, cursor and
+        degraded log), SCAFFOLD's server control, the spilling store's
+        running control sum (as it is: a sum kept up step by step rounds
+        otherwise than one rebuilt from the files), the history, and a
+        pending KD job's inputs; the store's hot controls are flushed to its
+        directory.  ``restore_state`` then continues the run bit for bit
+        (SCAFFOLD's per-client controls need the spilling store over a
+        directory that outlives the process).  Nothing here waits for the
+        KD stream."""
+        store = self._store(state)
+        tree: dict = {"models": tree_stack(state.global_models)}
+        bank_tree, bank_meta = state.ensemble.export_state()
+        if bank_tree is not None:
+            tree["bank"] = bank_tree
+        if state.scaffold_c_global is not None:
+            tree["c_global"] = state.scaffold_c_global
+        if store.control_sum is not None:
+            tree["ctrl_sum"] = store.control_sum
+        store.flush()
+        pend_path = self.spill_pending(state, ckpt.dir)
+        # a resolved job's spill must not outlive it: a restore would run
+        # its KD again over a model that already took it
+        for p in sorted(glob.glob(os.path.join(ckpt.dir, "pending_kd_r*.npz"))):
+            if p != pend_path:
+                for q in (p, p.replace(".npz", ".json")):
+                    if os.path.exists(q):
+                        os.remove(q)
+        meta = {"round": int(state.round), "keys": sorted(tree), "bank": bank_meta,
+                "history": state.history,
+                "pending": os.path.basename(pend_path) if pend_path else None}
+        return ckpt.save(state.round, tree, meta=meta)
+
+    def _state_like(self, meta: dict) -> dict:
+        """The shapes and dtypes of one full-state checkpoint (its meta's
+        ``keys`` say which optional parts it has)."""
+        cfg = self.cfg
+        template = self.task.init_fn(torch.Generator(device=self.device).manual_seed(cfg.seed))
+        keys = set(meta.get("keys", ()))
+        like: dict = {"models": tree_map(
+            lambda x: torch.zeros((cfg.K,) + tuple(x.shape), dtype=x.dtype, device=x.device),
+            template)}
+        if "bank" in keys:
+            like["bank"] = TeacherBank(cfg.K, cfg.R, dtype=cfg.teacher_dtype).bank_like(template)
+        if "c_global" in keys:
+            like["c_global"] = tree_zeros_like(template)
+        if "ctrl_sum" in keys:
+            like["ctrl_sum"] = tree_map(lambda x: torch.zeros_like(x, dtype=torch.float32),
+                                        template)
+        return like
+
+    def restore_state(self, ckpt: fedckpt.Checkpointer) -> Optional[FedState]:
+        """A ``FedState`` from the newest loadable full-state checkpoint in
+        ``ckpt`` (a corrupt or truncated step is skipped, as
+        ``Checkpointer.restore_latest`` does), or None where there is none
+        (the caller then starts with ``init_state``)."""
+        cfg = self.cfg
+        for step in reversed(ckpt.steps()):
+            meta = ckpt.load_meta(step)
+            if meta is None or "keys" not in meta:
+                continue
+            try:
+                if not ckpt.verify(step):
+                    continue
+                tree = ckpt.restore(step, self._state_like(meta))
+            except Exception:
+                continue
+            state = FedState(round=int(meta["round"]),
+                             global_models=unstack_models(tree["models"]),
+                             ensemble=TeacherBank(cfg.K, cfg.R, dtype=cfg.teacher_dtype),
+                             store=make_client_store(cfg, self.task),
+                             history=[dict(r) for r in meta.get("history", [])])
+            state.ensemble.import_state(tree.get("bank"), meta["bank"])
+            if cfg.local_algo == "scaffold":
+                # init_controls takes in the directory's spilled controls;
+                # the checkpointed running sum then replaces the rebuilt one
+                state.store.init_controls(state.global_models[0])
+                state.scaffold_c_global = tree.get(
+                    "c_global", tree_zeros_like(state.global_models[0]))
+            if "ctrl_sum" in tree:
+                state.store.set_control_sum(tree["ctrl_sum"])
+            if meta.get("pending"):
+                p = os.path.join(ckpt.dir, meta["pending"])
+                if os.path.exists(p):
+                    self.restore_pending(state, p)
+            return state
+        return None
 
     def run(self, rounds: int | None = None, log_every: int = 0,
             state: FedState | None = None) -> FedState:
@@ -564,7 +700,10 @@ class _SequentialRoundOps:
     """The oracle per-client Python loop, split into executor phases.  The
     ``subset`` of ``train`` ("all", "rest" = groups k>0, "main" = group 0)
     walks the pre-drawn entries in group-major order, so the phase split
-    changes when clients train, never what they compute."""
+    changes when clients train, never what they compute.  Under a fault
+    plan a dropped client does not train, a straggler replays fewer steps
+    of the same step program, and SCAFFOLD's controls are stashed until the
+    isfinite guard has ruled on the uploads."""
 
     def __init__(self, runner, state, groups, rng, t):
         self.runner, self.state = runner, state
@@ -572,6 +711,14 @@ class _SequentialRoundOps:
         self.entries = build_round_entries(runner.task, runner.cfg, groups, rng,
                                            store=runner._store(state))
         self.models: list = [None] * len(self.entries)   # by round position
+        # None (the unmodified paths) or the round's trace, folded into the
+        # entries' schedules
+        self.faults = faults_lib.apply_round_faults(runner.cfg.faults, t, self.entries)
+        self.fault_info: dict = {}
+        self.degraded: list = []
+        self._surv = None
+        self._ctrl_out = ({} if self.faults is not None and runner.cfg.local_algo == "scaffold"
+                          else None)
 
     def fused_capable(self) -> bool:
         return False    # one client at a time: no bucket step to pair
@@ -584,51 +731,131 @@ class _SequentialRoundOps:
         return [e for e in self.entries if e.group == 0]
 
     def train(self, which: str = "all", run_buckets=None) -> None:
-        state = self.state
+        state, rf = self.state, self.faults
         for e in self._subset(which):
-            self.models[e.pos] = self.runner._local_train_scheduled(
-                state.global_models[e.group], e.cid, state, e.idx)
+            if e.dropped:
+                continue                        # a dropped client never reports
+            ref = state.global_models[e.group]
+            model = self.runner._local_train_scheduled(ref, e.cid, state, e.idx,
+                                                       control_out=self._ctrl_out)
+            if rf is not None and e.cid in rf.attacked:
+                model = faults_lib.attack_model(rf.plan, self.t, e.cid, model, ref)
+            if rf is not None and e.cid in rf.corrupt:
+                model = faults_lib.poison_model(model)
+            self.models[e.pos] = model
+
+    def _survivors(self) -> set:
+        """The reporting clients whose upload passes the isfinite guard (one
+        host read a client)."""
+        if self._surv is None:
+            surv, rejected = set(), []
+            for e in self.entries:
+                if e.dropped:
+                    continue
+                if faults_lib.all_finite(self.models[e.pos]):
+                    surv.add(e.cid)
+                else:
+                    rejected.append(e.cid)
+            self._surv, self._rejected = surv, rejected
+        return self._surv
 
     def finish_local(self) -> None:
+        state = self.state
         if self.runner.cfg.local_algo == "scaffold":
+            if self._ctrl_out is not None:
+                surv = self._survivors()
+                for e in self.entries:
+                    if e.cid in surv and e.cid in self._ctrl_out:
+                        state.store.put_control(e.cid, self._ctrl_out[e.cid])
             # server control: the running-average form, c = mean of client controls
-            self.state.scaffold_c_global = self.state.store.control_mean()
+            state.scaffold_c_global = state.store.control_mean()
 
     def aggregate(self) -> list[PyTree]:
-        """Per-group Eq. 1-2 over the trained client models.  Only FedDF's
-        client ensemble reads the client models after this, so otherwise
-        each group's are released as soon as it is averaged, and the round
-        holds at most one new global beside the clients still to average."""
+        """Per-group Eq. 1-2 over the trained client models (over the
+        survivors under faults: an emptied group carries its model
+        forward).  Only FedDF's client ensemble reads the client models
+        after this, so otherwise each group's are released as soon as it is
+        averaged, and the round holds at most one new global beside the
+        clients still to average."""
+        cfg, rf = self.runner.cfg, self.faults
+        if cfg.aggregator != "mean" or cfg.clip_norm is not None:
+            return self._aggregate_robust()
+        surv = self._survivors() if rf is not None else None
         new_globals: list[PyTree] = []
-        keep = self.runner.cfg.ensemble_source == "clients"
+        keep = cfg.ensemble_source == "clients"
         for k in range(len(self.groups)):
             ents = [e for e in self.entries if e.group == k]
-            new_globals.append(fedavg_aggregate([self.models[e.pos] for e in ents],
-                                                [e.n for e in ents]))
+            live = ents if surv is None else [e for e in ents if e.cid in surv]
+            if not live:
+                new_globals.append(self.state.global_models[k])
+                self.degraded.append(k)
+                continue
+            agg = fedavg_aggregate([self.models[e.pos] for e in live], [e.n for e in live])
+            if rf is not None and rf.plan.zero_fill:
+                frac = sum(e.n for e in live) / sum(e.n for e in ents)
+                agg = tree_map(lambda x: (x * frac).to(x.dtype)
+                               if x.is_floating_point() else x, agg)
+            new_globals.append(agg)
             if not keep:            # a group's client models go once it is averaged
                 for e in ents:
                     self.models[e.pos] = None
         if not keep:
             self.models = None
+        if rf is not None:
+            self.fault_info = faults_lib.fault_record(rf, surv, self._rejected, self.degraded)
         self.new_globals = new_globals
         return new_globals
 
+    def _aggregate_robust(self) -> list[PyTree]:
+        """Robust Eq. 2 through the vectorized engine's entry point: the
+        round's models stacked in round order (a dropped client's row the
+        group's model, under a False mask)."""
+        cfg, rf, state = self.runner.cfg, self.faults, self.state
+        surv = self._survivors() if rf is not None else None
+        mask = np.asarray([surv is None or (not e.dropped and e.cid in surv)
+                           for e in self.entries])
+        stacked = tree_stack([self.models[e.pos] if self.models[e.pos] is not None
+                              else state.global_models[e.group] for e in self.entries])
+        if cfg.ensemble_source != "clients":
+            self.models = None
+        agg, self.degraded = robust_aggregate_grouped(
+            stacked, [e.n for e in self.entries], np.asarray([e.group for e in self.entries]),
+            len(self.groups), aggregator=cfg.aggregator, trim_frac=cfg.trim_frac,
+            clip_norm=cfg.clip_norm, survivor_mask=mask,
+            fallback_stacked=tree_stack(state.global_models))
+        self.new_globals = unstack_models(agg)
+        if rf is not None:
+            self.fault_info = faults_lib.fault_record(rf, surv, self._rejected, self.degraded)
+        return self.new_globals
+
     def push(self, t: int, state) -> None:
-        state.ensemble.push(t, self.new_globals)
+        state.ensemble.push(t, self.new_globals, degraded=self.degraded)
+
+    def _client_teachers(self, new_globals) -> list:
+        """FedDF's teachers: the round's client models, under faults the
+        survivors' only (one NaN teacher would poison the ensemble), or the
+        carried-forward globals where none survived."""
+        if self.faults is None:
+            return list(self.models)
+        surv = self._survivors()
+        return [self.models[e.pos] for e in self.entries if e.cid in surv] or list(new_globals)
 
     def inline_kd(self, new_globals) -> dict:
         runner, state = self.runner, self.state
         if runner.cfg.ensemble_source == "clients":
-            return runner._distill_models(new_globals, list(self.models))
-        # the views are read before the next push
-        return runner._distill_models(new_globals, state.ensemble.member_views())
+            teachers = self._client_teachers(new_globals)
+        else:
+            teachers = state.ensemble.member_views()   # read before the next push
+        return runner._distill_models(new_globals, teachers,
+                                      teacher_weights=runner._teacher_trust_weights(state,
+                                                                                    teachers))
 
     def kd_teachers(self, new_globals) -> tuple[list, Optional[TeacherBank]]:
         """The deferred job's teachers and the ring they are views of (held
         until the resolve; the next push comes after it), or the client
         models and ``None``."""
         if self.runner.cfg.ensemble_source == "clients":
-            return list(self.models), None
+            return self._client_teachers(new_globals), None
         return self.state.ensemble.member_views(), self.state.ensemble
 
 
@@ -639,7 +866,10 @@ class _VectorizedRoundOps:
     trains each subset's buckets apart, padded to the round's pad targets so
     that the subsets' bucket programs keep their shapes across rounds; the
     subsets' stacks go back into round order before the one Eq. 2 launch,
-    which then sums in the order the undivided round does."""
+    which then sums in the order the undivided round does.  The pad targets
+    are taken before the round's faults truncate schedules, so a faulted
+    round replays a clean round's programs (a dropped client trains as a
+    wasted lane); attacks and corruption strike the trained stack's rows."""
 
     def __init__(self, runner, state, groups, rng, t):
         self.runner, self.state = runner, state
@@ -649,7 +879,11 @@ class _VectorizedRoundOps:
         self.entries = build_round_entries(runner.task, runner.cfg, groups, rng,
                                            store=self.store)
         self.pad_hints = entry_pad_hints(self.entries)
-        self.results: list = []     # (stacked, gids, sizes, orders) per trained subset
+        self.faults = faults_lib.apply_round_faults(runner.cfg.faults, t, self.entries)
+        self.fault_info: dict = {}
+        self.degraded: list = []
+        self._surv = None
+        self.results: list = []     # (stacked, gids, sizes, orders, cids) per trained subset
         self.buckets: list = []     # SCAFFOLD's bookkeeping across subsets
 
     def fused_capable(self) -> bool:
@@ -691,26 +925,59 @@ class _VectorizedRoundOps:
 
             stacked, gids, sizes, buckets = self.eng.train_round(
                 rplan, init_params_for, init_opt_state_for, run_buckets=run_buckets)
+        rf = self.faults
+        if rf is not None and rf.attacked:
+            # the sequential engine's attack arithmetic on this subset's rows
+            # (rows in `ents` order: the stack is in round order)
+            atk = [(i, e.cid, e.group) for i, e in enumerate(ents) if e.cid in rf.attacked]
+            stacked = faults_lib.attack_rows(rf.plan, self.t, stacked, atk,
+                                             state.global_models)
+        if rf is not None and rf.corrupt:
+            stacked = faults_lib.poison_rows(
+                stacked, [i for i, e in enumerate(ents) if e.cid in rf.corrupt])
         orders = np.sort(np.concatenate([p.order for p in rplan.plans]))
-        self.results.append((stacked, gids, sizes, orders))
+        cids = np.asarray([e.cid for e in ents])
+        self.results.append((stacked, gids, sizes, orders, cids))
         self.buckets.extend(buckets)
+
+    def _survivors(self) -> set:
+        """The sequential ops' contract: dropped clients out, then the
+        stacked isfinite guard (one (C,) host read a subset) on the rest."""
+        if self._surv is None:
+            surv, rejected = set(), []
+            for stacked, _, _, _, cids in self.results:
+                for c, ok in zip(cids, faults_lib.finite_rows(stacked)):
+                    c = int(c)
+                    if c in self.faults.dropped:
+                        continue
+                    if ok:
+                        surv.add(c)
+                    else:
+                        rejected.append(c)
+            self._surv, self._rejected = surv, sorted(rejected)
+        return self._surv
 
     def finish_local(self) -> None:
         state, cfg = self.state, self.runner.cfg
         if cfg.local_algo == "scaffold":
+            surv = self._survivors() if self.faults is not None else None
             for plan, p, s, w0 in self.buckets:
                 # each client's K is its count of real (unmasked) steps
                 new_c = scaffold_new_control(s._replace(steps=plan.step_mask.sum(1)),
                                              w0, p, cfg.client_lr)
                 for i, cid in enumerate(plan.cids):
+                    if surv is not None and int(cid) not in surv:
+                        continue    # dropped or rejected: its control never lands
                     self.store.put_control(int(cid), tree_map(lambda x, i=i: x[i], new_c))
             state.scaffold_c_global = self.store.control_mean()
 
     def aggregate(self) -> list[PyTree]:
         """Eq. 2 for every group at once over the round-ordered client stack
-        (the subsets' stacks concatenated back into round order)."""
+        (the subsets' stacks concatenated back into round order): the mean
+        (kernel 5 on a card), over the survivors under faults, or a robust
+        statistic."""
         if len(self.results) == 1:
-            self.stacked, self.gids, self.sizes, _ = self.results[0]
+            self.stacked, self.gids, self.sizes, _, cids = self.results[0]
         else:
             inv = np.argsort(np.concatenate([r[3] for r in self.results]))
             perm = torch.from_numpy(inv).to(self.runner.device)
@@ -718,29 +985,61 @@ class _VectorizedRoundOps:
                                     *[r[0] for r in self.results])
             self.gids = np.concatenate([r[1] for r in self.results])[inv]
             self.sizes = np.concatenate([r[2] for r in self.results])[inv]
+            cids = np.concatenate([r[4] for r in self.results])[inv]
+        self.cids_round = cids
+        rf, cfg = self.faults, self.runner.cfg
+        robust = cfg.aggregator != "mean" or cfg.clip_norm is not None
+        surv = self._survivors() if rf is not None else None
         self.results = []
-        self.stacked_globals = aggregate_groups(self.stacked, self.sizes, self.gids,
-                                                self.runner.cfg.K)
+        if rf is None and not robust:
+            self.stacked_globals = aggregate_groups(self.stacked, self.sizes, self.gids, cfg.K)
+        else:
+            mask = np.asarray([surv is None or int(c) in surv for c in cids])
+            fallback = stack_models(self.state.global_models)
+            if robust:
+                self.stacked_globals, self.degraded = robust_aggregate_grouped(
+                    self.stacked, self.sizes, self.gids, cfg.K, aggregator=cfg.aggregator,
+                    trim_frac=cfg.trim_frac, clip_norm=cfg.clip_norm, survivor_mask=mask,
+                    fallback_stacked=fallback)
+            else:
+                self.stacked_globals, self.degraded = fedavg_aggregate_grouped_masked(
+                    self.stacked, self.sizes, self.gids, cfg.K, mask, fallback,
+                    zero_fill=rf.plan.zero_fill)
+            if rf is not None:
+                self.fault_info = faults_lib.fault_record(rf, surv, self._rejected,
+                                                          self.degraded)
         self.new_globals = unstack_models(self.stacked_globals)
         return self.new_globals
 
     def push(self, t: int, state) -> None:
         # the (K, ...) stack goes into the bank as it is (Eq. 5)
-        state.ensemble.push(t, self.stacked_globals)
+        state.ensemble.push(t, self.stacked_globals, degraded=self.degraded)
+
+    def _client_teachers(self, new_globals) -> list:
+        """FedDF's teachers: the round's client models (the survivors' under
+        faults, or the carried-forward globals where none survived)."""
+        teachers = unstack_models(self.stacked)
+        if self.faults is None:
+            return teachers
+        surv = self._survivors()
+        return [m for m, c in zip(teachers, self.cids_round) if int(c) in surv] \
+            or list(new_globals)
 
     def inline_kd(self, new_globals) -> dict:
         runner, state = self.runner, self.state
         if runner.cfg.ensemble_source == "clients":
-            teachers = unstack_models(self.stacked)  # FedDF: the client models
+            teachers = self._client_teachers(new_globals)
         else:
             teachers = state.ensemble.member_views()   # read before the next push
         return runner._distill_models(new_globals, teachers,
-                                      stacked_students=self.stacked_globals)
+                                      stacked_students=self.stacked_globals,
+                                      teacher_weights=runner._teacher_trust_weights(state,
+                                                                                    teachers))
 
     def kd_teachers(self, new_globals) -> tuple[list, Optional[TeacherBank]]:
         """As the sequential ops' (the client models: the round's stack)."""
         if self.runner.cfg.ensemble_source == "clients":
-            return unstack_models(self.stacked), None
+            return self._client_teachers(new_globals), None
         return self.state.ensemble.member_views(), self.state.ensemble
 
 

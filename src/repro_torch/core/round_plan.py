@@ -1,6 +1,5 @@
 """Round execution as a phase plan, with server KD overlapped with k>0
-local training (port of ``repro/core/round_plan.py``, apart from the
-pending job's spill and restore, which come with the checkpoints).
+local training (port of ``repro/core/round_plan.py``).
 
 The paper's scalability claim (Fig. 2, §3.2): only the main global model
 (group 0) consumes the KD output, so groups k>0 can train round t+1 while
@@ -44,17 +43,28 @@ the KD output, and such rounds keep the off-mode order in every mode, as do
 warm-up rounds.  Overlapped rounds record no ``t_local`` or ``t_kd``; their
 ``t_round`` is read after the caller's stream drains (the KD stream's work
 is left running).
+
+A checkpoint taken with a job pending keeps the job's inputs, not its
+output (``spill_pending_kd``): the KD is a function of (student, teachers,
+weights), so a restored job re-dispatched gives the drained result bit for
+bit.  The spill reads the inputs on the caller's stream and does not wait
+for the KD stream, where the job may still run.
 """
 from __future__ import annotations
 
+import json
+import os
 import time
 import weakref
 from dataclasses import dataclass
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.step_graph import StepGraphs
+from repro_torch.fedckpt.checkpointer import leaf_to_numpy, load_pytree, save_json, save_pytree
+from repro_torch.utils.pytree import tree_leaves, tree_map, tree_unstack
 
 PyTree = Any
 
@@ -80,13 +90,63 @@ class PendingKD:
     training (or at the drain).  ``teachers`` are the ring's views while
     ``bank`` holds it (no copy: the next push comes after the resolve), or
     the round's client models; ``dispatched`` is the device pair
-    ``(student, losses)`` once issued."""
+    ``(student, losses)`` once issued.  A job restored from a spill has no
+    bank: its teachers are its own."""
     round_idx: int
     student: PyTree                 # round t's raw group-0 aggregate
     teachers: list                  # the member trees
     record: dict                    # round t's history record, patched late
     dispatched: Optional[tuple] = None
     bank: Optional[Any] = None      # the TeacherBank whose views `teachers` are
+    teacher_weights: Optional[torch.Tensor] = None   # (M,) trust weights or None
+
+
+def spill_pending_kd(directory: str, pending: PendingKD) -> str:
+    """A deferred KD job through fedckpt: ``pending_kd_r{round:05d}.npz``
+    with the student, the (M, ...) teacher stack and the weights (the
+    reference's names), and a ``.json`` sidecar (round, the partly filled
+    history record, M).  Returns the npz path."""
+    path = os.path.join(directory, f"pending_kd_r{pending.round_idx:05d}.npz")
+    # the (M, ...) teacher stack, leaf by leaf on the host
+    teachers = tree_map(lambda *xs: np.stack([leaf_to_numpy(x) for x in xs]), *pending.teachers)
+    tree = {"student": pending.student, "teachers": teachers}
+    if pending.teacher_weights is not None:
+        tree["teacher_weights"] = pending.teacher_weights.float()
+    save_pytree(path, tree)
+    save_json(path.replace(".npz", ".json"), {
+        "round_idx": pending.round_idx,
+        "record": dict(pending.record),
+        "num_teachers": len(pending.teachers),
+        "has_teacher_weights": pending.teacher_weights is not None,
+    })
+    return path
+
+
+def restore_pending_kd(path: str, student_like: PyTree) -> PendingKD:
+    """Rebuild a spilled job (undispatched: its resolve issues it).  The
+    teachers come back as f32 containers, each a view of the restored
+    (M, ...) stack; a bf16 ring's members are the same values, and the KD
+    upcasts every member to f32 before its forward."""
+    with open(path.replace(".npz", ".json")) as f:
+        meta = json.load(f)
+    m = int(meta["num_teachers"])
+    like = {"student": student_like,
+            "teachers": tree_map(lambda x: torch.zeros((m,) + tuple(x.shape),
+                                                       dtype=torch.float32, device=x.device),
+                                 student_like)}
+    if meta.get("has_teacher_weights", False):
+        like["teacher_weights"] = torch.zeros((m,), dtype=torch.float32,
+                                              device=tree_leaves(student_like)[0].device)
+    tree = load_pytree(path, like)
+    return PendingKD(round_idx=int(meta["round_idx"]), student=tree["student"],
+                     teachers=tree_unstack(tree["teachers"]), record=dict(meta["record"]),
+                     teacher_weights=tree.get("teacher_weights"))
+
+
+def trust_record(weights: torch.Tensor) -> list[float]:
+    """The history record's trust weights: one host read, 4 decimals."""
+    host = weights.cpu().tolist()  # lint-ok: RA101 the record's one read
+    return [round(float(w), 4) for w in host]
 
 
 class RoundExecutor:
@@ -124,7 +184,8 @@ class RoundExecutor:
         it runs here."""
         if pending.dispatched is None:
             pending.dispatched = self._pipe().distill_async(
-                pending.student, pending.teachers, self.runner.task.server_batches)
+                pending.student, pending.teachers, self.runner.task.server_batches,
+                teacher_weights=pending.teacher_weights)
 
     def resolve_pending(self, state) -> None:
         """Wait for the deferred KD (an event wait), install its output as
@@ -136,6 +197,8 @@ class RoundExecutor:
         pipe = self._pipe()
         student, losses = pipe.join(pending.dispatched)
         pending.record.update(pipe.losses_info(losses))
+        if pending.teacher_weights is not None:
+            pending.record["teacher_trust"] = trust_record(pending.teacher_weights)
         if pending.bank is not None:
             pending.bank.release()
         state.global_models[0] = student
@@ -161,12 +224,14 @@ class RoundExecutor:
         pipe, eng = self._pipe(), self.runner._make_engine()
         if not pipe.steps:
             pending.dispatched = pipe.distill_async(pending.student, pending.teachers,
-                                                    self.runner.task.server_batches)
+                                                    self.runner.task.server_batches,
+                                                    teacher_weights=pending.teacher_weights)
             return [eng.run_prepared(args) for args in bucket_args]
         if self._pairs is None:
             self._pairs = StepGraphs()
         kd = pipe.start_steps(pending.student, pending.teachers,
-                              self.runner.task.server_batches)
+                              self.runner.task.server_batches,
+                              teacher_weights=pending.teacher_weights)
         left = pipe.steps
         started = [eng.start_prepared(args) for args in bucket_args]
         for prog, S in started:
@@ -194,6 +259,7 @@ class RoundExecutor:
             ops.train("all")
             ops.finish_local()
             new_globals = ops.aggregate()
+            rec.update(ops.fault_info)
             ops.push(t, state)
             synchronize(dev)
             rec["t_local"] = time.perf_counter() - t_start
@@ -223,6 +289,7 @@ class RoundExecutor:
         ops.train("main")               # group 0 starts from the KD output
         ops.finish_local()
         new_globals = ops.aggregate()
+        rec.update(ops.fault_info)
         ops.push(t, state)
         state.global_models = new_globals
         state.round = t
@@ -232,8 +299,9 @@ class RoundExecutor:
             teachers, bank = ops.kd_teachers(new_globals)
             if bank is not None:
                 bank.hold()
-            state.pending_kd = PendingKD(round_idx=t, student=new_globals[0],
-                                         teachers=teachers, record=rec, bank=bank)
+            state.pending_kd = PendingKD(
+                round_idx=t, student=new_globals[0], teachers=teachers, record=rec, bank=bank,
+                teacher_weights=self.runner._teacher_trust_weights(state, teachers))
             if cfg.overlap == "async":
                 self.dispatch(state.pending_kd)
         elif task.eval_fn is not None:

@@ -1,7 +1,9 @@
 """Ready-made FedTasks (port of ``repro/core/tasks.py``): the paper's
 image-classification setting on the synthetic CIFAR stand-in, with the
-paper's ResNets, a small CNN or a tiny MLP (``classification_task``), and
-FedSDD over a model-zoo LM on synthetic token shards (``lm_task``).
+paper's ResNets, a small CNN or a tiny MLP (``classification_task``), a
+task sized by client count whose shards exist only while a round holds
+them (``synthetic_scaling_task``, over ``LazyClientData``), and FedSDD
+over a model-zoo LM on synthetic token shards (``lm_task``).
 
 Data stays NHWC as in the reference (the MLP flattens it in that order).
 The numpy arrays are the reference's, byte for byte.  The server batches
@@ -75,6 +77,46 @@ def _to_device(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
     return t.to(dev)
 
 
+# ------------------------------------------------------- lazy client data
+class LazyClientData:
+    """A sequence of client shards made on first touch, for C = 1M clients
+    with nothing made up front: ``len()`` and each client's size are known
+    beforehand (``num_examples``, the store's size probe), and a small LRU
+    keeps the shards a round touches.  ``make_shard(cid, n)`` depends on
+    ``cid`` alone, so a shard made again after an eviction or a restart is
+    the same (numpy arrays, the reference's bytes)."""
+
+    def __init__(self, num_clients: int, examples_per_client: int, make_shard,
+                 cache_size: int = 16):
+        self._num_clients = int(num_clients)
+        self._n = int(examples_per_client)
+        self._make_shard = make_shard
+        self._cache_size = int(cache_size)
+        self._cache: dict[int, object] = {}     # insertion-ordered LRU
+
+    def __len__(self) -> int:
+        return self._num_clients
+
+    def num_examples(self, cid: int) -> int:
+        return self._n
+
+    def __getitem__(self, cid: int):
+        cid = int(cid)
+        if not 0 <= cid < self._num_clients:
+            raise IndexError(cid)
+        if cid in self._cache:
+            self._cache[cid] = self._cache.pop(cid)   # refresh recency
+            return self._cache[cid]
+        shard = self._make_shard(cid, self._n)
+        self._cache[cid] = shard
+        while len(self._cache) > self._cache_size:
+            self._cache.pop(next(iter(self._cache)))
+        return shard
+
+    def __iter__(self):
+        return (self[c] for c in range(self._num_clients))
+
+
 # ---------------------------------------------------------------- tasks
 def classification_task(model: str = "cnn",
                         num_clients: int = 20,
@@ -134,6 +176,36 @@ def classification_task(model: str = "cnn",
     return FedTask(init_fn=init_fn, loss_fn=loss_fn, logits_fn=logits_fn,
                    client_data=client_data, server_batches=server_batches,
                    make_batch=make_batch, eval_fn=eval_fn, device=dev)
+
+
+def synthetic_scaling_task(num_clients: int, examples_per_client: int = 64,
+                           num_classes: int = 10, num_server: int = 256,
+                           server_batch: int = 128, noise: float = 0.6, seed: int = 0,
+                           device=None) -> FedTask:
+    """A classification task sized by client count, not data volume:
+    ``client_data`` is a ``LazyClientData`` over per-cid shards
+    (``SyntheticClassification.client_shard``), so the task at C = 1M holds
+    nothing until a round samples a client.  The tiny MLP; no eval set."""
+    dev = device_lib.resolve(device)
+    data = SyntheticClassification(num_classes=num_classes, num_train=0, num_test=0,
+                                   num_server=num_server, noise=noise, seed=seed)
+    client_data = LazyClientData(num_clients, examples_per_client, data.client_shard)
+    sx = data.server_unlabeled()
+    server_batches = [
+        {"x": torch.from_numpy(sx[i:i + server_batch]).to(dev)}
+        for i in range(0, len(sx) - server_batch + 1, server_batch)
+    ]
+    init_fn = partial(_init_mlp, num_classes=num_classes)
+
+    def make_batch(ds, idx):
+        x, y = ds
+        return {"x": _to_device(x[idx], dev), "y": _to_device(y[idx], dev)}
+
+    return FedTask(init_fn=init_fn,
+                   loss_fn=lambda p, b: (_xent(_mlp_logits(p, b["x"]), b["y"]), {}),
+                   logits_fn=lambda p, b: _mlp_logits(p, b["x"]), client_data=client_data,
+                   server_batches=server_batches, make_batch=make_batch, eval_fn=None,
+                   device=dev)
 
 
 def lm_task(cfg, num_clients: int = 8, docs_per_client: int = 8, seq: int = 32,

@@ -50,8 +50,16 @@ One round's distillation phase:
      split the scan loop around its steps for the executor's paired
      programs (``overlap="fused"``).
 
-Teacher trust weights and the sharded precompute arrive with later
-slices.
+  5. **Trust weights** — ``trust_weights`` gives each of the M teachers a
+     weight from its agreement with the others on the probe batch (the
+     first server batch) and the ring's degraded log; with
+     ``teacher_weights`` the cache is built from the weighted sum Σ w_m z_m
+     of the teachers' logits instead of their mean: the dense cache as
+     kernel 2 on an M = 1 stack of that sum, the flash cache as the sum
+     itself and its normaliser.  Without weights the cache is built as
+     before, bit for bit.
+
+The sharded precompute arrives with the torch.distributed slice.
 """
 from __future__ import annotations
 
@@ -62,6 +70,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch.core.robust_agg import median
 from repro_torch.core.step_graph import (StepGraphs, StepProgram, copy_into, on_lane,
                                          shape_key, static_like)
 from repro_torch.kernels.kd_loss import ops as kd_ops
@@ -72,6 +81,12 @@ from repro_torch.utils.pytree import (tree_cast, tree_leaves, tree_map, tree_sta
 PyTree = Any
 LogitsFn = Callable[[PyTree, Any], torch.Tensor]
 _CACHE_DTYPES = {None: None, "float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# trust weighting (the reference's constants): a teacher whose normalised
+# weight falls below TRUST_FLOOR × uniform is cut to exactly 0; a member
+# the ring logs as a carry-forward is discounted by TRUST_DEGRADED_DISCOUNT
+TRUST_FLOOR = 0.1
+TRUST_DEGRADED_DISCOUNT = 0.5
 
 
 def stack_server_batches(batches: Sequence[Any]) -> PyTree:
@@ -183,16 +198,43 @@ class KDPipeline:
             M = m + 1
         return total.div_(M)
 
-    def precompute_cache(self, teachers: Sequence[PyTree], batches: PyTree, out=None):
+    @torch.no_grad()
+    def precompute_weighted_logits(self, teachers: Sequence[PyTree], batches: PyTree,
+                                   weights: torch.Tensor) -> torch.Tensor:
+        """(n_batches, B, V) f32 Σ_m w_m z_m, the weights normalised to sum
+        1 (the trust-weighted form of Eq. 3's mean logit), summed in member
+        order on the device."""
+        w = weights.to(device=self.device, dtype=torch.float32)
+        w = w / w.sum().clamp_min(1e-12)
+        nB = tree_leaves(batches)[0].shape[0]
+        total = None
+        for m, b, lg in self._teacher_logits(teachers, batches):
+            if total is None:
+                total = torch.zeros((nB,) + tuple(lg.shape), dtype=torch.float32,
+                                    device=lg.device)
+            total[b] += w[m] * lg
+        return total
+
+    def precompute_cache(self, teachers: Sequence[PyTree], batches: PyTree, out=None,
+                         weights: torch.Tensor | None = None):
         """The tensor the KD steps consume: the (n_batches, B, V) f32
         probability cache (dense), or the pair ``(mean_logits, lse)`` of the
         ``cache_dtype`` mean-logit cache and its (n_batches, B) f32
         normaliser (flash).  With ``out`` (a buffer tree of the cache's
-        shapes) the cache is written there and ``out`` returned."""
+        shapes) the cache is written there and ``out`` returned.  With
+        ``weights`` ((M,) trust weights) the teachers' weighted logit sum
+        takes the place of their mean: dense, kernel 2 over it as an M = 1
+        stack."""
         if self.kd_kernel == "dense":
-            cache = self.precompute_teacher_probs(teachers, batches)
+            if weights is None:
+                cache = self.precompute_teacher_probs(teachers, batches)
+            else:
+                cache = kd_ops.ensemble_softmax_many(
+                    self.precompute_weighted_logits(teachers, batches, weights)[None],
+                    self.temperature)
         else:
-            mean = self.precompute_mean_logits(teachers, batches)
+            mean = (self.precompute_mean_logits(teachers, batches) if weights is None
+                    else self.precompute_weighted_logits(teachers, batches, weights))
             data = mean.to(self.cache_dtype) if out is None else out[0].copy_(mean)
             del mean
             # τ-fixed and student-independent: computed once here, so every
@@ -222,13 +264,56 @@ class KDPipeline:
         return sum(x.numel() * x.element_size()
                    for x in tree_leaves(self.cache_like(teachers, batches)))
 
-    def _cache(self, student: PyTree, teachers: Sequence[PyTree], batches: PyTree):
+    def _cache(self, student: PyTree, teachers: Sequence[PyTree], batches: PyTree,
+               weights=None):
         """The round's cache; under scan written into the KD step program's
         cache buffer, so that it is not held twice."""
         if self.steps and self.graphs.scan(self.device):
             prog = self._step_program(student, batches, self.cache_like(teachers, batches))
-            return self.precompute_cache(teachers, batches, out=prog.buf["cache"])
-        return self.precompute_cache(teachers, batches)
+            return self.precompute_cache(teachers, batches, out=prog.buf["cache"],
+                                         weights=weights)
+        return self.precompute_cache(teachers, batches, weights=weights)
+
+    # ------------------------------------------------- teacher trust weights
+    @torch.no_grad()
+    def trust_weights(self, teachers: Sequence[PyTree], server_batches: Sequence[Any],
+                      degraded_mask=None) -> torch.Tensor:
+        """(M,) per-teacher trust weights from cross-teacher agreement, on
+        the device (no host sync).
+
+        Each teacher's τ-softmax on the probe batch (the first server batch)
+        is compared with the consensus, the coordinate-wise median over the
+        teachers (an even M averages the two middle values, as
+        ``jnp.median``): d_m = mean KL(p_m ‖ consensus), scaled by the median
+        d, mapped through w = min(exp(1 − d/median(d)), 1), discounted ×
+        ``TRUST_DEGRADED_DISCOUNT`` where ``degraded_mask`` marks a member,
+        normalised, and cut to exactly 0 below ``TRUST_FLOOR`` × uniform,
+        then normalised again.  The median needs M ≥ 3 to outvote a liar.
+        """
+        batches = self.batches_for(server_batches)
+        probe = tree_map(lambda x: x[0], batches)
+        lg = torch.stack([self.logits_fn(tree_cast(t, torch.float32), probe).float()
+                          for t in teachers])                     # (M, B, V)
+        p = torch.softmax(lg / self.temperature, dim=-1)
+        cons = median(p)
+        cons = cons / cons.sum(-1, keepdim=True).clamp_min(1e-12)
+        eps = 1e-12
+        kl = (p * (torch.log(p + eps) - torch.log(cons + eps))).sum(-1)  # (M, B)
+        d = kl.mean(-1)
+        m = d.shape[0]
+        discount = torch.ones((m,), dtype=torch.float32)
+        if degraded_mask is not None:
+            mask = np.asarray(degraded_mask, bool)  # lint-ok: RA101 host mask
+            discount = torch.from_numpy(
+                np.where(mask, TRUST_DEGRADED_DISCOUNT, 1.0).astype(np.float32))
+        w = torch.clamp(torch.exp(1.0 - d / (median(d) + 1e-12)), max=1.0) \
+            * discount.to(d.device)
+        uniform = torch.full_like(w, 1.0 / m)
+        s = w.sum()
+        w = torch.where(s > 0, w / s.clamp_min(1e-12), uniform)
+        w = torch.where(w < TRUST_FLOOR / m, torch.zeros_like(w), w)
+        s2 = w.sum()
+        return torch.where(s2 > 0, w / s2.clamp_min(1e-12), uniform)
 
     # ------------------------------------------------------- KD step body
     def _loss_and_grad(self, student, batch, cache_row):
@@ -326,21 +411,23 @@ class KDPipeline:
 
     # ------------------------------------------------------------- public
     def distill(self, student: PyTree, teachers: Sequence[PyTree],
-                server_batches: Sequence[Any]) -> tuple[PyTree, dict]:
+                server_batches: Sequence[Any], teacher_weights=None) -> tuple[PyTree, dict]:
         """Single-student KD (``distill_target='main'``).  ``teachers``: the
-        list of member trees."""
+        list of member trees; ``teacher_weights``: optional (M,) trust
+        weights."""
         batches = self.batches_for(server_batches)
-        cache = self._cache(student, teachers, batches)
+        cache = self._cache(student, teachers, batches, teacher_weights)
         student, losses = self._run(student, batches, cache)
         return student, self._info(losses)
 
     def distill_all(self, students_stacked: PyTree, teachers: Sequence[PyTree],
-                    server_batches: Sequence[Any]) -> tuple[PyTree, dict]:
+                    server_batches: Sequence[Any],
+                    teacher_weights=None) -> tuple[PyTree, dict]:
         """All K students over one cache (``distill_target='all'``); the
         reported losses are the main model's (row 0)."""
         batches = self.batches_for(server_batches)
         students = tree_unstack(students_stacked)
-        cache = self._cache(students[0], teachers, batches)
+        cache = self._cache(students[0], teachers, batches, teacher_weights)
         outs, losses = zip(*(self._run(st, batches, cache) for st in students))
         return tree_stack(list(outs)), self._info(torch.stack(losses))
 
@@ -359,22 +446,23 @@ class KDPipeline:
         return self._lane
 
     def distill_async(self, student: PyTree, teachers: Sequence[PyTree],
-                      server_batches: Sequence[Any]):
+                      server_batches: Sequence[Any], teacher_weights=None):
         """Issue the whole single-student KD phase on the KD lane and return
         the device tensors ``(student, losses)``: no host sync.  On a card
         the lane first waits for the caller's stream (the student and the
         ring are written there); the cache build, its kernel (2 or none) and
         the ``steps`` replays go onto the lane; then the step programs' set
-        is held there until ``join``.  The student, the teachers and the
-        server batches are marked in use on the lane."""
+        is held there until ``join``.  The student, the teachers, the
+        weights and the server batches are marked in use on the lane."""
         dev, lane = self.device, self.lane()
         batches = self.batches_for(server_batches)
         if dev.type == "cuda":
             lane.wait_stream(torch.cuda.current_stream(dev))
-            for x in tree_leaves((student, list(teachers), batches)):
+            for x in tree_leaves((student, list(teachers), batches, teacher_weights)):
                 x.record_stream(lane)
         with on_lane(lane, dev):
-            out = self._run(student, batches, self._cache(student, teachers, batches))
+            out = self._run(student, batches,
+                            self._cache(student, teachers, batches, teacher_weights))
         self.graphs.hold(lane, dev)
         return out
 
@@ -394,12 +482,12 @@ class KDPipeline:
         return self._info(losses)
 
     def start_steps(self, student: PyTree, teachers: Sequence[PyTree],
-                    server_batches: Sequence[Any]) -> StepProgram:
+                    server_batches: Sequence[Any], teacher_weights=None) -> StepProgram:
         """Under scan: build the round's teacher cache into the KD step
         program and load the schedule's inputs; the program's next ``steps``
         calls (alone or paired) run the schedule, ``finish_steps`` reads it."""
         batches = self.batches_for(server_batches)
-        cache = self._cache(student, teachers, batches)
+        cache = self._cache(student, teachers, batches, teacher_weights)
         return self._start_scan(student, batches, cache)
 
     def _info(self, losses: torch.Tensor) -> dict:

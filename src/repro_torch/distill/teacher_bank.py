@@ -14,14 +14,22 @@ gathers them into one ``(M, ...)`` copy.  An overlapped round's pending KD
 job reads the views after its round has ended: it ``hold``s the ring until
 its resolve ``release``s it, and a ``push`` meanwhile raises instead of
 overwriting what the job still reads.
-Spilling evicted rounds to disk is not ported.
+
+With ``spill_dir`` a round evicted from the ring is first persisted
+through ``fedckpt`` (one ``.npz`` a member, ``r{round:05d}_g{k}.npz``).
+``degraded_mask_stacked`` marks the members that carried a group's model
+forward (the trust weights' input); ``export_state`` / ``import_state`` /
+``bank_like`` carry the ring, its slot map, cursor and degraded log
+through a full-state checkpoint.
 """
 from __future__ import annotations
 
 from typing import Any, Sequence
 
+import numpy as np
 import torch
 
+from repro_torch.fedckpt.checkpointer import spill_members
 from repro_torch.utils.pytree import tree_leaves, tree_map, tree_unstack
 
 PyTree = Any
@@ -39,11 +47,8 @@ class TeacherBank:
     def __init__(self, K: int, R: int, spill_dir: str | None = None, dtype=None):
         if K < 1 or R < 1:
             raise ValueError(f"K and R must be >= 1, got K={K}, R={R}")
-        if spill_dir is not None:
-            raise NotImplementedError(
-                "TeacherBank(spill_dir=...) arrives with the port's robustness "
-                "slice (fedckpt); the ring stays on the device")
         self.K, self.R = K, R
+        self.spill_dir = spill_dir
         self.dtype = _DTYPES[dtype] if isinstance(dtype, str) else dtype
         self._bank: PyTree | None = None           # leaves (R, K, ...)
         self._slot_rounds: list[int | None] = [None] * R
@@ -87,6 +92,9 @@ class TeacherBank:
                                       dtype=self._store_dtype(m), device=m.device),
                 models[0])
         slot = self._cursor
+        evicted = self._slot_rounds[slot]
+        if evicted is not None and self.spill_dir:
+            spill_members(self.spill_dir, evicted, tree_map(lambda b: b[slot], self._bank))
         with torch.no_grad():
             for k, model in enumerate(models):
                 tree_map(lambda b, m: b[slot, k].copy_(m), self._bank, model)
@@ -153,3 +161,44 @@ class TeacherBank:
     def degraded_rounds(self) -> dict[int, tuple]:
         """round -> groups that carried forward that round (see ``push``)."""
         return dict(self._degraded)
+
+    def degraded_mask_stacked(self) -> np.ndarray | None:
+        """(M,) bool in ``members()`` order: True where member m is a group
+        model that carried forward in its slot's round (the bank's input to
+        the KD trust weights: a stale global that agreement alone may not
+        tell from a fresh one)."""
+        order = self._slots_newest_first()
+        if not order:
+            return None
+        mask = []
+        for s in order:
+            bad = set(self._degraded.get(int(self._slot_rounds[s]), ()))
+            mask.extend(k in bad for k in range(self.K))
+        return np.asarray(mask, bool)  # lint-ok: RA101 host list
+
+    # -------------------------------------------- crash-safe resume hooks
+    def bank_like(self, member_like: PyTree) -> PyTree:
+        """Zeros with the ring's (R, K, ...) shapes and storage dtypes: the
+        ``like`` a checkpoint restore loads into."""
+        return tree_map(lambda m: torch.zeros((self.R, self.K) + tuple(m.shape),
+                                              dtype=self._store_dtype(m), device=m.device),
+                        member_like)
+
+    def export_state(self) -> tuple[PyTree | None, dict]:
+        """(the ring, a JSON-able meta): what a fresh bank needs to resume
+        this one (slot map, cursor, degraded log; an empty slot is round
+        −1)."""
+        meta = {
+            "slot_rounds": [-1 if r is None else int(r) for r in self._slot_rounds],
+            "cursor": int(self._cursor),
+            "degraded": {str(r): list(v) for r, v in self._degraded.items()},
+        }
+        return self._bank, meta
+
+    def import_state(self, bank: PyTree | None, meta: dict) -> None:
+        """Adopt a checkpointed ring and meta (``export_state``'s inverse)."""
+        self._bank = bank
+        self._slot_rounds = [None if int(r) < 0 else int(r) for r in meta["slot_rounds"]]
+        self._cursor = int(meta["cursor"])
+        self._degraded = {int(r): tuple(int(k) for k in v)
+                          for r, v in meta.get("degraded", {}).items()}

@@ -16,11 +16,16 @@ The flags are the reference's, plus ``--device`` (default cuda; no GPU is
 an error, not a fallback).  ``--overlap async|fused`` defers each round's KD
 into the next round's k>0 training; a round's line then shows its accuracy
 and KD loss only once its KD has resolved, and the run ends with
-``runner.finalize``, which drains the last round's KD.  A flag for what the
-port does not run yet raises ``NotImplementedError`` naming the slice that
-brings it: an ``--arch`` outside the dense GQA families, the fault and
-checkpoint flags here, and the runner's own options (robust aggregation and
-the rest) through ``FedConfig``.
+``runner.finalize``, which drains the last round's KD.  ``--faults`` and
+the rate flags build a seeded ``FaultPlan`` (``--attack`` adds Byzantine
+uploads, ``--aggregator`` / ``--clip-norm`` the robust Eq. 2,
+``--teacher-trust`` the trust-weighted teachers); ``--ckpt-dir`` keeps
+``ckpt_*`` model snapshots and ``state_*`` full-state checkpoints (a
+pending KD job included) there after every round, and ``--resume`` starts
+from the newest loadable one.  A flag for what the port does not run yet
+raises ``NotImplementedError`` naming the slice that brings it: an
+``--arch`` outside the dense GQA families, and the runner's own options
+(FedBE, secure aggregation) through ``FedConfig``.
 """
 from __future__ import annotations
 
@@ -30,29 +35,34 @@ import os
 import time
 
 from repro_torch.configs import ASSIGNED_ARCHS, get_config, list_configs
+from repro_torch.core.faults import FaultPlan
 from repro_torch.core.fedsdd import PRESETS, make_runner
 from repro_torch.core.tasks import classification_task, lm_task
+from repro_torch.fedckpt.checkpointer import Checkpointer
 
 
 def _refuse_unported(args) -> None:
     """The CLI-level options of the reference this port does not run yet."""
-    unported = (
-        (args.arch is not None and args.arch not in list_configs(),
-         f"--arch {args.arch}: the model families beyond dense GQA (MoE, MLA, SSM, "
-         f"the audio/VLM frontends) arrive with their own slice of the port; the "
-         f"LM task runs {list_configs()}"),
-        (args.faults or args.zero_fill or args.attack != "none"
-         or any(r > 0 for r in (args.dropout_rate, args.straggler_rate, args.corrupt_rate,
-                                args.spill_fail_rate, args.attack_rate)),
-         "fault injection (--faults, the rates, --zero-fill, --attack) arrives with "
-         "the robustness slice"),
-        (args.ckpt_dir is not None or args.resume,
-         "checkpoints (--ckpt-dir, --resume) arrive with the robustness slice "
-         "(fedckpt)"),
-    )
-    for cond, what in unported:
-        if cond:
-            raise NotImplementedError(f"repro_torch.launch.train: {what}")
+    if args.arch is not None and args.arch not in list_configs():
+        raise NotImplementedError(
+            f"repro_torch.launch.train: --arch {args.arch}: the model families beyond "
+            f"dense GQA (MoE, MLA, SSM, the audio/VLM frontends) arrive with their own "
+            f"slice of the port; the LM task runs {list_configs()}")
+
+
+def _fault_plan(args) -> FaultPlan | None:
+    """The seeded plan of the fault flags: any nonzero rate builds one, and
+    ``--faults`` alone builds one at rate 0 (bit-identical to none)."""
+    if not (args.faults or any(r > 0 for r in (args.dropout_rate, args.straggler_rate,
+                                               args.corrupt_rate, args.spill_fail_rate,
+                                               args.attack_rate))):
+        return None
+    return FaultPlan(seed=args.seed if args.fault_seed is None else args.fault_seed,
+                     dropout=args.dropout_rate, straggler=args.straggler_rate,
+                     straggler_frac=args.straggler_frac, corrupt=args.corrupt_rate,
+                     attack=args.attack, attack_rate=args.attack_rate,
+                     attack_scale=args.attack_scale, spill_fail=args.spill_fail_rate,
+                     zero_fill=args.zero_fill)
 
 
 def main() -> None:
@@ -124,7 +134,7 @@ def main() -> None:
                                    alpha=args.alpha, seed=args.seed, device=args.device)
         overrides = dict(client_lr=args.client_lr, server_lr=args.server_lr)
     runner = make_runner(
-        args.preset, task, device=args.device,
+        args.preset, task, device=args.device, faults=_fault_plan(args),
         aggregator=args.aggregator, trim_frac=args.trim_frac,
         clip_norm=args.clip_norm, teacher_trust=args.teacher_trust,
         num_clients=args.clients, participation=args.participation,
@@ -139,8 +149,16 @@ def main() -> None:
         **({"K": args.K, "R": args.R} if PRESETS[args.preset].get("K", 1) > 1 else {}),
         **overrides)
 
+    # two checkpoint families share --ckpt-dir: ckpt_* model snapshots and
+    # state_* full-state resume checkpoints (save_state / restore_state)
+    ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
+    state_ckpt = Checkpointer(args.ckpt_dir, prefix="state") if args.ckpt_dir else None
     t0 = time.perf_counter()
-    state = runner.init_state()
+    state = runner.restore_state(state_ckpt) if (args.resume and state_ckpt) else None
+    if state is not None:
+        print(f"resumed from round {state.round}", flush=True)
+    else:
+        state = runner.init_state()
     for _ in range(state.round, args.rounds):
         state = runner.run_round(state)
         rec = state.history[-1]
@@ -149,10 +167,38 @@ def main() -> None:
             msg += f" acc={rec['acc_main']:.4f}"
         if rec.get("kd_loss_last") is not None:
             msg += f" kd={rec['kd_loss_last']:.4f}"
+        # each defence's ruling of the round
+        if rec.get("survivors") is not None:
+            msg += f" survivors={len(rec['survivors'])}"
+        if rec.get("dropped") or rec.get("rejected"):
+            msg += f" dropped={len(rec.get('dropped', []))} rejected={len(rec.get('rejected', []))}"
+        if rec.get("attacked"):
+            msg += f" attacked={len(rec['attacked'])}"
+        if rec.get("degraded_groups"):
+            msg += f" degraded_groups={rec['degraded_groups']}"
+        if rec.get("teacher_trust") is not None:
+            tw = rec["teacher_trust"]
+            msg += (f" trust=[{', '.join(f'{w:.2f}' for w in tw)}]"
+                    f" filtered={sum(1 for w in tw if w == 0.0)}")
         print(msg, flush=True)
+        if ckpt:
+            if state.pending_kd is None:
+                ckpt.save(state.round, state.global_models[0], meta={"round": state.round})
+            elif state.last_distilled is not None:
+                # overlap: round t's KD is in flight, so the newest resolved
+                # round goes here; save_state keeps the job itself
+                r_done, model = state.last_distilled
+                ckpt.save(r_done, model, meta={"round": r_done})
+        if state_ckpt:
+            runner.save_state(state_ckpt, state)
     # overlap modes defer the last round's KD: drain it, so that the final
     # model is the overlap="off" one
     state = runner.finalize(state)
+    if ckpt and args.overlap != "off":
+        ckpt.save(state.round, state.global_models[0],
+                  meta={"round": state.round, "drained": True})
+    if state_ckpt:
+        runner.save_state(state_ckpt, state)     # drained: no pending spill left
     print(f"done in {time.perf_counter() - t0:.1f}s")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -1,8 +1,13 @@
 """Port vs reference: the FedSDD runner on the sequential engine.
 
   (a) ``FedConfig.validate``: every preset validates; each ``ValueError``
-      of the reference is raised by the port with the same message; the
-      options the port does not run yet raise ``NotImplementedError``.
+      of the reference is raised by the port with the same message (a
+      fault plan as the port's own ``FaultPlan``); the options the port
+      does not run yet (shard_map, secure aggregation, FedBE) raise
+      ``NotImplementedError``; the robustness options validate and run a
+      round (their parity is in ``test_torch_faults.py``,
+      ``test_torch_robust_agg.py``, ``test_torch_trust.py`` and
+      ``test_torch_client_store.py``).
   (b) ``TeacherBank``: member order (newest round first) and
       ``rounds_held`` for R ∈ {1, 2} over 3 pushes, exactly.
   (c) ``KDPipeline.distill`` / ``distill_all`` against the JAX pipeline on
@@ -17,6 +22,8 @@
 (``tests/test_kd_pipeline.py``); (b) and (e) exact.  JAX runs on the CPU
 through its default jnp path, as ``tests/test_fedsdd.py`` does.
 """
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -24,6 +31,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.core.faults import FaultPlan  # noqa: E402
+from repro_torch.core import faults as port_faults  # noqa: E402
 from repro.core.fedsdd import PRESETS as JAX_PRESETS  # noqa: E402
 from repro.core.fedsdd import FedConfig as JaxFedConfig  # noqa: E402
 from repro.core.fedsdd import make_runner as jax_make_runner  # noqa: E402
@@ -89,20 +97,26 @@ VALUE_ERRORS = [
 ]
 
 
+def _port_kw(kw):
+    """The same options with the reference's fault plan as the port's."""
+    out = dict(kw)
+    if isinstance(out.get("faults"), FaultPlan):
+        out["faults"] = port_faults.FaultPlan(**dataclasses.asdict(out["faults"]))
+    return out
+
+
 @pytest.mark.parametrize("kw", VALUE_ERRORS, ids=lambda kw: ",".join(kw))
 def test_value_errors_match_reference(kw):
     with pytest.raises(ValueError) as want:
         JaxFedConfig(**kw).validate()
     with pytest.raises(ValueError) as got:
-        FedConfig(**kw).validate()
+        FedConfig(**_port_kw(kw)).validate()
     assert str(got.value) == str(want.value)
 
 
 UNPORTED = [
     pytest.param(dict(execution="vectorized", client_sharding="shard_map"), id="execution"),
-    dict(client_sharding="shard_map"), dict(client_store="spilling"),
-    dict(faults=FaultPlan()), dict(aggregator="median"), dict(clip_norm=1.0),
-    dict(teacher_trust=True), dict(secure_aggregation=True),
+    dict(client_sharding="shard_map"), dict(secure_aggregation=True),
     dict(ensemble_extra_sampled=3),
 ]
 
@@ -112,6 +126,32 @@ def test_unported_options_raise_not_implemented(kw):
     JaxFedConfig(**kw).validate()            # valid in the reference
     with pytest.raises(NotImplementedError, match="slice"):
         FedConfig(**kw).validate()
+
+
+ROBUSTNESS = [
+    dict(client_store="spilling"),
+    dict(faults=FaultPlan(seed=1, dropout=0.3, corrupt=0.2, attack="sign_flip", attack_rate=0.3)),
+    dict(aggregator="median"), dict(clip_norm=1.0), dict(teacher_trust=True),
+]
+
+
+@pytest.mark.parametrize("kw", ROBUSTNESS, ids=lambda kw: ",".join(kw))
+def test_robustness_options_validate_and_run(tasks, kw, tmp_path):
+    """The options of the robustness slice validate as in the reference and
+    run a round of fedsdd (the fault plan the port's own)."""
+    _, task = tasks
+    JaxFedConfig(**kw).validate()
+    port_kw = _port_kw(kw)
+    FedConfig(**port_kw).validate()
+    if "client_store" in kw:
+        port_kw["client_store_dir"] = str(tmp_path)
+    st = make_runner("fedsdd", task, device="cpu", **small(K=2, rounds=1, **port_kw)).run()
+    assert st.round == 1 and "kd_loss_last" in st.history[0]
+    assert all(torch.isfinite(x).all() for m in st.global_models for x in m.values())
+    if "faults" in kw:
+        assert st.history[0]["survivors"] is not None
+    if kw.get("teacher_trust"):
+        assert len(st.history[0]["teacher_trust"]) == st.ensemble.num_members
 
 
 @pytest.mark.parametrize("kw", [dict(overlap="async"), dict(overlap="fused"),
@@ -140,8 +180,16 @@ def test_flash_kd_options_validate(kw):
 def test_unported_entry_points_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="slice"):
         make_config("fedbe").validate()
-    with pytest.raises(NotImplementedError, match="slice"):
-        TeacherBank(2, 2, spill_dir="spill")
+
+
+def test_teacher_bank_spill_dir_runs(tmp_path):
+    """``TeacherBank(spill_dir=...)`` spills an evicted round through
+    fedckpt (the layout is held against the reference in
+    ``test_torch_trust.py``)."""
+    bank = TeacherBank(2, 1, spill_dir=str(tmp_path))
+    for t in (1, 2):
+        bank.push(t, [{"w": torch.full((3,), float(t + k))} for k in range(2)])
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["r00001_g0.npz", "r00001_g1.npz"]
 
 
 def test_runner_refuses_a_task_on_another_device(tasks):

@@ -237,13 +237,25 @@ def test_overlap_requires_fused_pipeline(task):
 
 
 def test_spill_and_restore_wait_for_the_robustness_slice(task, tmp_path):
+    """Since the robustness slice: the pending job's spill and restore round
+    trip.  The restored job (its inputs from the npz, no ring held) drains
+    to the same main model as the job left in flight, bit for bit."""
     r = make_runner("fedsdd", task, device="cpu", overlap="async", **small(K=2))
     st = r.run_round(r.init_state())
-    with pytest.raises(NotImplementedError, match="robustness slice"):
-        r.spill_pending(st, str(tmp_path))
-    with pytest.raises(NotImplementedError, match="robustness slice"):
-        r.restore_pending(st, str(tmp_path / "pending_kd_r00001.npz"))
-    r.finalize(st)
+    path = r.spill_pending(st, str(tmp_path))
+    assert path == str(tmp_path / "pending_kd_r00001.npz")
+    assert r.spill_pending(FedState(round=0, global_models=[], ensemble=None),
+                           str(tmp_path)) is None
+    st2 = FedState(round=1, global_models=[dict(m) for m in st.global_models],
+                   ensemble=TeacherBank(2, 1), history=[dict(st.history[0])])
+    assert "kd_loss_last" not in st2.history[0]
+    want = r.finalize(st).global_models[0]
+    r2 = make_runner("fedsdd", task, device="cpu", overlap="async", **small(K=2))
+    pending = r2.restore_pending(st2, path)
+    assert pending.bank is None and pending.record is st2.history[-1]
+    got = r2.finalize(st2).global_models[0]
+    assert all(torch.equal(want[k], got[k]) for k in want)
+    assert st2.history[-1]["kd_loss_last"] == st.history[-1]["kd_loss_last"]
 
 
 def test_overlap_records_round_walltime(task):

@@ -1,14 +1,17 @@
 """The port's training CLI, ``python -m repro_torch.launch.train``, on the
 CPU: a few clients, 2 rounds on each engine, the reference's per-round
 line (``[preset] round t/T acc=… kd=…``) and history file; ``--overlap``
-and ``--kd-pipeline legacy`` run to a drained, complete history; a flag for
-what the port does not run yet raises ``NotImplementedError`` naming its
-slice.
+and ``--kd-pipeline legacy`` run to a drained, complete history; the fault
+flags with an attack and a robust aggregator run on both engines; a run
+checkpointed with ``--ckpt-dir`` and resumed with ``--resume`` ends where the
+uninterrupted one does; a flag for what the port does not run yet raises
+``NotImplementedError`` naming its slice.
 """
 import json
 import re
 import sys
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -76,13 +79,52 @@ def test_cli_lm_task_with_head_fused_flash_kd(monkeypatch, capsys, tmp_path):
 
 @pytest.mark.parametrize("flags,slice_", [
     (["--arch", "deepseek-v2-lite-16b"], "own slice"),
-    (["--dropout-rate", "0.1"], "robustness slice"),
-    (["--ckpt-dir", "ckpts"], "robustness slice"),
-    (["--aggregator", "median"], "robustness slice"),
-], ids=["arch", "faults", "checkpoints", "aggregator"])
+], ids=["arch"])
 def test_cli_unported_flags_raise(flags, slice_, monkeypatch):
     with pytest.raises(NotImplementedError, match=slice_):
         _main(monkeypatch, *SMALL, *flags)
+
+
+@pytest.mark.parametrize("execution", ["sequential", "vectorized"])
+def test_cli_faults_attack_and_robust_aggregator_run(execution, monkeypatch, capsys, tmp_path):
+    """``--faults`` with a dropout rate, sign-flip attacks and the median:
+    each round's line carries the fault ruling, the history its fields."""
+    out = tmp_path / "history.json"
+    _main(monkeypatch, *SMALL, "--execution", execution, "--faults", "--dropout-rate", "0.3",
+          "--attack", "sign_flip", "--attack-rate", "0.5", "--fault-seed", "3",
+          "--aggregator", "median", "--out", str(out))
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert all(" survivors=" in line for line in lines[:-1]), lines
+    assert any(" attacked=" in line for line in lines[:-1]), lines
+    history = json.loads(out.read_text())
+    assert all({"survivors", "dropped", "attacked", "degraded_groups"} <= rec.keys()
+               for rec in history)
+
+
+def test_cli_checkpoint_and_resume_equal_the_uninterrupted_run(monkeypatch, capsys, tmp_path):
+    """``--ckpt-dir`` after every round, then ``--resume`` from the state
+    after round 1 (a KD job in flight under ``--overlap async``): the
+    resumed run ends where the uninterrupted one does, bit for bit."""
+    from repro_torch.fedckpt.checkpointer import Checkpointer
+    flags = [*SMALL, "--overlap", "async"]
+    full = tmp_path / "full"
+    _main(monkeypatch, *flags, "--ckpt-dir", str(full))
+    capsys.readouterr()
+    part = tmp_path / "part"
+    _main(monkeypatch, *flags, "--rounds", "1", "--ckpt-dir", str(part))   # the last --rounds wins
+    # the killed run's state after round 1, its pending job spilled
+    ck = Checkpointer(str(part), prefix="state")
+    assert ck.steps() == [1]
+    _main(monkeypatch, *flags, "--ckpt-dir", str(part), "--resume")
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert "resumed from round 1" in lines
+    a = Checkpointer(str(full), prefix="state")
+    b = Checkpointer(str(part), prefix="state")
+    assert a.latest() == b.latest() == 2
+    with np.load(a._path(2)) as x, np.load(b._path(2)) as y:
+        assert sorted(x.files) == sorted(y.files)
+        for k in x.files:
+            np.testing.assert_array_equal(x[k], y[k])
 
 
 @pytest.mark.parametrize("flags", [
