@@ -101,7 +101,9 @@ Phases, each of which fails the run if it fails:
                V with gemma-2b's tied head, and every option (untied, bias, f32
                cache, no lse) at (5, 50,304) and (512, 517), a bf16 head at two
                shapes; CUDA-event timings at 512 x 2,048 x 256,000 beside the
-               bound, the plain version and a library composition; kernels
+               bound, the plain version and a library composition, and the
+               same for kernels 9 and 10 at deepseek-v2-lite-16b's untied head
+               (512 x 2,048 x 102,400); kernels
                9 and 10's bounds count the bf16 tensor-core products they
                run (3 and 9 with an f32 head: each product as hi·hi + hi·lo
                + lo·hi), with the f32 CUDA-core bound and the one-product
@@ -192,7 +194,45 @@ Phases, each of which fails the run if it fails:
                flight, a fresh runner restored, round 3 and the drain: models
                and c_global bit for bit; save and restore seconds, the
                checkpoint's and the pending spill's bytes
- 21. kernels   one JSON line per the port's kernel contract; kernel 12's
+ 21. FedBE+sec phase 8's ResNet-56 configuration, sequential, one round each:
+               fedbe (FedDF's 8 client teachers, 10 posterior samples and the
+               main aggregate: 19 teachers counted; every sample's draws
+               standardised by the stated Gaussian, mean and variance within
+               1e-2 of N(0, 1) over all elements) and fedsdd K=4 R=2 with
+               secure_aggregation (each group's masked mean against plain
+               Eq. 2 at the reference's rtol 1e-3 / atol 1e-4, every upload
+               more than 1.0 from its raw model); t_local of both; kernels
+               2-4 launched
+ 22. ds f32/2  deepseek-v2-lite-16b at full width (MLA + MoE: 16 heads of
+               192 / 128, rank 512, 64 experts top-6 + 2 shared), 2 layers
+               (dense layer 0, one MoE layer), f32, capacity factor 64 (no
+               drops): generate_static's greedy tokens equal the argmax of
+               a full forward over the same tokens, and the absorbed MLA
+               decode's logits within 1e-4 of the logits' scale of the
+               expanded form's
+ 23. ds bf16   deepseek-v2-lite-16b as configured (27 layers, bf16, 15.7 B
+               parameters, random weights made on the card): the static path
+               serves 8 prompts of 256 tokens, 32 new tokens each (MLA has no
+               paged path); tokens/s, TTFT, peak memory; one decode step's
+               wall, device and idle share and the device ms of the MoE FFNs
+               and MLA decodes (named ranges under torch.profiler), beside
+               its bytes bound (all weights but the embedding, and the
+               expert banks alone: a group of 8 tokens has capacity 8 in
+               every one of the 64 experts)
+ 24. ds FedSDD deepseek-v2-lite-16b reduced, f32: 2 head-fused Flash-KD rounds
+               with kernels 9/10 and with their plain versions from the same
+               weights, deterministic algorithms (as phase 13), within 2e-4;
+               then at full width, 2 layers, f32: fedsdd K=2 R=2 over 4
+               clients, 2 rounds, head-fused Flash-KD, the ring in bf16, as
+               phase 14 drives gemma-2b: t_local, t_kd, the cache build, peak
+               memory (under 76 GB), captures, kernels 9/10's launches (20 a
+               round), a profiled KD step; then one vectorized round (K=2, 2
+               clients, its client engine stepped: the bucket program's
+               static buffers and graph pool for a 2-client stack of 4.34 GB
+               models do not fit beside the round) whose Eq. 2 launches
+               kernel 5 over the MoE tree, and kernel 5 against its plain
+               version over that tree at G = 2, N = 2, timed
+ 25. kernels   one JSON line per the port's kernel contract; kernel 12's
                entry is its bf16 row at qwen2.5-14b's width (the configs'
                dtype), with the f32 row beside it under "f32"; kernel 1's
                also gives "starcoder2_ms", its times in the two starcoder2-3b
@@ -201,9 +241,12 @@ Phases, each of which fails the run if it fails:
                vocabulary ("lm_ms", "lm_bound_ms", "lm_library_ms"); kernel
                5's is the tree call at the round's inputs, with the einsum
                over the leaves flattened ("flat_library_ms") and the same
-               inputs one launch a leaf ("before_loop_ms"); every entry's
+               inputs one launch a leaf ("before_loop_ms"), and under
+               "deepseek" its row over deepseek-v2-lite-16b's 2-layer tree
+               (phase 24); kernels 9 and 10's add "deepseek", their rows at
+               deepseek-v2-lite-16b's head (phase 12); every entry's
                "host_ms" is its wrapper's host time a call
- 22. ok        {"ok": true, "device": {...}} as the last line
+ 26. ok        {"ok": true, "device": {...}} as the last line
 
 Tolerances, paged_decode: f32 kernel vs plain at rtol = atol = 1e-5 (only
 the order of summation differs).  bf16 per (request, query head) row: the row's max
@@ -1756,7 +1799,9 @@ def flash_check(kd_ops, flash, label, s=None, h=None, w=None, b=None, z=None, ta
 def flash_phase(kd_ops, flash, seed: int) -> dict:
     """Kernels 7-10 against their plain versions; returns the rows timed at
     the LM path's shapes: 512 rows, V = 256,000 (gemma-2b), D = 2,048,
-    f32 student or head, bf16 cache with its lse, the tied head."""
+    f32 student or head, bf16 cache with its lse, the tied head; and under
+    "deepseek" kernels 9 and 10's rows at deepseek-v2-lite-16b's untied head
+    (V = 102,400)."""
     gen = torch.Generator(device=DEV).manual_seed(seed)
     f32, bf16 = torch.float32, torch.bfloat16
     timed = {}
@@ -1787,6 +1832,14 @@ def flash_phase(kd_ops, flash, seed: int) -> dict:
                 timed.update(rows)
         del embed
         torch.cuda.empty_cache()
+    # deepseek-v2-lite-16b's head: untied, V = 102,400, timed
+    V = 102400
+    w = rnd((D, V), 0.02)
+    timed["deepseek"] = flash_check(kd_ops, flash, f"512x{D}x{V} untied (deepseek-v2-lite-16b)",
+                                    h=rnd((512, D), 1), w=w, z=rnd((512, V), 3, bf16),
+                                    timed=True)
+    del w
+    torch.cuda.empty_cache()
     # ... and every option where it is cheap: untied, bias, f32 cache, no lse
     for B, V in ((5, 50304), (512, 517)):
         for tied in (True, False):
@@ -3031,6 +3084,458 @@ def robust_phase(fed, kd_ops, kd_ref, task, seed: int, card: str) -> dict:
     return dict(ran)
 
 
+# ---------------------------------------------------------------- phase 21
+FEDBE_SAMPLES = 10               # the fedbe preset's ensemble_extra_sampled
+SECURE_RTOL, SECURE_ATOL = 1e-3, 1e-4   # the reference's secure-aggregation test
+
+
+def fedbe_secure_phase(fed, task, seed: int, card: str) -> dict:
+    """Phase 21: one FedBE round and one secure fedsdd round on ResNet-56,
+    sequential engine; returns the kernels' launches over the phase."""
+    from repro_torch import kernels
+    from repro_torch.core import aggregation
+    kw = dict(num_clients=20, participation=0.4, client_batch=64, client_lr=0.05,
+              server_lr=0.05, temperature=4.0, local_epochs=1, distill_steps=200, seed=seed)
+    line = {"phase": "FedBE and secure aggregation, ResNet-56, one round each", "card": card}
+    kernels.reset()
+    with card_launches() as ran:
+        # (a) FedBE: the 8 clients, 10 posterior samples and the main aggregate teach
+        runner = fed.make_runner("fedbe", task, device=DEV, **kw)
+        drawn, counts = [], []
+        sample = runner._sample_posterior
+        distill = runner._distill_models
+
+        def recording_sample(models, sizes, n, s):
+            out = sample(models, sizes, n, s)
+            drawn.append((models, sizes, out))
+            return out
+
+        def counting_distill(new_globals, teachers, **k):
+            counts.append(len(teachers))
+            return distill(new_globals, teachers, **k)
+
+        runner._sample_posterior, runner._distill_models = recording_sample, counting_distill
+        state = runner.run(1)
+        del runner._sample_posterior, runner._distill_models
+        rec = state.history[-1]
+        models, sizes, samples = drawn[0]
+        # each sample's draws standardised by the stated Gaussian: N(0, 1)
+        mean = aggregation.fedavg_aggregate(models, sizes)
+        z_sum = z_sq = n_el = 0.0
+        for s in samples:
+            for m, xs, x in zip(_leaves(mean), zip(*[_leaves(mm) for mm in models]), _leaves(s)):
+                var = sum((y - m) ** 2 for y in xs) / max(1, len(xs) - 1)
+                live = var > 0
+                z = ((x - m)[live] / var[live].sqrt()).double()
+                z_sum, z_sq, n_el = z_sum + float(z.sum()), z_sq + float((z * z).sum()), \
+                    n_el + z.numel()
+        z_mean = z_sum / n_el
+        z_var = z_sq / n_el - z_mean ** 2
+        line["fedbe"] = {"teachers": counts, "clients": len(models),
+                         "samples": len(samples), "t_local_s": rec["t_local"],
+                         "t_kd_s": rec["t_kd"], "acc_main": rec["acc_main"],
+                         "kd_loss_last": rec["kd_loss_last"],
+                         "standardised_draws": {"n": n_el, "mean": z_mean, "var": z_var,
+                                                "stated": "N(0, 1)"}}
+        check(counts == [len(models) + FEDBE_SAMPLES + 1] and len(models) == 8,
+              f"FedBE: {counts} teachers for {len(models)} clients")
+        check(abs(z_mean) < 1e-2 and abs(z_var - 1) < 1e-2,
+              f"FedBE: posterior draws standardise to mean {z_mean}, var {z_var}")
+        check(math.isfinite(rec["kd_loss_last"]), "FedBE: non-finite KD loss")
+        del runner, state, drawn, models, samples, mean
+
+        # (b) fedsdd with secure aggregation: every group's masked mean
+        # against plain Eq. 2 over the same client models
+        calls = []
+        secure = fed.secure_aggregate
+
+        def checked_secure(models, sizes, seed=0):
+            out, uploads = secure(models, sizes, seed=seed)
+            plain = aggregation.fedavg_aggregate(models, sizes)
+            calls.append({
+                "clients": len(models),
+                "max_abs_err_vs_plain": _tree_err(out, plain),
+                "within_tol": all(torch.allclose(a, b, rtol=SECURE_RTOL, atol=SECURE_ATOL)
+                                  for a, b in zip(_leaves(out), _leaves(plain))),
+                "min_upload_distance": min(_tree_err(u, m) for u, m in zip(uploads, models))})
+            return out, uploads
+
+        fed.secure_aggregate = checked_secure
+        try:
+            runner = fed.make_runner("fedsdd", task, device=DEV, K=4, R=2,
+                                     secure_aggregation=True, **kw)
+            state = runner.run(1)
+        finally:
+            fed.secure_aggregate = secure
+        rec = state.history[-1]
+        line["secure"] = {"groups": calls, "t_local_s": rec["t_local"], "t_kd_s": rec["t_kd"],
+                          "acc_main": rec["acc_main"], "kd_loss_last": rec["kd_loss_last"],
+                          "rtol": SECURE_RTOL, "atol": SECURE_ATOL}
+        check(len(calls) == 4 and all(c["within_tol"] for c in calls),
+              f"secure aggregation: the aggregate is not plain Eq. 2: {calls}")
+        check(all(c["min_upload_distance"] > 1.0 for c in calls),
+              f"secure aggregation: an upload is near its raw model: {calls}")
+        check(all(bool(x.isfinite().all()) for m in state.global_models for x in _leaves(m)),
+              "secure aggregation: non-finite weights")
+        del runner, state
+    line["launches"] = dict(ran)
+    print(json.dumps(line), flush=True)
+    check(all(ran.get(n, 0) > 0 for n in ("ensemble_softmax", "kd_loss_fwd", "kd_loss_bwd")),
+          f"FedBE / secure phase: a kernel of its path did not run: {dict(ran)}")
+    torch.cuda.empty_cache()
+    return dict(ran)
+
+
+# ---------------------------------------------------------------- phase 22
+DEEPSEEK = "deepseek-v2-lite-16b"
+NO_DROPS = 64.0                  # capacity factor of tests/test_decode_consistency.py
+
+
+def deepseek_f32_phase(zoo, get_config, serve, seed: int) -> None:
+    """Phase 22: deepseek-v2-lite-16b at full width, f32, 2 layers, no
+    drops: the static path's greedy tokens are the argmax of a full forward
+    over the prompt and the tokens before, and its absorbed MLA decode
+    within f32 noise of the expanded form (the forward's logits)."""
+    import dataclasses
+    base = get_config(DEEPSEEK)
+    cfg = dataclasses.replace(base, num_layers=2, param_dtype="float32",
+                              compute_dtype="float32",
+                              moe=dataclasses.replace(base.moe, capacity_factor=NO_DROPS))
+    model = zoo.build_model(cfg)
+    params = model.init(seed, device=DEV)
+    B, L, new = 2, 32, 16
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    prompts = torch.randint(0, cfg.vocab_size, (B, L), generator=gen, device=DEV,
+                            dtype=torch.int32)
+    out = serve.generate_static(model, params, prompts, new)
+    with torch.no_grad():
+        seq = torch.cat([prompts, out[:, :-1]], dim=1)
+        full, _ = model.logits(params, {"tokens": seq})
+        want = full[:, L - 1:].argmax(-1).to(torch.int32)
+        # the absorbed decode's logits over the same tokens
+        cache = model.init_cache(B, L + new, device=DEV)
+        dec = torch.stack([model.decode_step(params, seq[:, t:t + 1], cache, t)[0]
+                           for t in range(L + new - 1)], dim=1)
+    err = float((dec - full).abs().max())
+    scale = float(full.abs().max())
+    row = {"phase": "deepseek-v2-lite-16b full width, f32, 2 layers, no drops",
+           "schedule": [f"{k.mixer}/{k.ffn}" for k in model.schedule],
+           "prefix_period": list(model.prefix_period), "tokens": B * new,
+           "identical_tokens": bool(torch.equal(out, want)),
+           "decode_vs_forward_max_abs_err": err, "logit_scale": scale,
+           "tol": 1e-4 * scale}
+    print(json.dumps(row), flush=True)
+    check(row["identical_tokens"], f"deepseek f32: static tokens {out.tolist()} != forward "
+                                   f"argmax {want.tolist()}")
+    check(err <= 1e-4 * scale, f"deepseek f32: absorbed decode {err} from the expanded "
+                               f"form (scale {scale})")
+    del params, model, full, dec, cache
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- phase 23
+HBM_EXPERT_NOTE = "every step reads all 64 experts' weights: capacity 8 a group of 8 tokens"
+LAYER_RANGES = ("moe_ffn", "mla_decode")
+
+
+def _timed_static(serve, model, params, prompts, new: int) -> tuple:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = serve.generate_static(model, params, prompts, new)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def deepseek_serve_phase(zoo, get_config, serve, seed: int, card: str) -> None:
+    """Phase 23: deepseek-v2-lite-16b as configured (27 layers, bf16) serves
+    8 prompts of 256 tokens through the static path, 32 new tokens each."""
+    from unittest import mock
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    cfg = get_config(DEEPSEEK)
+    model = zoo.build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed, device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nbytes = sum(x.numel() * x.element_size() for x in _leaves(params))
+    moe_layers = sum(cfg.moe_layer_flags())
+    expert_bytes = sum(x.numel() * x.element_size()         # the 26 layers' banks, stacked
+                       for k, x in params["blocks"]["b0"]["moe"].items()
+                       if k in ("w_in", "w_gate", "w_out"))
+    B, L, new = 8, 256, 32
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    prompts = torch.randint(0, cfg.vocab_size, (B, L), generator=gen, device=DEV,
+                            dtype=torch.int32)
+    _timed_static(serve, model, params, prompts[:, :16], 2)          # warm the kernels
+    _, ttft = _timed_static(serve, model, params, prompts, 1)       # prefill + first token
+    out, total = _timed_static(serve, model, params, prompts, new)
+    check(tuple(out.shape) == (B, new) and int(out.min()) >= 0
+          and int(out.max()) < cfg.vocab_size, f"deepseek serve: tokens {tuple(out.shape)}")
+
+    # one decode step at the end of those sequences: wall on the host clock,
+    # device time by kernel under torch.profiler with the MoE FFN and the MLA
+    # decode in named ranges
+    with torch.no_grad():
+        seq = torch.cat([prompts, out], dim=1)
+        logits, cache = model.prefill(params, {"tokens": torch.nn.functional.pad(seq, (0, 8))},
+                                      last=torch.full((B,), L + new - 1, device=DEV))
+        tok = logits.argmax(-1).to(torch.int32)[:, None]
+        pos = L + new
+        model.decode_step(params, tok, cache, pos)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reps = 4
+        for i in range(reps):
+            model.decode_step(params, tok, cache, pos + 1 + i)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+        moe_ffn, mla_decode = zoo.moe_lib.moe_ffn, zoo.attn.mla_decode
+
+        def named(label, fn):
+            def run(*a, **k):
+                with record_function(label):
+                    return fn(*a, **k)
+            return run
+
+        with mock.patch.object(zoo.moe_lib, "moe_ffn", named("moe_ffn", moe_ffn)), \
+                mock.patch.object(zoo.attn, "mla_decode", named("mla_decode", mla_decode)), \
+                profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            model.decode_step(params, tok, cache, pos + 1 + reps)
+            torch.cuda.synchronize()
+    # the named ranges show on the device as spans of their own: each kernel
+    # goes to the range whose span holds its start
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in events
+             if e.name in LAYER_RANGES]
+    kern = [e for e in events if e.name not in LAYER_RANGES]
+    ranges = dict.fromkeys(LAYER_RANGES, 0.0)
+    for e in kern:
+        for name, lo, hi in spans:
+            if lo <= e.time_range.start < hi:
+                ranges[name] += (e.time_range.end - e.time_range.start) / 1e3
+                break
+    device_ms = sum(e.time_range.end - e.time_range.start for e in kern) / 1e3
+    busy_ms = union_ms(kern)
+    bound_ms = (nbytes - params["embed"].numel() * params["embed"].element_size()) \
+        / HBM_BYTES_PER_S * 1e3
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and e.key not in LAYER_RANGES]
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    row = {"phase": "deepseek-v2-lite-16b as configured, bf16, 27 layers: static serve",
+           "card": card, "params": sum(x.numel() for x in _leaves(params)),
+           "weights_gb": nbytes / 1e9, "init_s": init_s, "requests": B, "prompt_tokens": L,
+           "new_tokens": new, "tokens_per_s": B * new / total, "ttft_s": ttft,
+           "total_s": total, "decode_step_wall_ms": wall_ms,
+           "decode_step_device_ms": device_ms,
+           "decode_step_busy_ms": busy_ms,
+           "decode_step_idle_share": 1 - busy_ms / wall_ms,
+           "device_ms_moe_layers": ranges["moe_ffn"],
+           "device_ms_mla_layers": ranges["mla_decode"],
+           "moe_layers": moe_layers, "expert_weights_gb": expert_bytes / 1e9,
+           "expert_bytes_bound_ms": expert_bytes / HBM_BYTES_PER_S * 1e3,
+           "decode_step_bytes_bound_ms": bound_ms, "bound_note": HBM_EXPERT_NOTE,
+           "kernel_launches": sum(e.count for e in kern),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "top_kernels": [{"name": e.key[:80], "count": e.count,
+                            "ms": e.self_device_time_total / 1e3} for e in top]}
+    print(json.dumps(row), flush=True)
+    check(row["device_ms_moe_layers"] and row["device_ms_mla_layers"],
+          f"deepseek serve: no device time in the MoE or MLA ranges: {ranges}")
+    check(bool(logits.isfinite().all()), "deepseek serve: non-finite logits")
+    del params, model, cache, logits, prof
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- phase 24
+def deepseek_round_phase(fed, kd_ops, flash, seed: int) -> dict:
+    """deepseek-v2-lite-16b ``reduced()``, f32: 2 head-fused Flash-KD rounds
+    with the kernels and with their plain versions from the same weights,
+    under deterministic algorithms (as phase 13 for gemma-2b)."""
+    from contextlib import nullcontext
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.tasks import lm_task
+    from repro_torch.utils.pytree import tree_map
+    task = lm_task(get_config(DEEPSEEK).reduced(), num_clients=4, docs_per_client=8, seq=128,
+                   server_batches_n=2, server_batch=4, seed=seed, device=DEV)
+    kw = dict(K=2, R=2, num_clients=4, participation=1.0, local_epochs=1, client_batch=4,
+              distill_steps=20, client_lr=0.01, server_lr=0.01, kd_kernel="flash",
+              kd_head_fusion=True, teacher_cache_dtype="float32", seed=seed)
+    init = fed.make_runner("fedsdd", task, device=DEV, **kw).init_state().global_models
+    out = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for label in ("kernels", "plain"):
+            runner = fed.make_runner("fedsdd", task, device=DEV, **kw)
+            state = fed.FedState(round=0, global_models=[tree_map(torch.clone, m) for m in init],
+                                 ensemble=fed.TeacherBank(2, 2))
+            kernels.reset()
+            with plain_flash(kd_ops, flash) if label == "plain" else nullcontext(), \
+                    card_launches() as ran:
+                state = runner.run(2, state=state)
+            out[label] = (state, dict(ran))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    a, b = out["kernels"][0], out["plain"][0]
+    err = _tree_err(a.global_models[0], b.global_models[0])
+    rest = all(torch.equal(x, y) for x, y in zip(_leaves(a.global_models[1]),
+                                                 _leaves(b.global_models[1])))
+    steps = 2 * kw["distill_steps"]
+    row = {"phase": "f32 LM rounds (deepseek-v2-lite-16b reduced), kernels vs plain",
+           "tol": ROUND_TOL, "main_max_abs_err": err, "model_1_bit_identical": rest,
+           "launches": {k: v[1] for k, v in out.items()},
+           "kd_loss_last": [r["kd_loss_last"] for r in a.history],
+           "kd_loss_last_plain": [r["kd_loss_last"] for r in b.history]}
+    print(json.dumps(row), flush=True)
+    check(err <= ROUND_TOL and rest, f"deepseek reduced rounds: kernels vs plain {row}")
+    check(out["kernels"][1] == {"flash_kd_head_fwd": steps, "flash_kd_head_bwd": steps}
+          and out["plain"][1] == {}, f"deepseek reduced rounds: launches {row['launches']}")
+    return out["kernels"][1]
+
+
+def deepseek_fedsdd_phase(fed, wa_ops, wa_ref, seed: int, card: str) -> dict:
+    """Phase 24: deepseek-v2-lite-16b at full width, 2 layers (the dense
+    layer 0 and one MoE layer), f32.  First one vectorized round (K=2, 2 of
+    4 clients, no KD steps) whose Eq. 2 launches kernel 5 over the MoE tree,
+    and kernel 5 against its plain version over that tree at G = 2, N = 2;
+    then FedSDD with head-fused Flash-KD and the ring in bf16, sequential
+    (K=2, R=2, 4 clients, 2 rounds, as phase 14 drives gemma-2b), and the
+    round's KD program profiled.  Returns the phase's line."""
+    import dataclasses
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.tasks import lm_task
+    from repro_torch.utils.pytree import tree_map
+    cfg = dataclasses.replace(get_config(DEEPSEEK), num_layers=2, param_dtype="float32",
+                              compute_dtype="float32")
+    n_params = cfg.num_params()
+    # the reckoning before the run: K old and K new globals and the 4 clients
+    # in f32, the K·R ring in bf16
+    line = {"phase": "deepseek-v2-lite-16b full width, 2 layers, FedSDD", "card": card,
+            "params_per_model": n_params, "model_gb_f32": n_params * 4 / 1e9,
+            "reckoned_gb": (8 * n_params * 4 + 4 * n_params * 2) / 1e9}
+    task = lm_task(cfg, num_clients=4, docs_per_client=8, seq=128, server_batches_n=2,
+                   server_batch=4, seed=seed, device=DEV)
+    steps_kd = 20
+    kw = dict(num_clients=4, client_batch=4, local_epochs=1, client_lr=0.01, server_lr=0.01,
+              kd_kernel="flash", kd_head_fusion=True, teacher_dtype="bfloat16", seed=seed)
+
+    # (1) the vectorized round: its client engine stepped and no KD steps
+    # (the bucket program's static buffers, graph pool and clones of the
+    # 2-client stack, or a KD beside the round's stacks, do not fit)
+    runner = fed.make_runner("fedsdd", task, device=DEV, K=2, R=1, participation=0.5,
+                             execution="vectorized", distill_steps=0, **kw)
+    state = runner.init_state()
+    kernels.reset()
+    torch.cuda.reset_peak_memory_stats()
+    with step_mode("stepped"), card_launches() as ran:
+        state = runner.run(1, state=state)
+    rec = state.history[-1]
+    line["vectorized"] = {"active": rec["active"], "t_local_s": rec["t_local"],
+                          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                          "launches": dict(ran)}
+    check(ran.get("multi_weighted_average") == 1,
+          f"deepseek vectorized round: launches {dict(ran)}")
+    check(line["vectorized"]["peak_mem_gb"] < 76.0, f"deepseek vectorized: {line['vectorized']}")
+    # kernel 5 over the MoE tree against its plain version: G = 2 groups of
+    # N = 2 made of the round's two new globals, leaf by leaf
+    g0, g1 = state.global_models
+    del runner, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    tree = tree_map(lambda a, b: torch.stack([torch.stack([a, b]), torch.stack([b, a])]), g0, g1)
+    del g0, g1
+    w = torch.randint(1, 100, (2, 2), generator=gen, device=DEV).float()
+    line["kernel_5_moe_tree"] = wa_tree_check(
+        wa_ops, wa_ref, "deepseek-v2-lite-16b 2-layer tree (G=2, N=2)", tree, w)
+    del tree
+    torch.cuda.empty_cache()
+
+    # (2) the sequential rounds with head-fused Flash-KD
+    t0 = time.perf_counter()
+    runner = fed.make_runner("fedsdd", task, device=DEV, K=2, R=2, participation=1.0,
+                             distill_steps=steps_kd, **kw)
+    state = runner.init_state()
+    torch.cuda.synchronize()
+    line["init_s"] = time.perf_counter() - t0
+    pipe = runner._kd_pipeline()
+    check(pipe.head_fused and pipe.cache_dtype == torch.bfloat16,
+          "deepseek: the KD pipeline is not head-fused with a bf16 cache")
+    cache_s = []
+    build_cache = pipe.precompute_cache
+
+    def timed_cache(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = build_cache(*a, **k)
+        torch.cuda.synchronize()
+        cache_s.append(time.perf_counter() - t)
+        return r
+
+    pipe.precompute_cache = timed_cache
+    rounds = []
+    kernels.reset()
+    for _ in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        t0, captures0 = time.perf_counter(), captured()
+        with card_launches() as ran:
+            state = runner.run(1, state=state)
+        rec = state.history[-1]
+        rounds.append({"round": rec["round"], "captures": captured() - captures0,
+                       "t_round_s": time.perf_counter() - t0, "t_local_s": rec["t_local"],
+                       "t_kd_s": rec["t_kd"], "t_cache_s": cache_s[-1],
+                       "kd_loss_first": rec["kd_loss_first"], "kd_loss_last": rec["kd_loss_last"],
+                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "graph_pool_gb": graph_pool_gb(), "launches": dict(ran)})
+    del pipe.precompute_cache, timed_cache, build_cache     # no pipeline kept past the phase
+    line["sequential"] = rounds
+    print(json.dumps(line), flush=True)
+    check(rounds[1]["captures"] == 0, f"deepseek: round 2 captured {rounds[1]['captures']}")
+    check(all(r["launches"].get("flash_kd_head_fwd") == steps_kd
+              and r["launches"].get("flash_kd_head_bwd") == steps_kd for r in rounds),
+          f"deepseek: kernels 9/10 not launched {steps_kd} times a round on the card: "
+          f"{[r['launches'] for r in rounds]}")
+    check(all(math.isfinite(r["kd_loss_last"]) for r in rounds)
+          and all(bool(x.isfinite().all()) for m in state.global_models for x in _leaves(m)),
+          f"deepseek: non-finite KD losses or weights {rounds}")
+    check(state.ensemble.num_members == 4, "deepseek: the ring does not hold 4 teachers")
+    check(max(r["peak_mem_gb"] for r in rounds) < 76.0, f"deepseek: peak above 76 GB {rounds}")
+
+    # where a KD step's time goes: the round's own KD program (20 steps)
+    batches = pipe.batches_for(task.server_batches)
+    student = state.global_models[0]
+    cache = pipe._cache(student, state.ensemble.member_views(), batches)
+    pipe._run(student, batches, cache)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe._run(student, batches, cache)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps_kd
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pipe._run(student, batches, cache)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    groups = {k: ms / steps_kd for k, ms in _kd_groups(kern).items()}
+    busy = busy_ms_of(prof) / steps_kd
+    line["kd_step"] = {"rows": 512, "wall_ms": wall_ms, "busy_ms": busy,
+                       "idle_share": 1 - busy / wall_ms, "device_ms_by_group": groups}
+    print(json.dumps({"phase": "profile: 20 head-fused KD steps, deepseek-v2-lite-16b "
+                      "full width, 512 rows", "card": card, **line["kd_step"]}), flush=True)
+    check(groups["flash_kd_head_fwd"] > 0 and groups["flash_kd_head_bwd"] > 0,
+          f"deepseek profile: no device time for kernels 9/10: {groups}")
+    del cache, student, pipe, runner, state, kern, prof
+    torch.cuda.empty_cache()
+    return line
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3124,12 +3629,18 @@ def main() -> int:
     phase("14. gemma-2b full width, FedSDD with head-fused Flash-KD")
     fused_launches = gemma_phase(fed, args.seed, card)
     path_launches = {**unfused_launches, **fused_launches}
+    deepseek_rows = flash_rows.pop("deepseek")
     flash_entries = [{"name": name, "route": "cuda", "source": FLASH_SOURCE,
                       "replaces": FLASH_TPU[name], "launches": path_launches.get(name, 0),
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"], "host_ms": r["host_ms"],
                       "plain_ms": r["plain_ms"],
                       "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                       "library_ms": r["library_ms"]} for name, r in flash_rows.items()]
+    for e in flash_entries:     # kernels 9 and 10 at deepseek-v2-lite-16b's head
+        if e["name"] in deepseek_rows:
+            r = deepseek_rows[e["name"]]
+            e["deepseek"] = {k: r[k] for k in ("case", "max_abs_err", "ms", "plain_ms",
+                                               "bound_ms", "bound_by", "library_ms")}
     check(all(e["launches"] > 0 for e in flash_entries),
           f"a Flash-KD kernel did not run on its path: {path_launches}")
 
@@ -3160,9 +3671,26 @@ def main() -> int:
 
     phase("20. robustness: faults, robust Eq. 2, trust-weighted teachers, kill and restart")
     robust_phase(fed, kd_ops, kd_ref, r56, args.seed, card)
+
+    phase("21. FedBE and secure aggregation on ResNet-56, one round each")
+    fedbe_secure_phase(fed, r56, args.seed, card)
     del r56
 
-    phase("21. kernels")
+    phase("22. deepseek-v2-lite-16b full width, f32, 2 layers: static == forward argmax")
+    deepseek_f32_phase(zoo, get_config, serve, args.seed)
+
+    phase("23. deepseek-v2-lite-16b full width, bf16, 27 layers: static serve")
+    deepseek_serve_phase(zoo, get_config, serve, args.seed, card)
+
+    phase("24. deepseek-v2-lite-16b full width, 2 layers, FedSDD with head-fused Flash-KD")
+    deepseek_round_phase(fed, kd_ops, flash, args.seed)
+    ds = deepseek_fedsdd_phase(fed, wa_ops, wa_ref, args.seed, card)
+    wa_entry["deepseek"] = {k: ds["kernel_5_moe_tree"][k]
+                            for k in ("case", "leaves", "shape", "max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms")}
+    wa_entry["deepseek"]["launches"] = ds["vectorized"]["launches"]["multi_weighted_average"]
+
+    phase("25. kernels")
     print(f"total {time.perf_counter() - T_START:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [entry, *kd_entries, wa_entry, single_entry,

@@ -108,14 +108,71 @@ class ModelConfig:
     def cdtype(self) -> torch.dtype:
         return getattr(torch, self.compute_dtype)
 
+    def moe_layer_flags(self) -> list[bool]:
+        """Per-layer is-MoE flags from the MoE schedule."""
+        if self.moe is None:
+            return [False] * self.num_layers
+        flags = []
+        for i in range(self.num_layers):
+            if i < self.moe.first_dense_layers:
+                flags.append(False)
+            else:
+                flags.append(((i - self.moe.first_dense_layers) % self.moe.layer_period) == 0)
+        return flags
+
+    def attn_layer_flags(self) -> list[bool]:
+        """Per-layer uses-attention flags (hybrid archs)."""
+        if self.family in ("ssm",):
+            return [False] * self.num_layers
+        if self.family == "hybrid" and self.ssm is not None and self.ssm.attn_period > 0:
+            return [(i % self.ssm.attn_period) == (self.ssm.attn_period - 1)
+                    for i in range(self.num_layers)]
+        return [True] * self.num_layers
+
     def num_params(self) -> int:
-        """Analytic parameter count of a dense GQA model (biases excluded)."""
+        """Analytic parameter count (the reference's formula, biases excluded)."""
         D, F, V, L = self.d_model, self.d_ff, self.vocab_size, self.num_layers
         H, Hkv, dh = self.num_heads, self.num_kv_heads, self.head_dim
         n = V * D * (1 if self.tie_embeddings else 2)
         mult = 3 if self.mlp_variant in ("swiglu", "geglu") else 2
-        n += L * (2 * D + D * H * dh + 2 * D * Hkv * dh + H * dh * D + mult * D * F)
+        attn_flags = self.attn_layer_flags()
+        moe_flags = self.moe_layer_flags()
+        for i in range(L):
+            n += 2 * D                 # two norms
+            if attn_flags[i]:
+                if self.mla is not None:
+                    m = self.mla
+                    n += D * (H * (m.nope_head_dim + m.rope_head_dim))   # q proj
+                    n += D * (m.kv_lora_rank + m.rope_head_dim)         # kv down
+                    n += m.kv_lora_rank * H * (m.nope_head_dim + m.v_head_dim)
+                    n += H * m.v_head_dim * D                           # out
+                else:
+                    n += D * H * dh + 2 * D * Hkv * dh + H * dh * D
+            elif self.ssm is not None:
+                n += self._ssm_block_params()
+            if self.family == "ssm":
+                pass                    # ssm blocks have no separate FFN
+            elif moe_flags[i]:
+                m = self.moe
+                n += (m.num_experts + m.num_shared_experts) * mult * D * m.d_ff_expert
+                n += D * m.num_experts  # router
+            else:
+                n += mult * D * F
+        if self.family == "ssm":
+            n += L * self._ssm_block_params()
+        if self.frontend_dim:
+            n += self.frontend_dim * D * 2
         return n
+
+    def _ssm_block_params(self) -> int:
+        if self.ssm is None:
+            return 0
+        D = self.d_model
+        if self.ssm.variant == "xlstm":
+            return 4 * D * D + 3 * D * self.num_heads
+        di = self.ssm.expand * D
+        ds = self.ssm.d_state
+        return 2 * D * di + di * self.ssm.d_conv + di * (2 * ds + 1) + di * D
 
     # ---- smoke-scale variant ------------------------------------------
     def reduced(self) -> "ModelConfig":
@@ -201,8 +258,9 @@ def _ensure_loaded() -> None:
         return
     _LOADED = True
     import importlib
-    # the dense all-GQA architectures the port serves (starcoder2-3b with
-    # sliding-window attention); the MoE, MLA, SSM and frontend families
-    # come with the slices that port those mixers
-    for m in ("gemma_2b", "stablelm_3b", "qwen2_5_14b", "starcoder2_3b"):
+    # the dense all-GQA architectures (starcoder2-3b with sliding-window
+    # attention) and deepseek-v2-lite-16b (MLA + MoE); the SSM and frontend
+    # families come with the slices that port those mixers
+    for m in ("gemma_2b", "stablelm_3b", "qwen2_5_14b", "starcoder2_3b",
+              "deepseek_v2_lite_16b"):
         importlib.import_module(f"repro_torch.configs.{m}")

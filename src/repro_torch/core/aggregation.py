@@ -10,8 +10,12 @@ group-major groups on a CUDA device go through the ``weight_avg`` kernel
 faults, ``fedavg_aggregate_grouped_masked`` restricts Eq. 2 to the
 surviving clients (``survivor_group_weights``); a round whose clients all
 survive short-circuits to ``fedavg_aggregate_grouped``, kernel 5 on a
-card.  Secure aggregation's masks are drawn with ``jax.random`` and are
-not ported yet.
+card.  Secure aggregation (``secure_aggregate``) is the reference's
+simulated Bonawitz-style protocol: antisymmetric pairwise masks, each
+client uploading ``w_i + m_i / ŵ_i``, the server averaging the uploads.
+The masks are ``seeded_normal`` draws seeded from (seed, i, j, leaf) where
+the reference uses ``jax.random``: the same construction, equal in
+distribution, not in value.
 """
 from __future__ import annotations
 
@@ -21,8 +25,9 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.weight_avg import ops as wops
-from repro_torch.utils.pytree import (tree_group_weighted_mean, tree_leaves, tree_map,
-                                      tree_stacked_weighted_mean, tree_weighted_mean)
+from repro_torch.utils.pytree import (seeded_normal, tree_group_weighted_mean, tree_leaves,
+                                      tree_map, tree_stacked_weighted_mean,
+                                      tree_weighted_mean, tree_zeros_like)
 
 PyTree = Any
 
@@ -127,3 +132,40 @@ def fedavg_aggregate_grouped_masked(
         agg = tree_map(lambda a, f: a.index_copy(0, idx, f.index_select(0, idx).to(a.dtype)),
                        agg, fallback_stacked)
     return agg, empty
+
+
+# ---------------------------------------------------------------- secure agg
+def pairwise_masks(models: Sequence[PyTree], seed: int) -> list[PyTree]:
+    """Antisymmetric pairwise masks: client i adds Σ_{j>i} r_ij − Σ_{j<i} r_ji.
+    Masks cancel exactly in the (weighted) sum."""
+    n = len(models)
+    like = models[0]
+    masks = [tree_zeros_like(like) for _ in range(n)]
+    for i in range(n):
+        for j in range(i + 1, n):
+            leaves = iter(range(len(tree_leaves(like))))
+            r = tree_map(lambda x: seeded_normal((seed, i, j, next(leaves)), x.shape,
+                                                 x.device).to(x.dtype), like)
+            masks[i] = tree_map(torch.add, masks[i], r)
+            masks[j] = tree_map(torch.sub, masks[j], r)
+    return masks
+
+
+def secure_aggregate(models: Sequence[PyTree], num_samples: Sequence[int],
+                     seed: int = 0) -> tuple[PyTree, list[PyTree]]:
+    """Simulated Bonawitz-style secure aggregation.
+
+    Each client uploads w_i + m_i / ŵ_i where the masks are antisymmetric
+    *after* weighting, so the weighted mean of the uploads equals Eq. 2 while
+    every individual upload is noise to the server.  Returns
+    (aggregate, uploaded_masked_models) so tests can assert both properties.
+    """
+    w = np.asarray(num_samples, np.float64)  # lint-ok: RA101 host counts
+    w = w / w.sum()
+    masks = pairwise_masks(models, seed)
+    uploads = []
+    for i, (m, msk) in enumerate(zip(models, masks)):
+        # divide the mask by this client's weight so weighting cancels it
+        uploads.append(tree_map(lambda x, r, i=i: x + (r / w[i]).to(x.dtype), m, msk))
+    agg = tree_weighted_mean(uploads, w)
+    return agg, uploads

@@ -46,7 +46,7 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.utils.pytree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.utils.pytree import seeded_normal, tree_leaves, tree_map, tree_unflatten
 
 PyTree = Any
 
@@ -230,11 +230,8 @@ def gauss_noise(plan: FaultPlan, round_idx: int, cid: int, leaf: int, shape,
     """The gauss attack's standard normal draws for one leaf of one client:
     a CPU generator seeded from (seed, round, cid, leaf), then a copy to
     ``device``, so every engine, device and restart draws the same."""
-    state = np.random.SeedSequence(
-        [int(plan.seed) & 0xFFFFFFFF, int(round_idx) & 0x7FFFFFFF,
-         int(cid) & 0x7FFFFFFF, int(leaf)]).generate_state(2, np.uint32)
-    gen = torch.Generator().manual_seed(int(state[0]) << 31 | int(state[1]) >> 1)
-    return torch.randn(tuple(shape), generator=gen, dtype=torch.float32).to(device)
+    return seeded_normal([int(plan.seed) & 0xFFFFFFFF, int(round_idx) & 0x7FFFFFFF,
+                          int(cid) & 0x7FFFFFFF, int(leaf)], shape, device)
 
 
 def _attack_leaf(plan: FaultPlan, x: torch.Tensor, ref: torch.Tensor, noise) -> torch.Tensor:

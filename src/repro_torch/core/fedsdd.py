@@ -24,7 +24,12 @@ statistic (``aggregator``, ``clip_norm``: ``core/robust_agg.py``);
 ``teacher_trust`` weights the KD teachers by their agreement; the
 spilling client store keeps O(sampled) clients resident; and
 ``save_state`` / ``restore_state`` checkpoint the whole state, a pending KD
-job included, so that a killed run resumes bit for bit.  An option the
+job included, so that a killed run resumes bit for bit.  FedBE
+(``ensemble_extra_sampled``) adds Gaussian posterior samples around the
+clients' mean and the main aggregate to the client teachers;
+``secure_aggregation`` averages masked uploads on the sequential engine
+(the reference's vectorized Eq. 2 never masks, and neither does the
+port's: there the flag runs plain Eq. 2).  An option the
 reference takes but this port does not run yet raises
 ``NotImplementedError`` naming the slice that brings it, after the
 reference's own checks; nothing runs something else quietly.
@@ -48,7 +53,8 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.core import distillation, round_plan
 from repro_torch.core import faults as faults_lib
-from repro_torch.core.aggregation import fedavg_aggregate, fedavg_aggregate_grouped_masked
+from repro_torch.core.aggregation import (fedavg_aggregate, fedavg_aggregate_grouped_masked,
+                                         secure_aggregate)
 from repro_torch.core.client_store import ClientStore, make_client_store
 from repro_torch.core.engine import (VectorizedClientEngine, aggregate_groups,
                                      build_round_entries, entry_pad_hints,
@@ -62,7 +68,8 @@ from repro_torch.fedckpt import checkpointer as fedckpt
 from repro_torch.optim.optimizers import (Optimizer, advance_steps, apply_updates,
                                           scaffold_new_control, sgd, value_and_grad,
                                           with_fedprox, with_scaffold)
-from repro_torch.utils.pytree import tree_map, tree_stack, tree_zeros_like
+from repro_torch.utils.pytree import (seeded_normal, tree_concat, tree_leaves, tree_map,
+                                      tree_stack, tree_zeros_like)
 
 PyTree = Any
 
@@ -226,8 +233,9 @@ class FedConfig:
                     f"FedConfig: {slice_}; this slice of the port runs the "
                     f"sequential and vectorized engines with the fused KD "
                     f"pipeline (dense or Flash-KD, overlapped or not) or the "
-                    f"legacy host loop, with faults, robust aggregation, "
-                    f"trust-weighted teachers and either client store")
+                    f"legacy host loop, with FedBE, secure aggregation, faults, "
+                    f"robust aggregation, trust-weighted teachers and either "
+                    f"client store")
 
     def _unported(self):
         """(condition, what and which later slice brings it) for each valid
@@ -237,13 +245,6 @@ class FedConfig:
              "client_sharding='shard_map' (the client axis over several cards) "
              "arrives with the torch.distributed slice; on one card 'auto' and "
              "'vmap' run vmap"),
-            (self.secure_aggregation,
-             "secure_aggregation arrives with the FedBE and secure-aggregation "
-             "slice (its masks are drawn with jax.random, which no port "
-             "matches bit for bit)"),
-            (self.ensemble_extra_sampled > 0,
-             "ensemble_extra_sampled > 0 (FedBE) arrives with the FedBE and "
-             "secure-aggregation slice (its posterior draws use jax.random)"),
         )
 
 
@@ -462,6 +463,23 @@ class FederatedRunner:
                 self.task.loss_fn, self._make_optimizer(),
                 client_sharding=self.cfg.client_sharding, graphs=self.graphs)
         return self._engine
+
+    def _sample_posterior(self, models, sizes, n_samples: int, seed: int) -> list[PyTree]:
+        """FedBE-style Gaussian posterior samples around the weighted mean:
+        sample i is mean + sqrt(var)·z, var the elementwise unbiased variance
+        of ``models`` around the mean and z ``seeded_normal`` draws seeded
+        from (seed, i, leaf) (the reference draws from ``jax.random``)."""
+        mean = fedavg_aggregate(models, sizes)
+        var = tree_map(lambda m, *xs: sum((x - m) ** 2 for x in xs) / max(1, len(xs) - 1),
+                       mean, *models)
+        out = []
+        for i in range(n_samples):
+            leaves = iter(range(len(tree_leaves(mean))))
+            out.append(tree_map(
+                lambda m, v: m + torch.sqrt(v.clamp(min=0)).to(m.dtype)
+                * seeded_normal((seed, i, next(leaves)), m.shape, m.device).to(m.dtype),
+                mean, var))
+        return out
 
     # ---- distillation phase (Eq. 3-4) -------------------------------------
     def _kd_pipeline(self) -> KDPipeline:
@@ -790,7 +808,14 @@ class _SequentialRoundOps:
                 new_globals.append(self.state.global_models[k])
                 self.degraded.append(k)
                 continue
-            agg = fedavg_aggregate([self.models[e.pos] for e in live], [e.n for e in live])
+            if cfg.secure_aggregation:
+                # the server sees the masked uploads only (no faults here:
+                # FedConfig refuses secure aggregation with active faults)
+                agg, _uploads = secure_aggregate([self.models[e.pos] for e in live],
+                                                 [e.n for e in live], seed=self.t)
+            else:
+                agg = fedavg_aggregate([self.models[e.pos] for e in live],
+                                       [e.n for e in live])
             if rf is not None and rf.plan.zero_fill:
                 frac = sum(e.n for e in live) / sum(e.n for e in ents)
                 agg = tree_map(lambda x: (x * frac).to(x.dtype)
@@ -834,11 +859,23 @@ class _SequentialRoundOps:
     def _client_teachers(self, new_globals) -> list:
         """FedDF's teachers: the round's client models, under faults the
         survivors' only (one NaN teacher would poison the ensemble), or the
-        carried-forward globals where none survived."""
+        carried-forward globals where none survived.  FedBE appends its
+        posterior samples around their weighted mean, then the main
+        aggregate."""
+        cfg, runner = self.runner.cfg, self.runner
         if self.faults is None:
-            return list(self.models)
-        surv = self._survivors()
-        return [self.models[e.pos] for e in self.entries if e.cid in surv] or list(new_globals)
+            teachers, sizes = list(self.models), [e.n for e in self.entries]
+        else:
+            surv = self._survivors()
+            live = [e for e in self.entries if e.cid in surv]
+            teachers, sizes = [self.models[e.pos] for e in live], [e.n for e in live]
+            if not teachers:
+                teachers, sizes = list(new_globals), [1] * len(new_globals)
+        if cfg.ensemble_extra_sampled:
+            teachers += runner._sample_posterior(list(teachers), sizes,
+                                                 cfg.ensemble_extra_sampled, self.t)
+            teachers.append(new_globals[0])
+        return teachers
 
     def inline_kd(self, new_globals) -> dict:
         runner, state = self.runner, self.state
@@ -991,6 +1028,8 @@ class _VectorizedRoundOps:
         robust = cfg.aggregator != "mean" or cfg.clip_norm is not None
         surv = self._survivors() if rf is not None else None
         self.results = []
+        # secure_aggregation: the reference's vectorized Eq. 2 averages the
+        # raw stack (no masks); the port keeps that behaviour
         if rf is None and not robust:
             self.stacked_globals = aggregate_groups(self.stacked, self.sizes, self.gids, cfg.K)
         else:
@@ -1017,13 +1056,26 @@ class _VectorizedRoundOps:
 
     def _client_teachers(self, new_globals) -> list:
         """FedDF's teachers: the round's client models (the survivors' under
-        faults, or the carried-forward globals where none survived)."""
-        teachers = unstack_models(self.stacked)
-        if self.faults is None:
-            return teachers
-        surv = self._survivors()
-        return [m for m, c in zip(teachers, self.cids_round) if int(c) in surv] \
-            or list(new_globals)
+        faults, or the carried-forward globals where none survived).  FedBE
+        concatenates its posterior samples and the main aggregate onto the
+        client stack (``tree_concat``), as the reference does."""
+        cfg, runner = self.runner.cfg, self.runner
+        stack, sizes = self.stacked, list(self.sizes)
+        if self.faults is not None:
+            surv = self._survivors()
+            keep = [i for i, c in enumerate(self.cids_round) if int(c) in surv]
+            if keep:
+                ki = torch.tensor(keep, dtype=torch.int64, device=runner.device)
+                stack = tree_map(lambda x: x[ki], stack)
+                sizes = [sizes[i] for i in keep]
+            else:
+                stack, sizes = self.stacked_globals, [1] * cfg.K  # carry-forwards teach
+        if cfg.ensemble_extra_sampled:
+            extras = runner._sample_posterior(unstack_models(stack), sizes,
+                                              cfg.ensemble_extra_sampled, self.t)
+            extras.append(new_globals[0])
+            stack = tree_concat([stack, tree_stack(extras)])
+        return unstack_models(stack)
 
     def inline_kd(self, new_globals) -> dict:
         runner, state = self.runner, self.state

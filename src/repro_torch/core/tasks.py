@@ -217,7 +217,9 @@ def lm_task(cfg, num_clients: int = 8, docs_per_client: int = 8, seq: int = 32,
     numpy arrays byte for byte (seeds ``seed*991 + c`` and
     ``seed*7919 + 100 + i``).  ``features_fn`` and ``head_fn`` split
     ``logits_fn`` for the head-fused Flash-KD path:
-    ``logits_fn(p, b) == features_fn(p, b) @ head_fn(p)[0]``."""
+    ``logits_fn(p, b) == features_fn(p, b) @ head_fn(p)[0]``.  On a MoE
+    model the client loss carries the router's aux term (``Model.loss``);
+    the KD path reads the logits or features, as for a dense model."""
     dev = device_lib.resolve(device)
     model = build_model(cfg)
 

@@ -3,7 +3,10 @@
 ``params_from_numpy`` turns the JAX package's parameter tree, taken as
 numpy arrays (``jax.tree.map(np.asarray, params)``), into the port's tree:
 the same nested dicts and lists, the same keys, stacked ``blocks`` as they
-are.  ``params_to_numpy`` goes the other way.  This module accepts numpy
+are (a MoE layer's expert banks keep their (n_super, E, ...) axes, its
+router and shared experts and an MLA layer's projections their
+(n_super, ...) one; deepseek-v2-lite-16b's dense layer 0 is the ``prefix``
+list).  ``params_to_numpy`` goes the other way.  This module accepts numpy
 only and imports nothing of JAX.
 
 bfloat16: numpy holds it as ``ml_dtypes.bfloat16``, which

@@ -10,7 +10,11 @@ batching (port of ``repro/launch/serve.py``).
       --continuous --num-requests 16 --rate 50
 
 Like the reference, it serves the arch's ``reduced()`` variant.  Runs on
-``--device`` (default cuda; no GPU is an error, not a fallback).
+``--device`` (default cuda; no GPU is an error, not a fallback).  The
+continuous path needs an all-GQA schedule (paged KV blocks have a sequence
+axis per KV head; MLA's latent cache does not): deepseek-v2-lite-16b
+serves through the static path, and ``--continuous`` raises the
+reference's ``ValueError``.
 """
 from __future__ import annotations
 

@@ -8,6 +8,8 @@ architecture, on either client engine:
   PYTHONPATH=src python -m repro_torch.launch.train --preset fedsdd --rounds 10
   PYTHONPATH=src python -m repro_torch.launch.train --model resnet56 --execution vectorized
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b --kd-kernel flash --kd-head-fusion
+  PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v2-lite-16b --K 2
+  PYTHONPATH=src python -m repro_torch.launch.train --preset fedbe
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --rounds 2
   PYTHONPATH=src python -m repro_torch.launch.train --execution vectorized --overlap fused
   PYTHONPATH=src python -m repro_torch.launch.train --kd-pipeline legacy
@@ -24,8 +26,7 @@ uploads, ``--aggregator`` / ``--clip-norm`` the robust Eq. 2,
 pending KD job included) there after every round, and ``--resume`` starts
 from the newest loadable one.  A flag for what the port does not run yet
 raises ``NotImplementedError`` naming the slice that brings it: an
-``--arch`` outside the dense GQA families, and the runner's own options
-(FedBE, secure aggregation) through ``FedConfig``.
+``--arch`` of the SSM, hybrid or audio/VLM families.
 """
 from __future__ import annotations
 
@@ -46,8 +47,8 @@ def _refuse_unported(args) -> None:
     if args.arch is not None and args.arch not in list_configs():
         raise NotImplementedError(
             f"repro_torch.launch.train: --arch {args.arch}: the model families beyond "
-            f"dense GQA (MoE, MLA, SSM, the audio/VLM frontends) arrive with their own "
-            f"slice of the port; the LM task runs {list_configs()}")
+            f"GQA and MLA + MoE (SSM, hybrid, the audio/VLM frontends) arrive with their "
+            f"own slice of the port; the LM task runs {list_configs()}")
 
 
 def _fault_plan(args) -> FaultPlan | None:

@@ -1,10 +1,13 @@
-"""GQA attention and KV caches (port of ``repro/models/attention.py``).
+"""GQA and MLA attention and KV caches (port of ``repro/models/attention.py``).
 
 Prefill attention is plain PyTorch (matmul + softmax), as the reference
 leaves it to XLA: ``attention`` and, for sliding-window configs past
 4·window, the block-local ``sliding_attention``.  The one kernel on this
 path is the paged decode attention of the serving engine, reached through
-``kernels.flash_attention.ops.paged_decode``.
+``kernels.flash_attention.ops.paged_decode``.  MLA (DeepSeek-V2) runs its
+expanded form through ``attention`` (q/k head dim 192, v 128 at full width)
+and decodes in the absorbed form over its latent cache, plain PyTorch as
+in the reference; it serves through the static path only.
 
 Scores are formed in f32 from the inputs upcast (the reference's
 ``preferred_element_type=f32``); probabilities go back to the input dtype
@@ -269,4 +272,101 @@ def gqa_cache_shape(cfg, batch: int, seq_len: int):
     return {
         "k": (batch, S, cfg.num_kv_heads, cfg.head_dim),
         "v": (batch, S, cfg.num_kv_heads, cfg.head_dim),
+    }
+
+
+# =====================================================================
+# MLA (DeepSeek-V2 multi-head latent attention)
+# =====================================================================
+def init_mla(gen, cfg, *, stack: tuple = ()):
+    m = cfg.mla
+    D, H = cfg.d_model, cfg.num_heads
+    qd = m.nope_head_dim + m.rope_head_dim
+    return {
+        "wq": dense_init(gen, D, H * qd, cfg.pdtype, stack=stack),
+        "w_dkv": dense_init(gen, D, m.kv_lora_rank + m.rope_head_dim, cfg.pdtype, stack=stack),
+        "kv_norm_scale": torch.ones((*stack, m.kv_lora_rank), dtype=cfg.pdtype,
+                                    device=gen.device),
+        "w_uk": dense_init(gen, m.kv_lora_rank, H * m.nope_head_dim, cfg.pdtype, stack=stack),
+        "w_uv": dense_init(gen, m.kv_lora_rank, H * m.v_head_dim, cfg.pdtype, stack=stack),
+        "wo": dense_init(gen, H * m.v_head_dim, D, cfg.pdtype,
+                         scale=1.0 / math.sqrt(H * m.v_head_dim), stack=stack),
+    }
+
+
+def _mla_q(p, x, cfg):
+    B, S, _ = x.shape
+    m, H = cfg.mla, cfg.num_heads
+    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, H, m.nope_head_dim + m.rope_head_dim)
+    return q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]      # q_nope, q_rope
+
+
+def _mla_compress(p, x, cfg):
+    """The RMS-normed latent c_kv (B,S,rank) and the shared key's rope part
+    (B,S,rope), before RoPE."""
+    m = cfg.mla
+    ckr = x @ p["w_dkv"].to(x.dtype)                     # (B,S,rank+rope)
+    c_kv, k_rope = ckr[..., :m.kv_lora_rank], ckr[..., m.kv_lora_rank:]
+    cf = c_kv.float()
+    c_kv = (cf * torch.rsqrt(cf.square().mean(-1, keepdim=True) + cfg.norm_eps)
+            * p["kv_norm_scale"].float()).to(x.dtype)
+    return c_kv, k_rope
+
+
+def mla_forward(p, x, cfg):
+    """Expanded (train/prefill) MLA: decompress K/V and run the GQA math
+    with q/k head dim nope + rope and v head dim ``v_head_dim``.  Returns
+    (out (B,S,D), (c_kv, k_rope)) with k_rope after RoPE, for the caches."""
+    B, S, _ = x.shape
+    m, H = cfg.mla, cfg.num_heads
+    q_nope, q_rope = _mla_q(p, x, cfg)
+    c_kv, k_rope = _mla_compress(p, x, cfg)
+    positions = torch.arange(S, device=x.device)[None, :]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    k_rope = apply_rope(k_rope[..., None, :], positions, cfg.rope_theta)   # (B,S,1,rd)
+    k_nope = (c_kv @ p["w_uk"].to(x.dtype)).reshape(B, S, H, m.nope_head_dim)
+    v = (c_kv @ p["w_uv"].to(x.dtype)).reshape(B, S, H, m.v_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(B, S, H, m.rope_head_dim)], dim=-1)
+    out = attention(q, k, v, causal=cfg.causal)
+    return out.reshape(B, S, -1) @ p["wo"].to(x.dtype), (c_kv, k_rope[..., 0, :])
+
+
+def mla_decode(p, x1, cache, cfg, pos: int):
+    """Absorbed-form MLA decode: attention runs in the latent space over the
+    compressed cache {'c_kv' (B,S,rank), 'k_rope' (B,S,rope)}, written IN
+    PLACE at ``pos`` (as ``gqa_decode``).  ``w_uk`` is absorbed into the
+    query and ``w_uv`` applied to the latent context, each viewed as
+    (rank, H, d): its columns are head-major, as the expanded form reshapes
+    them."""
+    B = x1.shape[0]
+    m, H = cfg.mla, cfg.num_heads
+    q_nope, q_rope = _mla_q(p, x1, cfg)                  # (B,1,H,*)
+    abs_pos = torch.full((B, 1), pos, device=x1.device)
+    q_rope = apply_rope(q_rope, abs_pos, cfg.rope_theta)
+    c_new, kr_new = _mla_compress(p, x1, cfg)
+    kr_new = apply_rope(kr_new[..., None, :], abs_pos, cfg.rope_theta)[..., 0, :]
+    cache["c_kv"][:, pos] = c_new[:, 0]
+    cache["k_rope"][:, pos] = kr_new[:, 0]
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    S = c_kv.shape[1]
+    w_uk = p["w_uk"].to(x1.dtype).reshape(m.kv_lora_rank, H, m.nope_head_dim)
+    q_abs = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], w_uk)
+    scale = (m.nope_head_dim + m.rope_head_dim) ** -0.5
+    scores = (torch.einsum("bhr,bsr->bhs", q_abs.float(), c_kv.float())
+              + torch.einsum("bhd,bsd->bhs", q_rope[:, 0].float(), k_rope.float())) * scale
+    valid = torch.arange(S, device=x1.device) < pos + 1
+    scores = torch.where(valid[None, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(x1.dtype)
+    ctx = torch.einsum("bhs,bsr->bhr", probs, c_kv)      # latent-space context
+    w_uv = p["w_uv"].to(x1.dtype).reshape(m.kv_lora_rank, H, m.v_head_dim)
+    o = torch.einsum("bhr,rhd->bhd", ctx, w_uv).reshape(B, 1, H * m.v_head_dim)
+    return o @ p["wo"].to(x1.dtype), cache
+
+
+def mla_cache_shape(cfg, batch: int, seq_len: int):
+    m = cfg.mla
+    return {
+        "c_kv": (batch, seq_len, m.kv_lora_rank),
+        "k_rope": (batch, seq_len, m.rope_head_dim),
     }

@@ -81,8 +81,12 @@ def apply_rope(x, positions, theta: float):
 
 
 # ----------------------------------------------------------------------- MLP
-def init_mlp(gen, cfg, *, stack: tuple = ()):
-    d_in, d_ff = cfg.d_model, cfg.d_ff
+def init_mlp(gen, cfg, d_in: int | None = None, d_ff: int | None = None, *,
+             stack: tuple = ()):
+    """``d_in`` / ``d_ff`` override the config's widths (the MoE's shared
+    experts are one MLP of ``d_ff_expert · num_shared_experts``)."""
+    d_in = d_in or cfg.d_model
+    d_ff = d_ff or cfg.d_ff
     p = {"w_out": dense_init(gen, d_ff, d_in, cfg.pdtype, stack=stack),
          "w_in": dense_init(gen, d_in, d_ff, cfg.pdtype, stack=stack)}
     if cfg.mlp_variant in ("swiglu", "geglu"):

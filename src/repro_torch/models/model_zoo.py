@@ -1,14 +1,20 @@
-"""Model zoo for dense all-GQA decoders (port of ``repro/models/model_zoo.py``).
+"""Model zoo: dense GQA and MLA + MoE decoders (port of
+``repro/models/model_zoo.py``).
 
 The parameter tree is the reference's: ``embed``, ``final_norm``,
 ``lm_head`` (unless tied), an optional unrolled ``prefix`` list and
 ``blocks``, whose leaves are stacked on a leading ``n_super`` axis (48 for
-Qwen2.5-14B).  The reference scans that axis; the port loops over it in
-Python and indexes layer ``i``, so one layer's paged pool ``pool[i]`` is a
-contiguous ``(nb, bs, Hkv, dh)`` tensor the decode kernel reads directly.
+Qwen2.5-14B; DeepSeek-V2-Lite's dense layer 0 is the prefix and its 26
+MLA + MoE layers the stack, period 1).  The reference scans that axis; the
+port loops over it in Python and indexes layer ``i``, so one layer's paged
+pool ``pool[i]`` is a contiguous ``(nb, bs, Hkv, dh)`` tensor the decode
+kernel reads directly.  Each block returns the router's aux loss (zero
+for a dense FFN); ``loss`` adds ``router_aux_coef · aux / #MoE layers``.
 
 Decode caches and paged pools are updated in place (the reference's
-jitted callers donate them); prefill returns fresh caches.
+jitted callers donate them); prefill returns fresh caches.  Paged serving
+is all-GQA only, as in the reference: MLA's latent cache serves through
+the static path.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (apply_mlp, apply_norm, cross_entropy, dense_init,
                                        embed_init, init_mlp, init_norm)
 
@@ -31,15 +38,23 @@ from repro_torch.models.layers import (apply_mlp, apply_norm, cross_entropy, den
 # ======================================================================
 @dataclass(frozen=True)
 class BlockKind:
-    mixer: str   # gqa (mla | mamba | mlstm | slstm: later slices)
-    ffn: str     # dense | none (moe: later slice)
+    mixer: str   # gqa | mla (mamba | mlstm | slstm: a later slice)
+    ffn: str     # dense | moe | none
 
 
 def layer_schedule(cfg: ModelConfig) -> list[BlockKind]:
-    """Per-layer (mixer, ffn) kinds of a dense all-GQA config."""
+    """Per-layer (mixer, ffn) kinds: the reference's schedule for the
+    attention families."""
     _check_supported(cfg)
-    ffn = "none" if cfg.d_ff == 0 else "dense"
-    return [BlockKind("gqa", ffn) for _ in range(cfg.num_layers)]
+    moe_flags = cfg.moe_layer_flags()
+    kinds = []
+    for i in range(cfg.num_layers):
+        mixer = "mla" if cfg.mla is not None else "gqa"
+        ffn = "moe" if moe_flags[i] else "dense"
+        if cfg.d_ff == 0 and ffn == "dense":
+            ffn = "none"
+        kinds.append(BlockKind(mixer, ffn))
+    return kinds
 
 
 def split_schedule(kinds: list[BlockKind]) -> tuple[int, int]:
@@ -58,10 +73,6 @@ def split_schedule(kinds: list[BlockKind]) -> tuple[int, int]:
 
 def _check_supported(cfg: ModelConfig) -> None:
     later = []
-    if cfg.moe is not None:
-        later.append("MoE FFNs (models/moe.py)")
-    if cfg.mla is not None:
-        later.append("MLA attention (models/attention.py MLA half)")
     if cfg.ssm is not None or cfg.family in ("ssm", "hybrid"):
         later.append("SSM mixers (models/ssm.py)")
     if cfg.frontend_dim or cfg.family in ("audio", "vlm"):
@@ -69,7 +80,7 @@ def _check_supported(cfg: ModelConfig) -> None:
     if later:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(later)} arrive with the later slice of the "
-            f"port that ports the model families beyond dense GQA")
+            f"port that ports the model families beyond GQA and MLA + MoE")
 
 
 def _layer(tree, i: int):
@@ -89,30 +100,59 @@ def _stack(trees: list):
 # single block
 # ======================================================================
 def init_block(gen, cfg: ModelConfig, kind: BlockKind, *, stack: tuple = ()):
-    p: dict[str, Any] = {"norm1": init_norm(cfg, gen.device, stack=stack),
-                         "attn": attn.init_gqa(gen, cfg, stack=stack)}
+    p: dict[str, Any] = {"norm1": init_norm(cfg, gen.device, stack=stack)}
+    if kind.mixer == "mla":
+        p["attn"] = attn.init_mla(gen, cfg, stack=stack)
+    else:
+        p["attn"] = attn.init_gqa(gen, cfg, stack=stack)
     if kind.ffn != "none":
         p["norm2"] = init_norm(cfg, gen.device, stack=stack)
-        p["mlp"] = init_mlp(gen, cfg, stack=stack)
+        if kind.ffn == "moe":
+            p["moe"] = moe_lib.init_moe(gen, cfg, stack=stack)
+        else:
+            p["mlp"] = init_mlp(gen, cfg, stack=stack)
     return p
 
 
 def apply_block(p, x, cfg: ModelConfig, kind: BlockKind, *, mode: str,
                 cache=None, pos=None):
-    """Returns (x, cache): the new prefill cache, the (in-place updated)
-    decode cache, or None in ``train`` mode."""
+    """Returns (x, cache, aux): the new prefill cache, the (in-place
+    updated) decode cache, or None in ``train`` mode; the router's aux loss
+    (0 for a dense FFN)."""
+    aux = torch.zeros((), device=x.device)
     h = apply_norm(p["norm1"], x, cfg)
     if mode == "paged":
+        # init_paged_cache refuses non-GQA schedules up front
+        assert kind.mixer == "gqa", kind.mixer
         a, new_cache = attn.gqa_paged_decode(p["attn"], h, cache, cfg, pos)
     elif mode == "decode":
-        a, new_cache = attn.gqa_decode(p["attn"], h, cache, cfg, pos)
+        fwd = attn.mla_decode if kind.mixer == "mla" else attn.gqa_decode
+        a, new_cache = fwd(p["attn"], h, cache, cfg, pos)
     else:
-        a, (k, v) = attn.gqa_forward(p["attn"], h, cfg)
-        new_cache = {"k": k, "v": v} if mode == "prefill" else None
+        fwd = attn.mla_forward if kind.mixer == "mla" else attn.gqa_forward
+        a, kv = fwd(p["attn"], h, cfg)
+        new_cache = None
+        if mode == "prefill":
+            new_cache = ({"c_kv": kv[0], "k_rope": kv[1]} if kind.mixer == "mla"
+                         else {"k": kv[0], "v": kv[1]})
     x = x + a
     if kind.ffn != "none":
-        x = x + apply_mlp(p["mlp"], apply_norm(p["norm2"], x, cfg), cfg)
-    return x, new_cache
+        h = apply_norm(p["norm2"], x, cfg)
+        if kind.ffn == "moe":
+            out, aux = moe_lib.moe_ffn(p["moe"], h.reshape(-1, h.shape[-1]), cfg)
+            out = out.reshape(h.shape)
+        else:
+            out = apply_mlp(p["mlp"], h, cfg)
+        x = x + out
+    return x, new_cache, aux
+
+
+def block_cache_shapes(cfg: ModelConfig, kind: BlockKind, batch: int, seq_len: int):
+    if kind.mixer == "gqa":
+        return attn.gqa_cache_shape(cfg, batch, seq_len)
+    if kind.mixer == "mla":
+        return attn.mla_cache_shape(cfg, batch, seq_len)
+    raise ValueError(kind.mixer)
 
 
 # ======================================================================
@@ -196,19 +236,22 @@ class Model:
         ``logits == features @ head``.  The head-fused KD path consumes this
         instead of ``logits``, so the (B·S, V) student row never exists."""
         x = self._embed_in(params, batch)
-        x, _ = self._stack_forward(params, x, mode="train")
+        x, _, _ = self._stack_forward(params, x, mode="train")
         return apply_norm(params["final_norm"], x, self.cfg)
 
     # ---- the layer stack ----------------------------------------------
     def _stack_forward(self, params, x, *, mode: str, caches=None, pos=None):
+        """Returns (x, caches, aux summed over the layers)."""
         cfg = self.cfg
         q, _ = self.prefix_period
+        aux_total = torch.zeros((), device=x.device)
         new_prefix = []
         for i in range(q):
             c = caches["prefix"][i] if caches else None
-            x, nc = apply_block(params["prefix"][i], x, cfg, self.schedule[i],
-                                mode=mode, cache=c, pos=pos)
+            x, nc, aux = apply_block(params["prefix"][i], x, cfg, self.schedule[i],
+                                     mode=mode, cache=c, pos=pos)
             new_prefix.append(nc)
+            aux_total = aux_total + aux
         new_blocks = None
         if self.n_super:
             per_layer = []
@@ -217,9 +260,10 @@ class Model:
                 bc = _layer(caches["blocks"], i) if caches else None
                 ncs = {}
                 for j, kind in enumerate(self.superblock):
-                    x, ncs[f"b{j}"] = apply_block(
+                    x, ncs[f"b{j}"], aux = apply_block(
                         bp[f"b{j}"], x, cfg, kind, mode=mode,
                         cache=bc[f"b{j}"] if bc else None, pos=pos)
+                    aux_total = aux_total + aux
                 per_layer.append(ncs)
             if mode == "prefill":
                 new_blocks = _stack(per_layer)
@@ -228,23 +272,27 @@ class Model:
         out_caches = None
         if mode in ("prefill", "decode", "paged"):
             out_caches = {"prefix": new_prefix, "blocks": new_blocks}
-        return x, out_caches
+        return x, out_caches, aux_total
 
     # ---- public API ------------------------------------------------------
     def logits(self, params, batch):
-        """Full-sequence forward: (logits (B,S,V), aux loss 0 — dense FFNs
-        carry no router loss)."""
+        """Full-sequence forward: (logits (B,S,V), the router aux loss
+        summed over the MoE layers; 0 with dense FFNs)."""
         x = self._embed_in(params, batch)
-        x, _ = self._stack_forward(params, x, mode="train")
-        return self._logits_out(params, x), torch.zeros((), device=x.device)
+        x, _, aux = self._stack_forward(params, x, mode="train")
+        return self._logits_out(params, x), aux
 
     def loss(self, params, batch):
         """Next-token cross-entropy over the batch, masked by the optional
-        ``loss_mask``; returns (loss, {"ce", "moe_aux"}).  Dense families
-        only: the MoE router loss and the audio/VLM targets arrive with
-        their slices."""
+        ``loss_mask``, plus ``router_aux_coef · aux / #MoE layers`` for a
+        MoE config; returns (loss, {"ce", "moe_aux"}) — "ce" is the total,
+        as in the reference.  The audio/VLM targets arrive with their
+        slice."""
+        cfg = self.cfg
         logits, aux = self.logits(params, batch)
         loss = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+        if cfg.moe is not None:
+            loss = loss + cfg.moe.router_aux_coef * aux / max(1, sum(cfg.moe_layer_flags()))
         return loss, {"ce": loss, "moe_aux": aux}
 
     def prefill(self, params, batch, *, last=None):
@@ -254,7 +302,7 @@ class Model:
         for right-padded ragged batches.  Default reads position S-1.
         """
         x = self._embed_in(params, batch)
-        x, caches = self._stack_forward(params, x, mode="prefill")
+        x, caches, _ = self._stack_forward(params, x, mode="prefill")
         if last is None:
             x_last = x[:, -1:]
         else:
@@ -273,43 +321,54 @@ class Model:
         -> (logits (B,V), caches).
         """
         x = self._embed_in(params, {"tokens": tokens})
-        x, caches = self._stack_forward(params, x, mode="paged", caches=caches,
-                                        pos=(block_tables, seq_lens))
+        x, caches, _ = self._stack_forward(params, x, mode="paged", caches=caches,
+                                           pos=(block_tables, seq_lens))
         return self._logits_out(params, x)[:, 0], caches
 
     def decode_step(self, params, tokens, caches, pos: int):
         """tokens (B,1) int, pos int.  -> (logits (B,V), caches), the
         caches written in place at ``pos``."""
         x = self._embed_in(params, {"tokens": tokens})
-        x, caches = self._stack_forward(params, x, mode="decode",
-                                        caches=caches, pos=pos)
+        x, caches, _ = self._stack_forward(params, x, mode="decode",
+                                           caches=caches, pos=pos)
         return self._logits_out(params, x)[:, 0], caches
 
     # ---- caches ----------------------------------------------------------
-    def _cache_tree(self, shape: dict, device):
+    def _cache_tree(self, shape_of, device):
+        """Zero caches: ``shape_of(kind)`` is one layer's {name: shape},
+        stacked (n_super, ...) for the superblock's layers."""
         dev = device_lib.resolve(device)
         dt = self.cfg.cdtype
         q, _ = self.prefix_period
-        prefix = [{k: torch.zeros(s, dtype=dt, device=dev) for k, s in shape.items()}
-                  for _ in range(q)]
+        prefix = [{k: torch.zeros(s, dtype=dt, device=dev)
+                   for k, s in shape_of(self.schedule[i]).items()} for i in range(q)]
         blocks = None
         if self.n_super:
             blocks = {f"b{j}": {k: torch.zeros((self.n_super, *s), dtype=dt, device=dev)
-                                for k, s in shape.items()}
-                      for j in range(len(self.superblock))}
+                                for k, s in shape_of(kind).items()}
+                      for j, kind in enumerate(self.superblock)}
         return {"prefix": prefix, "blocks": blocks}
 
     def init_cache(self, batch: int, seq_len: int, device=None):
-        """Contiguous caches: leaves (B, S, Hkv, dh), stacked (n_super, ...)."""
-        return self._cache_tree(attn.gqa_cache_shape(self.cfg, batch, seq_len),
-                                device)
+        """Contiguous caches: GQA leaves (B, S, Hkv, dh), MLA's latent
+        ``c_kv`` (B, S, rank) and ``k_rope`` (B, S, rope); stacked
+        (n_super, ...)."""
+        return self._cache_tree(
+            lambda kind: block_cache_shapes(self.cfg, kind, batch, seq_len), device)
 
     def init_paged_cache(self, num_blocks: int, block_size: int, device=None):
         """ONE paged pool shared by all in-flight requests: every layer's k/v
         lives in ``(num_blocks, block_size, Hkv, dh)`` blocks addressed
-        through per-request block tables."""
-        return self._cache_tree(
-            attn.gqa_paged_cache_shape(self.cfg, num_blocks, block_size), device)
+        through per-request block tables.  Paged serving is attention-only:
+        MLA latent caches have no per-head K/V to page, so a schedule that
+        is not all GQA raises the reference's ``ValueError``."""
+        bad = {k.mixer for k in self.schedule if k.mixer != "gqa"}
+        if bad:
+            raise ValueError(
+                f"paged serving supports all-GQA schedules only, got "
+                f"mixer(s) {sorted(bad)} — use the contiguous static path")
+        shape = attn.gqa_paged_cache_shape(self.cfg, num_blocks, block_size)
+        return self._cache_tree(lambda kind: shape, device)
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -68,11 +68,27 @@ def tree_stack(trees: Sequence[PyTree]) -> PyTree:
     return tree_map(lambda *xs: torch.stack(xs), *trees)
 
 
+def tree_concat(trees: Sequence[PyTree], axis: int = 0) -> PyTree:
+    """Concatenate congruent trees along an existing (leading) axis."""
+    return tree_map(lambda *xs: torch.cat(xs, dim=axis), *trees)
+
+
 def tree_unstack(stacked: PyTree) -> list[PyTree]:
     """Inverse of ``tree_stack``: the leading axis split back into a list
     (each leaf a view of the stacked one)."""
     n = tree_leaves(stacked)[0].shape[0]
     return [tree_map(lambda x: x[i], stacked) for i in range(n)]
+
+
+def seeded_normal(words: Sequence[int], shape, device) -> torch.Tensor:
+    """Standard normal f32 draws from a CPU ``torch.Generator`` seeded from
+    the non-negative ints ``words`` (through ``np.random.SeedSequence``),
+    then copied to ``device``: every engine, device and restart draws the
+    same values.  The port's stand-in for a ``jax.random`` key — equal to
+    the reference's draws in distribution, not in value."""
+    state = np.random.SeedSequence([int(w) for w in words]).generate_state(2, np.uint32)
+    gen = torch.Generator().manual_seed(int(state[0]) << 31 | int(state[1]) >> 1)
+    return torch.randn(tuple(shape), generator=gen, dtype=torch.float32).to(device)
 
 
 def tree_where(pred: torch.Tensor, on_true: PyTree, on_false: PyTree) -> PyTree:

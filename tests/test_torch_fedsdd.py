@@ -2,9 +2,10 @@
 
   (a) ``FedConfig.validate``: every preset validates; each ``ValueError``
       of the reference is raised by the port with the same message (a
-      fault plan as the port's own ``FaultPlan``); the options the port
-      does not run yet (shard_map, secure aggregation, FedBE) raise
-      ``NotImplementedError``; the robustness options validate and run a
+      fault plan as the port's own ``FaultPlan``); the option the port
+      does not run yet (shard_map) raises ``NotImplementedError``; FedBE
+      and secure aggregation validate and run a round (their parity is in
+      ``test_torch_fedbe_secagg.py``); the robustness options validate and run a
       round (their parity is in ``test_torch_faults.py``,
       ``test_torch_robust_agg.py``, ``test_torch_trust.py`` and
       ``test_torch_client_store.py``).
@@ -74,8 +75,6 @@ def _close(port, ref, atol=ATOL, rtol=RTOL):
 def test_presets_all_validate():
     assert PRESETS.keys() == JAX_PRESETS.keys()
     for name in PRESETS:
-        if name == "fedbe":
-            continue                     # FedBE's posterior draws: see below
         make_config(name).validate()
 
 
@@ -116,8 +115,7 @@ def test_value_errors_match_reference(kw):
 
 UNPORTED = [
     pytest.param(dict(execution="vectorized", client_sharding="shard_map"), id="execution"),
-    dict(client_sharding="shard_map"), dict(secure_aggregation=True),
-    dict(ensemble_extra_sampled=3),
+    dict(client_sharding="shard_map"),
 ]
 
 
@@ -133,6 +131,21 @@ ROBUSTNESS = [
     dict(faults=FaultPlan(seed=1, dropout=0.3, corrupt=0.2, attack="sign_flip", attack_rate=0.3)),
     dict(aggregator="median"), dict(clip_norm=1.0), dict(teacher_trust=True),
 ]
+
+
+@pytest.mark.parametrize("kw", [dict(secure_aggregation=True), dict(ensemble_extra_sampled=3)],
+                         ids=lambda kw: ",".join(kw))
+def test_fedbe_and_secure_options_validate_and_run(tasks, kw):
+    """FedBE's posterior samples and secure aggregation validate as in the
+    reference and run a round (their draws are the port's own)."""
+    _, task = tasks
+    JaxFedConfig(**kw).validate()
+    FedConfig(**kw).validate()
+    source = "clients" if "ensemble_extra_sampled" in kw else "aggregated"
+    st = make_runner("fedsdd", task, device="cpu",
+                     **small(K=2, rounds=1, ensemble_source=source, **kw)).run()
+    assert st.round == 1 and "kd_loss_first" in st.history[0]
+    assert all(torch.isfinite(x).all() for m in st.global_models for x in m.values())
 
 
 @pytest.mark.parametrize("kw", ROBUSTNESS, ids=lambda kw: ",".join(kw))
@@ -177,9 +190,11 @@ def test_flash_kd_options_validate(kw):
     FedConfig(**kw).validate()
 
 
-def test_unported_entry_points_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="slice"):
-        make_config("fedbe").validate()
+def test_fedbe_preset_runs(tasks):
+    """The ``fedbe`` preset (FedDF + 10 posterior samples) runs a round."""
+    _, task = tasks
+    st = make_runner("fedbe", task, device="cpu", **small(rounds=1)).run()
+    assert st.round == 1 and st.history[0]["kd_steps"] == 4
 
 
 def test_teacher_bank_spill_dir_runs(tmp_path):

@@ -19,7 +19,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 
-ARCHS = ["qwen2.5-14b", "gemma-2b", "stablelm-3b"]
+ARCHS = ["qwen2.5-14b", "gemma-2b", "stablelm-3b", "deepseek-v2-lite-16b"]
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

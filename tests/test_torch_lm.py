@@ -2,8 +2,10 @@
 
   (a) ``Model.features``, ``Model.loss`` and the gradient of the loss
       against the JAX model on reduced stablelm-3b (untied head, LayerNorm,
-      SwiGLU) and gemma-2b (tied head, RMSNorm, GeGLU, one KV head), from
-      the same weights; the tied head's gradient reaches ``embed``.
+      SwiGLU), gemma-2b (tied head, RMSNorm, GeGLU, one KV head),
+      qwen2.5-14b (QKV biases) and starcoder2-3b (sliding window 64, also
+      at S 1,024 > 4·window, through the block-local ``sliding_attention``),
+      from the same weights; the tied head's gradient reaches ``embed``.
   (b) ``lm_task``: client shards, server batches and ``make_batch`` are the
       reference's byte for byte; ``logits_fn == features_fn @ head_fn`` and
       both match the reference's on the reference's own init weights, which
@@ -34,7 +36,7 @@ from repro_torch.core.tasks import lm_task  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
 from repro_torch.optim.optimizers import value_and_grad  # noqa: E402
 
-ARCHS = ["stablelm-3b", "gemma-2b"]
+ARCHS = ["stablelm-3b", "gemma-2b", "qwen2.5-14b", "starcoder2-3b"]
 TASK = dict(num_clients=3, docs_per_client=4, seq=12, server_batches_n=2, server_batch=2,
             seed=1)
 
@@ -71,6 +73,19 @@ def test_features_loss_and_grad_match_reference(arch):
     jgrads = jax.grad(lambda p: jmodel.loss(p, nb)[0])(jparams)
     _close(grads, jgrads, rtol=1e-4, atol=1e-6)
     assert float(grads["embed"].abs().max()) > 0
+
+
+def test_starcoder2_gradient_past_four_windows():
+    """S = 1,024 > 4·window (64): both packages' block-local sliding-window
+    prefill, forward and backward."""
+    jcfg, jmodel, jparams, model, params = _models("starcoder2-3b")
+    assert jcfg.attn_variant == "sliding" and 1024 > 4 * jcfg.sliding_window
+    nb = jax_make_model_batch(jcfg, 1, 1024, seed=6)
+    batch = {k: torch.from_numpy(v) for k, v in nb.items()}
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(jmodel.loss, has_aux=True))(jparams, nb)
+    (loss, _), grads = value_and_grad(model.loss, has_aux=True)(params, batch)
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    _close(grads, jgrads, rtol=1e-4, atol=1e-6)
 
 
 def test_tied_head_gradient_reaches_the_embedding():

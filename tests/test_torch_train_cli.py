@@ -78,11 +78,31 @@ def test_cli_lm_task_with_head_fused_flash_kd(monkeypatch, capsys, tmp_path):
 
 
 @pytest.mark.parametrize("flags,slice_", [
-    (["--arch", "deepseek-v2-lite-16b"], "own slice"),
+    (["--arch", "xlstm-1.3b"], "own slice"),
 ], ids=["arch"])
 def test_cli_unported_flags_raise(flags, slice_, monkeypatch):
     with pytest.raises(NotImplementedError, match=slice_):
         _main(monkeypatch, *SMALL, *flags)
+
+
+def test_cli_deepseek_moe_mla_runs(monkeypatch, capsys, tmp_path):
+    """``--arch deepseek-v2-lite-16b`` trains its ``reduced()`` MLA + MoE
+    model on the LM task, head-fused Flash-KD included."""
+    out = tmp_path / "history.json"
+    _main(monkeypatch, "--device", "cpu", "--arch", "deepseek-v2-lite-16b", "--clients", "4",
+          "--rounds", "2", "--local-epochs", "1", "--distill-steps", "2", "--K", "2",
+          "--kd-kernel", "flash", "--kd-head-fusion", "--out", str(out))
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert [re.fullmatch(r"\[fedsdd\] round (\d)/2 kd=\d+\.\d{4}", x) is not None
+            for x in lines[:-1]] == [True, True], lines
+    assert [rec["round"] for rec in json.loads(out.read_text())] == [1, 2]
+
+
+def test_cli_fedbe_preset_runs(monkeypatch, capsys):
+    """``--preset fedbe``: FedDF's client teachers plus the posterior samples."""
+    _main(monkeypatch, *SMALL, "--preset", "fedbe")
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert [line.startswith("[fedbe] round ") for line in lines[:-1]] == [True, True], lines
 
 
 @pytest.mark.parametrize("execution", ["sequential", "vectorized"])
