@@ -232,7 +232,60 @@ Phases, each of which fails the run if it fails:
                models do not fit beside the round) whose Eq. 2 launches
                kernel 5 over the MoE tree, and kernel 5 against its plain
                version over that tree at G = 2, N = 2, timed
- 25. kernels   one JSON line per the port's kernel contract; kernel 12's
+ 25. xl f32/8  xlstm-1.3b at full width (d_model 2,048, 4 heads of 512, V
+               50,304 untied), 8 layers (two superblocks of three mLSTM and
+               one sLSTM), f32: decode token by token from an empty state
+               equals a full forward over the same 128 tokens, and a prefill
+               of the first 64 (one chunk) followed by decode of the rest
+               equals the forward on the back half, both within 5e-4 of the
+               logits' scale (the reference's decode-consistency check); the
+               states f32
+ 26. xl bf16   xlstm-1.3b as configured (48 layers, bf16, random weights made
+               on the card): the static path serves 8 prompts of 224 tokens,
+               32 new tokens each (L + new = 256, a multiple of the chunk 64;
+               the recurrent families have no paged path); tokens/s, TTFT
+               (the padded prefill), peak memory; one decode step's wall,
+               device and idle share and the device ms of the mLSTM and
+               sLSTM decodes (named ranges under torch.profiler), beside the
+               step's bytes bound (the weights but the embedding, each state
+               read and written once)
+ 27. xl FedSDD (a) xlstm-1.3b reduced, f32: 2 head-fused Flash-KD rounds with
+               kernels 9/10 and with their plain versions from the same
+               weights, deterministic algorithms, within 2e-4; (c) full
+               width, 24 layers, f32: one vectorized round (K=2, 2 of 4
+               clients, no KD steps, the bucket step captured) whose Eq. 2
+               launches kernel 5 over the xLSTM tree, and kernel 5 against
+               its plain version over that tree at G = 2, N = 2, timed; (d)
+               kernels 9/10 against their plain versions at xlstm's head (512
+               x 2,048 x 50,304, untied, f32 head, bf16 cache), timed; (b) full
+               width, f32, at the deepest multiple of 4 layers (up to 48)
+               whose peak, reckoned from phase 24's peak per model byte, is
+               under 76 GB: fedsdd K=2 R=2 over 4 clients, 2 rounds, lm_task
+               of 8 docs of 128 tokens, head-fused Flash-KD, the ring in bf16:
+               t_local, t_kd, the cache build, peak memory (under 76 GB),
+               captures (none in round 2), kernels 9/10's launches (20 a
+               round)
+ 28. jb f32/2  jamba-1.5-large-398b at full width (d_model 8,192, d_inner
+               16,384, d_state 16, 64 heads / 8 KV, 16 experts top-2 of
+               24,576), 2 layers with attn_period 2 ((Mamba, dense), (GQA,
+               MoE); 11.9 B parameters, 47.6 GB), f32, capacity factor 8
+               (each expert's capacity is the group's token count: no
+               drops): decode from an empty state over 128 tokens (one
+               chunk) equals the full forward within 5e-4 of the logits'
+               scale
+ 29. jb bf16   jamba at full width cut to the reference's reduced() schedule
+               (4 layers, attn_period 4: Mamba/dense, Mamba/MoE, Mamba/dense,
+               GQA/MoE; 23.0 B parameters, 46 GB), bf16, capacity factor 8:
+               the bf16 decode over the first 128 tokens against the forward
+               (printed; phase 28 checks the f32 one); the static path serves
+               4 prompts of 224 + 32 new tokens (256, a multiple of the chunk
+               128); tokens/s, TTFT, peak memory; a decode step's wall,
+               device, idle share, the Mamba and MoE ranges, beside its bytes
+               bound (every weight but the embedding, the states read and
+               written once, the live K/V read once)
+ 30. jb FedSDD jamba reduced, f32: 2 head-fused Flash-KD rounds, kernels 9/10
+               against their plain versions, as phase 27 (a)
+ 31. kernels   one JSON line per the port's kernel contract; kernel 12's
                entry is its bf16 row at qwen2.5-14b's width (the configs'
                dtype), with the f32 row beside it under "f32"; kernel 1's
                also gives "starcoder2_ms", its times in the two starcoder2-3b
@@ -244,9 +297,20 @@ Phases, each of which fails the run if it fails:
                inputs one launch a leaf ("before_loop_ms"), and under
                "deepseek" its row over deepseek-v2-lite-16b's 2-layer tree
                (phase 24); kernels 9 and 10's add "deepseek", their rows at
-               deepseek-v2-lite-16b's head (phase 12); every entry's
+               deepseek-v2-lite-16b's head (phase 12); kernel 5's "xlstm"
+               is its row over the 24-layer xLSTM tree and its launch in
+               that vectorized round, kernels 9 and 10's "xlstm" their rows
+               at xlstm-1.3b's head and their launches in phase 27 (b)'s
+               rounds (and (a)'s, "reduced_launches"); every entry's
                "host_ms" is its wrapper's host time a call
- 26. ok        {"ok": true, "device": {...}} as the last line
+ 32. ok        {"ok": true, "device": {...}} as the last line
+
+Tolerances, the recurrent families (phases 25-29): decode against the
+full forward within 5e-4 of the logits' largest magnitude, the reference's
+5e-4 at its reduced models' O(1) logits; f32 only: a bf16 decode from an
+empty state runs Mamba's conv in f32 (the state's dtype, as the reference
+promotes) where the forward runs it in bf16, so the two round apart by
+far more than 5e-4.
 
 Tolerances, paged_decode: f32 kernel vs plain at rtol = atol = 1e-5 (only
 the order of summation differs).  bf16 per (request, query head) row: the row's max
@@ -3189,6 +3253,13 @@ def fedbe_secure_phase(fed, task, seed: int, card: str) -> dict:
 # ---------------------------------------------------------------- phase 22
 DEEPSEEK = "deepseek-v2-lite-16b"
 NO_DROPS = 64.0                  # capacity factor of tests/test_decode_consistency.py
+PEAK_LIMIT_GB = 76.0             # the training phases' peak on an 80 GB card
+
+
+def _decode_all(model, params, toks, cache, start: int = 0):
+    """Logits of ``decode_step`` over ``toks`` from position ``start``."""
+    return torch.stack([model.decode_step(params, toks[:, t:t + 1], cache, start + t)[0]
+                        for t in range(toks.shape[1])], dim=1)
 
 
 def deepseek_f32_phase(zoo, get_config, serve, seed: int) -> None:
@@ -3214,8 +3285,7 @@ def deepseek_f32_phase(zoo, get_config, serve, seed: int) -> None:
         want = full[:, L - 1:].argmax(-1).to(torch.int32)
         # the absorbed decode's logits over the same tokens
         cache = model.init_cache(B, L + new, device=DEV)
-        dec = torch.stack([model.decode_step(params, seq[:, t:t + 1], cache, t)[0]
-                           for t in range(L + new - 1)], dim=1)
+        dec = _decode_all(model, params, seq, cache)
     err = float((dec - full).abs().max())
     scale = float(full.abs().max())
     row = {"phase": "deepseek-v2-lite-16b full width, f32, 2 layers, no drops",
@@ -3235,7 +3305,6 @@ def deepseek_f32_phase(zoo, get_config, serve, seed: int) -> None:
 
 # ---------------------------------------------------------------- phase 23
 HBM_EXPERT_NOTE = "every step reads all 64 experts' weights: capacity 8 a group of 8 tokens"
-LAYER_RANGES = ("moe_ffn", "mla_decode")
 
 
 def _timed_static(serve, model, params, prompts, new: int) -> tuple:
@@ -3246,13 +3315,77 @@ def _timed_static(serve, model, params, prompts, new: int) -> tuple:
     return out, time.perf_counter() - t0
 
 
-def deepseek_serve_phase(zoo, get_config, serve, seed: int, card: str) -> None:
-    """Phase 23: deepseek-v2-lite-16b as configured (27 layers, bf16) serves
-    8 prompts of 256 tokens through the static path, 32 new tokens each."""
+def _timed_prefill(model, params, prompts, new: int) -> float:
+    """Seconds to the first token on the static path: its prefill of the
+    prompts right-padded by ``new``, logits read at the last prompt token."""
+    B, L = prompts.shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, _ = model.prefill(params, {"tokens": torch.nn.functional.pad(prompts, (0, new))},
+                                  last=torch.full((B,), L - 1, device=prompts.device))
+        logits.argmax(-1).cpu()
+    return time.perf_counter() - t0
+
+
+def profiled_decode_step(model, params, tok, cache, pos: int, ranges: dict) -> dict:
+    """One decode step at ``pos``: wall on the host clock (the mean of 4
+    after a warm one), then a profiled step with each function of
+    ``ranges`` ({name: its module}) in a named range; the named ranges show
+    on the device as spans of their own, and each kernel goes to the range
+    whose span holds its start."""
+    from contextlib import ExitStack
     from unittest import mock
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
+
+    def named(label, fn):
+        def run(*a, **k):
+            with record_function(label):
+                return fn(*a, **k)
+        return run
+
+    with torch.no_grad():
+        model.decode_step(params, tok, cache, pos)
+        torch.cuda.synchronize()
+        reps = 4
+        t0 = time.perf_counter()
+        for i in range(reps):
+            model.decode_step(params, tok, cache, pos + 1 + i)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+        with ExitStack() as stack:
+            for name, mod in ranges.items():
+                stack.enter_context(mock.patch.object(mod, name, named(name, getattr(mod, name))))
+            prof = stack.enter_context(profile(activities=[ProfilerActivity.CPU,
+                                                           ProfilerActivity.CUDA]))
+            model.decode_step(params, tok, cache, pos + 1 + reps)
+            torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in events if e.name in ranges]
+    kern = [e for e in events if e.name not in ranges]
+    by_range = dict.fromkeys(ranges, 0.0)
+    for e in kern:
+        for name, lo, hi in spans:
+            if lo <= e.time_range.start < hi:
+                by_range[name] += (e.time_range.end - e.time_range.start) / 1e3
+                break
+    device_ms = sum(e.time_range.end - e.time_range.start for e in kern) / 1e3
+    busy_ms = union_ms(kern)
+    avg = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+           and e.key not in ranges]
+    top = sorted(avg, key=lambda e: -e.self_device_time_total)[:8]
+    return {"decode_step_wall_ms": wall_ms, "decode_step_device_ms": device_ms,
+            "decode_step_busy_ms": busy_ms, "decode_step_idle_share": 1 - busy_ms / wall_ms,
+            "device_ms_by_range": by_range, "kernel_launches": sum(e.count for e in avg),
+            "top_kernels": [{"name": e.key[:80], "count": e.count,
+                             "ms": e.self_device_time_total / 1e3} for e in top]}
+
+
+def deepseek_serve_phase(zoo, get_config, serve, seed: int, card: str) -> None:
+    """Phase 23: deepseek-v2-lite-16b as configured (27 layers, bf16) serves
+    8 prompts of 256 tokens through the static path, 32 new tokens each."""
     cfg = get_config(DEEPSEEK)
     model = zoo.build_model(cfg)
     torch.cuda.reset_peak_memory_stats()
@@ -3283,84 +3416,44 @@ def deepseek_serve_phase(zoo, get_config, serve, seed: int, card: str) -> None:
         logits, cache = model.prefill(params, {"tokens": torch.nn.functional.pad(seq, (0, 8))},
                                       last=torch.full((B,), L + new - 1, device=DEV))
         tok = logits.argmax(-1).to(torch.int32)[:, None]
-        pos = L + new
-        model.decode_step(params, tok, cache, pos)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        reps = 4
-        for i in range(reps):
-            model.decode_step(params, tok, cache, pos + 1 + i)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-        moe_ffn, mla_decode = zoo.moe_lib.moe_ffn, zoo.attn.mla_decode
-
-        def named(label, fn):
-            def run(*a, **k):
-                with record_function(label):
-                    return fn(*a, **k)
-            return run
-
-        with mock.patch.object(zoo.moe_lib, "moe_ffn", named("moe_ffn", moe_ffn)), \
-                mock.patch.object(zoo.attn, "mla_decode", named("mla_decode", mla_decode)), \
-                profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            model.decode_step(params, tok, cache, pos + 1 + reps)
-            torch.cuda.synchronize()
-    # the named ranges show on the device as spans of their own: each kernel
-    # goes to the range whose span holds its start
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = [(e.name, e.time_range.start, e.time_range.end) for e in events
-             if e.name in LAYER_RANGES]
-    kern = [e for e in events if e.name not in LAYER_RANGES]
-    ranges = dict.fromkeys(LAYER_RANGES, 0.0)
-    for e in kern:
-        for name, lo, hi in spans:
-            if lo <= e.time_range.start < hi:
-                ranges[name] += (e.time_range.end - e.time_range.start) / 1e3
-                break
-    device_ms = sum(e.time_range.end - e.time_range.start for e in kern) / 1e3
-    busy_ms = union_ms(kern)
+    step = profiled_decode_step(model, params, tok, cache, L + new,
+                                {"moe_ffn": zoo.moe_lib, "mla_decode": zoo.attn})
     bound_ms = (nbytes - params["embed"].numel() * params["embed"].element_size()) \
         / HBM_BYTES_PER_S * 1e3
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-            and e.key not in LAYER_RANGES]
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    ranges = step.pop("device_ms_by_range")
     row = {"phase": "deepseek-v2-lite-16b as configured, bf16, 27 layers: static serve",
            "card": card, "params": sum(x.numel() for x in _leaves(params)),
            "weights_gb": nbytes / 1e9, "init_s": init_s, "requests": B, "prompt_tokens": L,
            "new_tokens": new, "tokens_per_s": B * new / total, "ttft_s": ttft,
-           "total_s": total, "decode_step_wall_ms": wall_ms,
-           "decode_step_device_ms": device_ms,
-           "decode_step_busy_ms": busy_ms,
-           "decode_step_idle_share": 1 - busy_ms / wall_ms,
+           "total_s": total, **step,
            "device_ms_moe_layers": ranges["moe_ffn"],
            "device_ms_mla_layers": ranges["mla_decode"],
            "moe_layers": moe_layers, "expert_weights_gb": expert_bytes / 1e9,
            "expert_bytes_bound_ms": expert_bytes / HBM_BYTES_PER_S * 1e3,
            "decode_step_bytes_bound_ms": bound_ms, "bound_note": HBM_EXPERT_NOTE,
-           "kernel_launches": sum(e.count for e in kern),
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "top_kernels": [{"name": e.key[:80], "count": e.count,
-                            "ms": e.self_device_time_total / 1e3} for e in top]}
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     print(json.dumps(row), flush=True)
     check(row["device_ms_moe_layers"] and row["device_ms_mla_layers"],
           f"deepseek serve: no device time in the MoE or MLA ranges: {ranges}")
     check(bool(logits.isfinite().all()), "deepseek serve: non-finite logits")
-    del params, model, cache, logits, prof
+    del params, model, cache, logits
     torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------- phase 24
-def deepseek_round_phase(fed, kd_ops, flash, seed: int) -> dict:
-    """deepseek-v2-lite-16b ``reduced()``, f32: 2 head-fused Flash-KD rounds
-    with the kernels and with their plain versions from the same weights,
-    under deterministic algorithms (as phase 13 for gemma-2b)."""
+def head_fused_rounds_phase(fed, kd_ops, flash, seed: int, arch: str = "deepseek-v2-lite-16b"
+                            ) -> dict:
+    """``arch``'s ``reduced()``, f32: 2 head-fused Flash-KD rounds with the
+    kernels and with their plain versions from the same weights, under
+    deterministic algorithms (as phase 13 for gemma-2b); phases 24, 27 and
+    30."""
     from contextlib import nullcontext
 
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.core.tasks import lm_task
     from repro_torch.utils.pytree import tree_map
-    task = lm_task(get_config(DEEPSEEK).reduced(), num_clients=4, docs_per_client=8, seq=128,
+    task = lm_task(get_config(arch).reduced(), num_clients=4, docs_per_client=8, seq=128,
                    server_batches_n=2, server_batch=4, seed=seed, device=DEV)
     kw = dict(K=2, R=2, num_clients=4, participation=1.0, local_epochs=1, client_batch=4,
               distill_steps=20, client_lr=0.01, server_lr=0.01, kd_kernel="flash",
@@ -3385,68 +3478,41 @@ def deepseek_round_phase(fed, kd_ops, flash, seed: int) -> dict:
     rest = all(torch.equal(x, y) for x, y in zip(_leaves(a.global_models[1]),
                                                  _leaves(b.global_models[1])))
     steps = 2 * kw["distill_steps"]
-    row = {"phase": "f32 LM rounds (deepseek-v2-lite-16b reduced), kernels vs plain",
+    row = {"phase": f"f32 LM rounds ({arch} reduced), kernels vs plain",
            "tol": ROUND_TOL, "main_max_abs_err": err, "model_1_bit_identical": rest,
            "launches": {k: v[1] for k, v in out.items()},
            "kd_loss_last": [r["kd_loss_last"] for r in a.history],
            "kd_loss_last_plain": [r["kd_loss_last"] for r in b.history]}
     print(json.dumps(row), flush=True)
-    check(err <= ROUND_TOL and rest, f"deepseek reduced rounds: kernels vs plain {row}")
+    check(err <= ROUND_TOL and rest, f"{arch} reduced rounds: kernels vs plain {row}")
     check(out["kernels"][1] == {"flash_kd_head_fwd": steps, "flash_kd_head_bwd": steps}
-          and out["plain"][1] == {}, f"deepseek reduced rounds: launches {row['launches']}")
+          and out["plain"][1] == {}, f"{arch} reduced rounds: launches {row['launches']}")
     return out["kernels"][1]
 
 
-def deepseek_fedsdd_phase(fed, wa_ops, wa_ref, seed: int, card: str) -> dict:
-    """Phase 24: deepseek-v2-lite-16b at full width, 2 layers (the dense
-    layer 0 and one MoE layer), f32.  First one vectorized round (K=2, 2 of
-    4 clients, no KD steps) whose Eq. 2 launches kernel 5 over the MoE tree,
-    and kernel 5 against its plain version over that tree at G = 2, N = 2;
-    then FedSDD with head-fused Flash-KD and the ring in bf16, sequential
-    (K=2, R=2, 4 clients, 2 rounds, as phase 14 drives gemma-2b), and the
-    round's KD program profiled.  Returns the phase's line."""
-    import dataclasses
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def vectorized_kernel5_round(fed, wa_ops, wa_ref, task, kw: dict, label: str, seed: int,
+                             card: str) -> tuple[dict, dict]:
+    """One vectorized round (K=2, 2 of 4 clients, no KD steps) whose Eq. 2
+    launches kernel 5 over the model's tree, then kernel 5 against its plain
+    version over that tree at G = 2, N = 2 (the round's two new globals),
+    timed.  Returns (the round's line, kernel 5's row)."""
     from repro_torch import kernels
-    from repro_torch.configs import get_config
-    from repro_torch.core.tasks import lm_task
     from repro_torch.utils.pytree import tree_map
-    cfg = dataclasses.replace(get_config(DEEPSEEK), num_layers=2, param_dtype="float32",
-                              compute_dtype="float32")
-    n_params = cfg.num_params()
-    # the reckoning before the run: K old and K new globals and the 4 clients
-    # in f32, the K·R ring in bf16
-    line = {"phase": "deepseek-v2-lite-16b full width, 2 layers, FedSDD", "card": card,
-            "params_per_model": n_params, "model_gb_f32": n_params * 4 / 1e9,
-            "reckoned_gb": (8 * n_params * 4 + 4 * n_params * 2) / 1e9}
-    task = lm_task(cfg, num_clients=4, docs_per_client=8, seq=128, server_batches_n=2,
-                   server_batch=4, seed=seed, device=DEV)
-    steps_kd = 20
-    kw = dict(num_clients=4, client_batch=4, local_epochs=1, client_lr=0.01, server_lr=0.01,
-              kd_kernel="flash", kd_head_fusion=True, teacher_dtype="bfloat16", seed=seed)
-
-    # (1) the vectorized round: its client engine stepped and no KD steps
-    # (the bucket program's static buffers, graph pool and clones of the
-    # 2-client stack, or a KD beside the round's stacks, do not fit)
     runner = fed.make_runner("fedsdd", task, device=DEV, K=2, R=1, participation=0.5,
                              execution="vectorized", distill_steps=0, **kw)
     state = runner.init_state()
     kernels.reset()
     torch.cuda.reset_peak_memory_stats()
-    with step_mode("stepped"), card_launches() as ran:
+    captures0 = captured()
+    with card_launches() as ran:
         state = runner.run(1, state=state)
     rec = state.history[-1]
-    line["vectorized"] = {"active": rec["active"], "t_local_s": rec["t_local"],
-                          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-                          "launches": dict(ran)}
-    check(ran.get("multi_weighted_average") == 1,
-          f"deepseek vectorized round: launches {dict(ran)}")
-    check(line["vectorized"]["peak_mem_gb"] < 76.0, f"deepseek vectorized: {line['vectorized']}")
-    # kernel 5 over the MoE tree against its plain version: G = 2 groups of
-    # N = 2 made of the round's two new globals, leaf by leaf
+    line = {"active": rec["active"], "t_local_s": rec["t_local"],
+            "captures": captured() - captures0,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": dict(ran)}
+    print(json.dumps({"phase": f"{label} vectorized round", "card": card, **line}), flush=True)
+    check(ran.get("multi_weighted_average") == 1, f"{label} vectorized round: launches {line}")
+    check(line["peak_mem_gb"] < PEAK_LIMIT_GB, f"{label} vectorized round: {line}")
     g0, g1 = state.global_models
     del runner, state
     gc.collect()
@@ -3455,21 +3521,30 @@ def deepseek_fedsdd_phase(fed, wa_ops, wa_ref, seed: int, card: str) -> dict:
     tree = tree_map(lambda a, b: torch.stack([torch.stack([a, b]), torch.stack([b, a])]), g0, g1)
     del g0, g1
     w = torch.randint(1, 100, (2, 2), generator=gen, device=DEV).float()
-    line["kernel_5_moe_tree"] = wa_tree_check(
-        wa_ops, wa_ref, "deepseek-v2-lite-16b 2-layer tree (G=2, N=2)", tree, w)
+    row = wa_tree_check(wa_ops, wa_ref, f"{label} tree (G=2, N=2)", tree, w)
     del tree
+    gc.collect()
     torch.cuda.empty_cache()
+    return line, row
 
-    # (2) the sequential rounds with head-fused Flash-KD
+
+def sequential_fedsdd_rounds(fed, task, kw: dict, steps_kd: int, label: str, card: str):
+    """fedsdd K=2 R=2 over 4 clients, sequential, 2 rounds with head-fused
+    Flash-KD and the ring in bf16 (as phase 14 drives gemma-2b): per round
+    t_local, t_kd, the cache build, peak memory, captures and launches;
+    checks no capture in round 2, kernels 9/10 ``steps_kd`` times a round,
+    finite losses and weights, 4 teachers and the peak under 76 GB.
+    Returns (rounds, state, the runner's KD pipeline, init seconds)."""
+    from repro_torch import kernels
     t0 = time.perf_counter()
     runner = fed.make_runner("fedsdd", task, device=DEV, K=2, R=2, participation=1.0,
                              distill_steps=steps_kd, **kw)
     state = runner.init_state()
     torch.cuda.synchronize()
-    line["init_s"] = time.perf_counter() - t0
+    init_s = time.perf_counter() - t0
     pipe = runner._kd_pipeline()
     check(pipe.head_fused and pipe.cache_dtype == torch.bfloat16,
-          "deepseek: the KD pipeline is not head-fused with a bf16 cache")
+          f"{label}: the KD pipeline is not head-fused with a bf16 cache")
     cache_s = []
     build_cache = pipe.precompute_cache
 
@@ -3496,19 +3571,63 @@ def deepseek_fedsdd_phase(fed, wa_ops, wa_ref, seed: int, card: str) -> dict:
                        "kd_loss_first": rec["kd_loss_first"], "kd_loss_last": rec["kd_loss_last"],
                        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                        "graph_pool_gb": graph_pool_gb(), "launches": dict(ran)})
+        print(json.dumps({"phase": f"{label} FedSDD round, head-fused Flash-KD", "card": card,
+                          **rounds[-1]}), flush=True)
     del pipe.precompute_cache, timed_cache, build_cache     # no pipeline kept past the phase
-    line["sequential"] = rounds
-    print(json.dumps(line), flush=True)
-    check(rounds[1]["captures"] == 0, f"deepseek: round 2 captured {rounds[1]['captures']}")
+    check(rounds[1]["captures"] == 0, f"{label}: round 2 captured {rounds[1]['captures']}")
     check(all(r["launches"].get("flash_kd_head_fwd") == steps_kd
               and r["launches"].get("flash_kd_head_bwd") == steps_kd for r in rounds),
-          f"deepseek: kernels 9/10 not launched {steps_kd} times a round on the card: "
+          f"{label}: kernels 9/10 not launched {steps_kd} times a round on the card: "
           f"{[r['launches'] for r in rounds]}")
     check(all(math.isfinite(r["kd_loss_last"]) for r in rounds)
           and all(bool(x.isfinite().all()) for m in state.global_models for x in _leaves(m)),
-          f"deepseek: non-finite KD losses or weights {rounds}")
-    check(state.ensemble.num_members == 4, "deepseek: the ring does not hold 4 teachers")
-    check(max(r["peak_mem_gb"] for r in rounds) < 76.0, f"deepseek: peak above 76 GB {rounds}")
+          f"{label}: non-finite KD losses or weights {rounds}")
+    check(state.ensemble.num_members == 4, f"{label}: the ring does not hold 4 teachers")
+    check(max(r["peak_mem_gb"] for r in rounds) < PEAK_LIMIT_GB,
+          f"{label}: peak above {PEAK_LIMIT_GB} GB {rounds}")
+    return rounds, state, pipe, init_s
+
+
+def deepseek_fedsdd_phase(fed, wa_ops, wa_ref, seed: int, card: str) -> dict:
+    """Phase 24: deepseek-v2-lite-16b at full width, 2 layers (the dense
+    layer 0 and one MoE layer), f32.  First one vectorized round (K=2, 2 of
+    4 clients, no KD steps, its client engine stepped) whose Eq. 2 launches
+    kernel 5 over the MoE tree, and kernel 5 against its plain version over
+    that tree at G = 2, N = 2; then FedSDD with head-fused Flash-KD and the
+    ring in bf16, sequential (K=2, R=2, 4 clients, 2 rounds), and the
+    round's KD program profiled.  Returns the phase's line."""
+    import dataclasses
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tasks import lm_task
+    cfg = dataclasses.replace(get_config(DEEPSEEK), num_layers=2, param_dtype="float32",
+                              compute_dtype="float32")
+    n_params = cfg.num_params()
+    # the reckoning before the run: K old and K new globals and the 4 clients
+    # in f32, the K·R ring in bf16
+    line = {"phase": "deepseek-v2-lite-16b full width, 2 layers, FedSDD", "card": card,
+            "params_per_model": n_params, "model_gb_f32": n_params * 4 / 1e9,
+            "reckoned_gb": (8 * n_params * 4 + 4 * n_params * 2) / 1e9}
+    task = lm_task(cfg, num_clients=4, docs_per_client=8, seq=128, server_batches_n=2,
+                   server_batch=4, seed=seed, device=DEV)
+    steps_kd = 20
+    kw = dict(num_clients=4, client_batch=4, local_epochs=1, client_lr=0.01, server_lr=0.01,
+              kd_kernel="flash", kd_head_fusion=True, teacher_dtype="bfloat16", seed=seed)
+
+    # (1) the vectorized round, its client engine stepped (the bucket
+    # program's static buffers, graph pool and clones of the 2-client stack,
+    # or a KD beside the round's stacks, do not fit)
+    with step_mode("stepped"):
+        line["vectorized"], line["kernel_5_moe_tree"] = vectorized_kernel5_round(
+            fed, wa_ops, wa_ref, task, kw, "deepseek-v2-lite-16b 2-layer", seed, card)
+
+    # (2) the sequential rounds with head-fused Flash-KD
+    line["sequential"], state, pipe, line["init_s"] = sequential_fedsdd_rounds(
+        fed, task, kw, steps_kd, "deepseek-v2-lite-16b", card)
+    print(json.dumps(line), flush=True)
 
     # where a KD step's time goes: the round's own KD program (20 steps)
     batches = pipe.batches_for(task.server_batches)
@@ -3532,9 +3651,309 @@ def deepseek_fedsdd_phase(fed, wa_ops, wa_ref, seed: int, card: str) -> dict:
                       "full width, 512 rows", "card": card, **line["kd_step"]}), flush=True)
     check(groups["flash_kd_head_fwd"] > 0 and groups["flash_kd_head_bwd"] > 0,
           f"deepseek profile: no device time for kernels 9/10: {groups}")
-    del cache, student, pipe, runner, state, kern, prof
+    del cache, student, pipe, state, kern, prof
     torch.cuda.empty_cache()
     return line
+
+
+# ---------------------------------------------------------------- phase 25
+XLSTM = "xlstm-1.3b"
+JAMBA = "jamba-1.5-large-398b"
+DECODE_TOL = 5e-4                # of the logits' scale: tests/test_decode_consistency.py
+XLSTM_F32_LAYERS = 8             # two superblocks: six mLSTM, two sLSTM
+
+
+def xlstm_f32_phase(zoo, get_config, seed: int, card: str) -> dict:
+    """Phase 25: xlstm-1.3b at full width, 8 layers, f32: decode token by
+    token from an empty state equals a full forward over the same 128
+    tokens within 5e-4 of the logits' scale, and a prefill of the first 64
+    tokens (one chunk) followed by decode of the rest equals the forward on
+    the back half."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config(XLSTM), num_layers=XLSTM_F32_LAYERS,
+                              param_dtype="float32", compute_dtype="float32")
+    model = zoo.build_model(cfg)
+    params = model.init(seed, device=DEV)
+    B, S = 4, 128
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=DEV, dtype=torch.int32)
+    half = cfg.ssm.chunk_size
+    with torch.no_grad():
+        full, _ = model.logits(params, {"tokens": toks})
+        dec = _decode_all(model, params, toks, model.init_cache(B, S, device=DEV))
+        first, cache = model.prefill(params, {"tokens": toks[:, :half]})
+        rest = _decode_all(model, params, toks[:, half:], cache, half)
+    scale = float(full.abs().max())
+    err = float((dec - full).abs().max())
+    err_half = max(float((first - full[:, half - 1]).abs().max()),
+                   float((rest - full[:, half:]).abs().max()))
+    dtypes = sorted({str(v.dtype) for v in _leaves(cache)})
+    row = {"phase": "xlstm-1.3b full width, f32, 8 layers: decode == forward", "card": card,
+           "schedule": [k.mixer for k in model.schedule], "tokens": B * S,
+           "logit_scale": scale, "tol": DECODE_TOL * scale,
+           "decode_vs_forward_max_abs_err": err,
+           "prefill_then_decode_max_abs_err": err_half, "state_dtypes": dtypes}
+    print(json.dumps(row), flush=True)
+    check(err <= DECODE_TOL * scale and err_half <= DECODE_TOL * scale,
+          f"xlstm f32: decode parts from the forward {row}")
+    check(dtypes == ["torch.float32"], f"xlstm f32: state dtypes {dtypes}")
+    del params, model, full, dec, cache
+    torch.cuda.empty_cache()
+    return row
+
+
+# ---------------------------------------------------------------- phase 26
+def xlstm_serve_phase(zoo, get_config, serve, seed: int, card: str) -> dict:
+    """Phase 26: xlstm-1.3b as configured (48 layers, bf16, random weights
+    made on the card) serves 8 prompts of 224 tokens through the static
+    path, 32 new tokens each (L + new = 256, a multiple of the chunk 64)."""
+    cfg = get_config(XLSTM)
+    model = zoo.build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed, device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nbytes = sum(x.numel() * x.element_size() for x in _leaves(params))
+    B, L, new = 8, 224, 32
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    prompts = torch.randint(0, cfg.vocab_size, (B, L), generator=gen, device=DEV,
+                            dtype=torch.int32)
+    _timed_static(serve, model, params, prompts[:, :48], 16)        # warm: 64 tokens
+    ttft = _timed_prefill(model, params, prompts, new)
+    out, total = _timed_static(serve, model, params, prompts, new)
+    check(tuple(out.shape) == (B, new) and int(out.min()) >= 0
+          and int(out.max()) < cfg.vocab_size, f"xlstm serve: tokens {tuple(out.shape)}")
+    # one decode step after those sequences (a prefill of 256 tokens)
+    with torch.no_grad():
+        seq = torch.cat([prompts, out], dim=1)
+        logits, cache = model.prefill(params, {"tokens": seq})
+        tok = logits.argmax(-1).to(torch.int32)[:, None]
+    step = profiled_decode_step(model, params, tok, cache, L + new,
+                                {"mlstm_decode": zoo.ssm_lib, "slstm_decode": zoo.ssm_lib})
+    sbytes = sum(x.numel() * x.element_size() for x in _leaves(cache))
+    # the step's least bytes: every weight but the embedding table (one row
+    # a token), and each state read once and written once
+    bound_ms = (nbytes - params["embed"].numel() * params["embed"].element_size()
+                + 2 * sbytes) / HBM_BYTES_PER_S * 1e3
+    row = {"phase": "xlstm-1.3b as configured, bf16, 48 layers: static serve", "card": card,
+           "params": sum(x.numel() for x in _leaves(params)), "weights_gb": nbytes / 1e9,
+           "state_gb": sbytes / 1e9, "init_s": init_s, "requests": B, "prompt_tokens": L,
+           "new_tokens": new, "tokens_per_s": B * new / total, "ttft_s": ttft,
+           "total_s": total, **step, "decode_step_bytes_bound_ms": bound_ms,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(json.dumps(row), flush=True)
+    check(all(step["device_ms_by_range"].values()),
+          f"xlstm serve: no device time in a mixer's range: {step['device_ms_by_range']}")
+    check(bool(logits.isfinite().all()), "xlstm serve: non-finite logits")
+    check(all(x.dtype == torch.float32 for x in _leaves(cache)), "xlstm serve: bf16 states")
+    del params, model, cache, logits
+    torch.cuda.empty_cache()
+    return row
+
+
+# ---------------------------------------------------------------- phase 27
+# peak / model bytes of phase 24's sequential FedSDD run (deepseek 2 layers,
+# K=2 R=2, 4 clients, f32, bf16 ring: 53.0 GB for 4.34 GB models, PERF.md)
+FEDSDD_PEAK_PER_MODEL = 53.0 / 4.34
+XLSTM_VEC_LAYERS = 24            # the vectorized round: a 2-client stack under scan
+
+
+def _xlstm_cfg(get_config, layers: int):
+    import dataclasses
+    return dataclasses.replace(get_config(XLSTM), num_layers=layers, param_dtype="float32",
+                               compute_dtype="float32")
+
+
+def xlstm_param_count(cfg) -> int:
+    """Parameters of an xLSTM model as ``init`` makes them (the reference's
+    ``num_params`` counts its blocks with another formula)."""
+    D, V, nh = cfg.d_model, cfg.vocab_size, cfg.num_heads
+    mlstm = 5 * D * D + 2 * D * nh + nh + D                  # q k v z out, gates, norm
+    slstm = 4 * D * D + 4 * D * D // nh + 4 * D + D * D + D   # w_in, r, b, out, norm
+    r = cfg.ssm.xlstm_slstm_ratio
+    n_s = cfg.num_layers // r if r else 0
+    return (cfg.num_layers - n_s) * mlstm + n_s * slstm + 2 * V * D + D
+
+
+def xlstm_fed_depth(get_config) -> tuple[int, float]:
+    """The deepest multiple of 4 layers (the 3:1 mLSTM:sLSTM superblock), up
+    to the full 48, whose reckoned sequential FedSDD peak is under 76 GB."""
+    for layers in range(48, 0, -4):
+        reckoned = FEDSDD_PEAK_PER_MODEL * xlstm_param_count(_xlstm_cfg(get_config, layers)) \
+            * 4 / 1e9
+        if reckoned < PEAK_LIMIT_GB:
+            return layers, reckoned
+    raise RuntimeError("xlstm: no depth fits")
+
+
+def xlstm_fedsdd_phase(fed, wa_ops, wa_ref, kd_ops, flash, seed: int, card: str) -> dict:
+    """Phase 27 (b)-(d): xlstm-1.3b at full width, f32.  (c) one vectorized
+    round (K=2, 2 of 4 clients, no KD steps, the bucket step captured) at
+    24 layers whose Eq. 2 launches kernel 5 over the xLSTM tree, and kernel
+    5 against its plain version over that tree at G = 2, N = 2; (d) kernels
+    9/10 against their plain versions at xlstm's head (512 x 2,048 x 50,304,
+    untied, f32 head, bf16 cache), timed; (b) fedsdd K=2 R=2 over 4 clients,
+    2 rounds, lm_task of 8 docs of 128 tokens, head-fused Flash-KD, the
+    ring in bf16, sequential, at the depth ``xlstm_fed_depth`` reckons.
+    Returns the phase's line."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tasks import lm_task
+    layers, reckoned = xlstm_fed_depth(get_config)
+    cfg = _xlstm_cfg(get_config, layers)
+    n_params = xlstm_param_count(cfg)
+    line = {"phase": f"xlstm-1.3b full width, {layers} of 48 layers, FedSDD", "card": card,
+            "layers": layers, "params_per_model": n_params, "model_gb_f32": n_params * 4 / 1e9,
+            "reckoned_peak_gb": reckoned}
+    kw = dict(num_clients=4, client_batch=4, local_epochs=1, client_lr=0.01, server_lr=0.01,
+              kd_kernel="flash", kd_head_fusion=True, teacher_dtype="bfloat16", seed=seed)
+    task_of = lambda c: lm_task(c, num_clients=4, docs_per_client=8, seq=128,  # noqa: E731
+                                server_batches_n=2, server_batch=4, seed=seed, device=DEV)
+
+    # (c) the vectorized round at 24 layers, its bucket step a captured program
+    line["vectorized"], line["kernel_5_xlstm_tree"] = vectorized_kernel5_round(
+        fed, wa_ops, wa_ref, task_of(_xlstm_cfg(get_config, XLSTM_VEC_LAYERS)), kw,
+        f"xlstm-1.3b {XLSTM_VEC_LAYERS}-layer", seed, card)
+    line["vectorized"]["layers"] = XLSTM_VEC_LAYERS
+
+    # (d) kernels 9/10 at xlstm's head
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    D, V = cfg.d_model, cfg.vocab_size
+    rnd = lambda shape, scale, dt=torch.float32: (  # noqa: E731
+        torch.randn(shape, generator=gen, device=DEV) * scale).to(dt)
+    line["head"] = flash_check(kd_ops, flash, f"512x{D}x{V} untied (xlstm-1.3b)",
+                               h=rnd((512, D), 1), w=rnd((D, V), 0.02),
+                               z=rnd((512, V), 3, torch.bfloat16), timed=True)
+    torch.cuda.empty_cache()
+
+    # (b) the sequential rounds with head-fused Flash-KD
+    line["sequential"], state, pipe, line["init_s"] = sequential_fedsdd_rounds(
+        fed, task_of(cfg), kw, 20, f"xlstm-1.3b {layers}-layer", card)
+    print(json.dumps({k: v for k, v in line.items() if k != "head"}), flush=True)
+    del pipe, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+# ---------------------------------------------------------------- phase 28
+JAMBA_NO_DROPS = 8.0             # capacity = tokens a group x 8 x top-2 / 16 experts: no drops
+
+
+def _jamba_cfg(get_config, **changes):
+    import dataclasses
+    base = get_config(JAMBA)
+    return dataclasses.replace(base, moe=dataclasses.replace(base.moe,
+                                                             capacity_factor=JAMBA_NO_DROPS),
+                               **changes)
+
+
+def jamba_f32_phase(zoo, get_config, seed: int, card: str) -> dict:
+    """Phase 28: jamba-1.5-large-398b at full width, f32, 2 layers (attn_period
+    2: (Mamba, dense), (GQA, MoE); 11.9 B parameters, 47.6 GB): decode from
+    an empty state over 128 tokens equals the full forward within 5e-4 of
+    the logits' scale."""
+    import dataclasses
+    base = get_config(JAMBA)
+    cfg = _jamba_cfg(get_config, num_layers=2, param_dtype="float32", compute_dtype="float32",
+                     ssm=dataclasses.replace(base.ssm, attn_period=2))
+    model = zoo.build_model(cfg)
+    params = model.init(seed, device=DEV)
+    B, S = 2, cfg.ssm.chunk_size
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=DEV, dtype=torch.int32)
+    with torch.no_grad():
+        full, _ = model.logits(params, {"tokens": toks})
+        cache = model.init_cache(B, S, device=DEV)
+        dec = _decode_all(model, params, toks, cache)
+    scale = float(full.abs().max())
+    err = float((dec - full).abs().max())
+    row = {"phase": "jamba-1.5-large-398b full width, f32, 2 layers: decode == forward",
+           "card": card,
+           "schedule": [f"{k.mixer}/{k.ffn}" for k in model.schedule],
+           "params": sum(x.numel() for x in _leaves(params)), "tokens": B * S,
+           "capacity_factor": JAMBA_NO_DROPS, "logit_scale": scale, "tol": DECODE_TOL * scale,
+           "decode_vs_forward_max_abs_err": err,
+           "state_dtypes": {k: str(v.dtype) for k, v in cache["prefix"][0].items()}
+           if cache["prefix"] else {k: str(v.dtype) for k, v in cache["blocks"]["b0"].items()}}
+    print(json.dumps(row), flush=True)
+    check(err <= DECODE_TOL * scale, f"jamba f32: decode parts from the forward {row}")
+    del params, model, full, dec, cache
+    torch.cuda.empty_cache()
+    return row
+
+
+# ---------------------------------------------------------------- phase 29
+def jamba_serve_phase(zoo, get_config, serve, seed: int, card: str) -> dict:
+    """Phase 29: jamba at full width cut to the reference's reduced()
+    schedule (4 layers, attn_period 4: (Mamba, dense), (Mamba, MoE), (Mamba,
+    dense), (GQA, MoE); 23.0 B parameters), bf16, random weights made on the
+    card: 4 prompts of 224 tokens + 32 new through the static path (256, a
+    multiple of the chunk 128); the bf16 decode from an empty state over
+    the first 128 tokens against the forward, printed beside phase 28's f32
+    check; a decode step's wall, device, idle share and bytes bound."""
+    import dataclasses
+    base = get_config(JAMBA)
+    cfg = _jamba_cfg(get_config, num_layers=4, ssm=dataclasses.replace(base.ssm, attn_period=4))
+    model = zoo.build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed, device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nbytes = sum(x.numel() * x.element_size() for x in _leaves(params))
+    B, L, new = 4, 224, 32
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    prompts = torch.randint(0, cfg.vocab_size, (B, L), generator=gen, device=DEV,
+                            dtype=torch.int32)
+    S = cfg.ssm.chunk_size
+    with torch.no_grad():
+        full, _ = model.logits(params, {"tokens": prompts[:, :S]})
+        dec = _decode_all(model, params, prompts[:, :S], model.init_cache(B, S, device=DEV))
+    scale = float(full.abs().max())
+    bf16_err = float((dec.float() - full.float()).abs().max())
+    del full, dec
+    _timed_static(serve, model, params, prompts[:, :112], 16)       # warm: 128 tokens
+    ttft = _timed_prefill(model, params, prompts, new)
+    out, total = _timed_static(serve, model, params, prompts, new)
+    check(tuple(out.shape) == (B, new) and int(out.min()) >= 0
+          and int(out.max()) < cfg.vocab_size, f"jamba serve: tokens {tuple(out.shape)}")
+    with torch.no_grad():
+        seq = torch.cat([prompts, out], dim=1)
+        logits, cache = model.prefill(params, {"tokens": torch.nn.functional.pad(seq, (0, S))},
+                                      last=torch.full((B,), L + new - 1, device=DEV))
+        tok = logits.argmax(-1).to(torch.int32)[:, None]
+    step = profiled_decode_step(model, params, tok, cache, L + new,
+                                {"mamba_decode": zoo.ssm_lib, "moe_ffn": zoo.moe_lib})
+    blocks = [*cache["prefix"], *cache["blocks"].values()]      # stacked: every layer
+    sbytes = sum(x.numel() * x.element_size() for blk in blocks for k, x in blk.items()
+                 if k not in ("k", "v"))
+    n_attn = sum(k.mixer == "gqa" for k in model.schedule)
+    kv_live = n_attn * 2 * B * (L + new + 1) * cfg.num_kv_heads * cfg.head_dim * 2
+    # every weight but the embedding (a group of 4 tokens has capacity 8 in
+    # each of the 16 experts, so the batched products read every bank), the
+    # states read and written once, the live K/V read once
+    bound_ms = (nbytes - params["embed"].numel() * params["embed"].element_size()
+                + 2 * sbytes + kv_live) / HBM_BYTES_PER_S * 1e3
+    row = {"phase": "jamba-1.5-large-398b full width, bf16, 4 layers: static serve",
+           "card": card, "schedule": [f"{k.mixer}/{k.ffn}" for k in model.schedule],
+           "params": sum(x.numel() for x in _leaves(params)), "weights_gb": nbytes / 1e9,
+           "init_s": init_s, "capacity_factor": JAMBA_NO_DROPS, "requests": B,
+           "prompt_tokens": L, "new_tokens": new, "tokens_per_s": B * new / total,
+           "ttft_s": ttft, "total_s": total,
+           "bf16_decode_vs_forward_max_abs_err": bf16_err, "logit_scale": scale,
+           **step, "decode_step_bytes_bound_ms": bound_ms,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(json.dumps(row), flush=True)
+    check(all(step["device_ms_by_range"].values()),
+          f"jamba serve: no device time in a range: {step['device_ms_by_range']}")
+    check(bool(logits.isfinite().all()) and math.isfinite(bf16_err),
+          "jamba serve: non-finite logits")
+    check(row["peak_mem_gb"] < 80.0, f"jamba serve: peak {row['peak_mem_gb']} GB")
+    del params, model, cache, logits
+    torch.cuda.empty_cache()
+    return row
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3683,14 +4102,45 @@ def main() -> int:
     deepseek_serve_phase(zoo, get_config, serve, args.seed, card)
 
     phase("24. deepseek-v2-lite-16b full width, 2 layers, FedSDD with head-fused Flash-KD")
-    deepseek_round_phase(fed, kd_ops, flash, args.seed)
+    head_fused_rounds_phase(fed, kd_ops, flash, args.seed)
     ds = deepseek_fedsdd_phase(fed, wa_ops, wa_ref, args.seed, card)
     wa_entry["deepseek"] = {k: ds["kernel_5_moe_tree"][k]
                             for k in ("case", "leaves", "shape", "max_abs_err", "ms", "plain_ms",
                                       "bound_ms", "bound_by", "library_ms")}
     wa_entry["deepseek"]["launches"] = ds["vectorized"]["launches"]["multi_weighted_average"]
 
-    phase("25. kernels")
+    phase("25. xlstm-1.3b full width, f32, 8 layers: decode == forward")
+    xlstm_f32_phase(zoo, get_config, args.seed, card)
+
+    phase("26. xlstm-1.3b as configured, bf16, 48 layers: static serve")
+    xlstm_serve_phase(zoo, get_config, serve, args.seed, card)
+
+    phase("27. xlstm-1.3b FedSDD: reduced kernels vs plain, full width rounds, kernel 5, head")
+    xlstm_rounds = head_fused_rounds_phase(fed, kd_ops, flash, args.seed, XLSTM)
+    xl = xlstm_fedsdd_phase(fed, wa_ops, wa_ref, kd_ops, flash, args.seed, card)
+    wa_entry["xlstm"] = {k: xl["kernel_5_xlstm_tree"][k]
+                         for k in ("case", "leaves", "shape", "max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}
+    wa_entry["xlstm"]["launches"] = xl["vectorized"]["launches"]["multi_weighted_average"]
+    for e in flash_entries:     # kernels 9 and 10 at xlstm-1.3b's head and on its rounds
+        if e["name"] in xl["head"]:
+            r = xl["head"][e["name"]]
+            e["xlstm"] = {k: r[k] for k in ("case", "max_abs_err", "ms", "plain_ms",
+                                            "bound_ms", "bound_by", "library_ms")}
+            e["xlstm"]["launches"] = sum(rd["launches"].get(e["name"], 0)
+                                         for rd in xl["sequential"])
+            e["xlstm"]["reduced_launches"] = xlstm_rounds.get(e["name"], 0)
+
+    phase("28. jamba-1.5-large-398b full width, f32, 2 layers: decode == forward")
+    jamba_f32_phase(zoo, get_config, args.seed, card)
+
+    phase("29. jamba-1.5-large-398b full width, bf16, 4 layers: static serve")
+    jamba_serve_phase(zoo, get_config, serve, args.seed, card)
+
+    phase("30. jamba-1.5-large-398b reduced, f32: head-fused rounds, kernels vs plain")
+    head_fused_rounds_phase(fed, kd_ops, flash, args.seed, JAMBA)
+
+    phase("31. kernels")
     print(f"total {time.perf_counter() - T_START:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [entry, *kd_entries, wa_entry, single_entry,

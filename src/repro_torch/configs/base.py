@@ -101,6 +101,20 @@ class ModelConfig:
         return not self.causal
 
     @property
+    def supports_decode(self) -> bool:
+        return self.causal
+
+    def supports_long_context(self) -> bool:
+        """True if long_500k decode is sub-quadratic/sub-linear-memory: a
+        recurrent state (SSM, hybrid), a compressed KV cache (MLA) or a
+        sliding window stands in for a full KV cache."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        if self.mla is not None:
+            return True
+        return self.attn_variant == "sliding"
+
+    @property
     def pdtype(self) -> torch.dtype:
         return getattr(torch, self.param_dtype)
 
@@ -173,6 +187,15 @@ class ModelConfig:
         di = self.ssm.expand * D
         ds = self.ssm.d_state
         return 2 * D * di + di * self.ssm.d_conv + di * (2 * ds + 1) + di * D
+
+    def num_active_params(self) -> int:
+        """Active params per token (MoE: only the routed top-k + shared)."""
+        if self.moe is None:
+            return self.num_params()
+        m = self.moe
+        mult = 3 if self.mlp_variant in ("swiglu", "geglu") else 2
+        inactive = (m.num_experts - m.top_k) * mult * self.d_model * m.d_ff_expert
+        return self.num_params() - sum(self.moe_layer_flags()) * inactive
 
     # ---- smoke-scale variant ------------------------------------------
     def reduced(self) -> "ModelConfig":
@@ -259,8 +282,9 @@ def _ensure_loaded() -> None:
     _LOADED = True
     import importlib
     # the dense all-GQA architectures (starcoder2-3b with sliding-window
-    # attention) and deepseek-v2-lite-16b (MLA + MoE); the SSM and frontend
-    # families come with the slices that port those mixers
+    # attention), deepseek-v2-lite-16b (MLA + MoE), xlstm-1.3b (mLSTM +
+    # sLSTM) and jamba-1.5-large-398b (Mamba + GQA + MoE); llama4-maverick
+    # and the audio/VLM frontends come with the slices that port them
     for m in ("gemma_2b", "stablelm_3b", "qwen2_5_14b", "starcoder2_3b",
-              "deepseek_v2_lite_16b"):
+              "deepseek_v2_lite_16b", "xlstm_1_3b", "jamba_1_5_large_398b"):
         importlib.import_module(f"repro_torch.configs.{m}")

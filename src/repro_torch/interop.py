@@ -6,7 +6,10 @@ the same nested dicts and lists, the same keys, stacked ``blocks`` as they
 are (a MoE layer's expert banks keep their (n_super, E, ...) axes, its
 router and shared experts and an MLA layer's projections their
 (n_super, ...) one; deepseek-v2-lite-16b's dense layer 0 is the ``prefix``
-list).  ``params_to_numpy`` goes the other way.  This module accepts numpy
+list; a recurrent block's weights sit under ``ssm``: Mamba's ``in_proj``,
+``conv_w``, ``A_log``, ...; mLSTM's ``wq``/``wk``/``wv``, gates and
+``w_z``; sLSTM's ``w_in``, its recurrent ``r`` (n_super, nh, dh, 4·dh) and
+``b``).  ``params_to_numpy`` goes the other way.  This module accepts numpy
 only and imports nothing of JAX.
 
 bfloat16: numpy holds it as ``ml_dtypes.bfloat16``, which

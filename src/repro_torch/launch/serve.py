@@ -12,9 +12,11 @@ batching (port of ``repro/launch/serve.py``).
 Like the reference, it serves the arch's ``reduced()`` variant.  Runs on
 ``--device`` (default cuda; no GPU is an error, not a fallback).  The
 continuous path needs an all-GQA schedule (paged KV blocks have a sequence
-axis per KV head; MLA's latent cache does not): deepseek-v2-lite-16b
-serves through the static path, and ``--continuous`` raises the
-reference's ``ValueError``.
+axis per KV head; MLA's latent cache and the recurrent states do not):
+deepseek-v2-lite-16b, xlstm-1.3b and jamba-1.5-large-398b serve through
+the static path, and ``--continuous`` raises the reference's
+``ValueError``.  The recurrent families' static batch needs
+``--prompt-len + --decode-steps`` a multiple of the reduced chunk (16).
 """
 from __future__ import annotations
 

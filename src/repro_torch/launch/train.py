@@ -9,6 +9,7 @@ architecture, on either client engine:
   PYTHONPATH=src python -m repro_torch.launch.train --model resnet56 --execution vectorized
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b --kd-kernel flash --kd-head-fusion
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v2-lite-16b --K 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-1.3b --kd-kernel flash --kd-head-fusion
   PYTHONPATH=src python -m repro_torch.launch.train --preset fedbe
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --rounds 2
   PYTHONPATH=src python -m repro_torch.launch.train --execution vectorized --overlap fused
@@ -26,7 +27,9 @@ uploads, ``--aggregator`` / ``--clip-norm`` the robust Eq. 2,
 pending KD job included) there after every round, and ``--resume`` starts
 from the newest loadable one.  A flag for what the port does not run yet
 raises ``NotImplementedError`` naming the slice that brings it: an
-``--arch`` of the SSM, hybrid or audio/VLM families.
+``--arch`` of llama4-maverick or the audio/VLM families.  The LM task's
+``seq`` (32) is a multiple of the reduced SSM chunk (16), as the
+recurrent families' full forward needs.
 """
 from __future__ import annotations
 
@@ -46,9 +49,9 @@ def _refuse_unported(args) -> None:
     """The CLI-level options of the reference this port does not run yet."""
     if args.arch is not None and args.arch not in list_configs():
         raise NotImplementedError(
-            f"repro_torch.launch.train: --arch {args.arch}: the model families beyond "
-            f"GQA and MLA + MoE (SSM, hybrid, the audio/VLM frontends) arrive with their "
-            f"own slice of the port; the LM task runs {list_configs()}")
+            f"repro_torch.launch.train: --arch {args.arch}: llama4-maverick and the "
+            f"audio/VLM frontends arrive with their own slice of the port; the LM task "
+            f"runs {list_configs()}")
 
 
 def _fault_plan(args) -> FaultPlan | None:

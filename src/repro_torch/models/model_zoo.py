@@ -1,20 +1,25 @@
-"""Model zoo: dense GQA and MLA + MoE decoders (port of
-``repro/models/model_zoo.py``).
+"""Model zoo: dense GQA, MLA + MoE, xLSTM and hybrid Mamba decoders (port
+of ``repro/models/model_zoo.py``).
 
 The parameter tree is the reference's: ``embed``, ``final_norm``,
 ``lm_head`` (unless tied), an optional unrolled ``prefix`` list and
 ``blocks``, whose leaves are stacked on a leading ``n_super`` axis (48 for
 Qwen2.5-14B; DeepSeek-V2-Lite's dense layer 0 is the prefix and its 26
-MLA + MoE layers the stack, period 1).  The reference scans that axis; the
-port loops over it in Python and indexes layer ``i``, so one layer's paged
-pool ``pool[i]`` is a contiguous ``(nb, bs, Hkv, dh)`` tensor the decode
-kernel reads directly.  Each block returns the router's aux loss (zero
-for a dense FFN); ``loss`` adds ``router_aux_coef · aux / #MoE layers``.
+MLA + MoE layers the stack, period 1; xLSTM-1.3B's 12 superblocks of three
+mLSTM and one sLSTM block; Jamba's superblocks of 8, the 8th attention).
+The reference scans that axis; the port loops over it in Python and
+indexes layer ``i``, so one layer's paged pool ``pool[i]`` is a contiguous
+``(nb, bs, Hkv, dh)`` tensor the decode kernel reads directly.  Each block
+returns the router's aux loss (zero for a dense FFN); ``loss`` adds
+``router_aux_coef · aux / #MoE layers``.
 
 Decode caches and paged pools are updated in place (the reference's
-jitted callers donate them); prefill returns fresh caches.  Paged serving
-is all-GQA only, as in the reference: MLA's latent cache serves through
-the static path.
+jitted callers donate them): an attention decode writes its row, and a
+recurrent mixer copies its new state into its layer's view of the cache.
+Prefill returns fresh caches.  Recurrent states stay f32 under any
+compute dtype, as the reference's ``_cache_dtype`` keeps them.  Paged
+serving is all-GQA only, as in the reference: MLA's latent cache and the
+recurrent states serve through the static path.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from repro_torch import device as device_lib
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (apply_mlp, apply_norm, cross_entropy, dense_init,
                                        embed_init, init_mlp, init_norm)
 
@@ -38,19 +44,30 @@ from repro_torch.models.layers import (apply_mlp, apply_norm, cross_entropy, den
 # ======================================================================
 @dataclass(frozen=True)
 class BlockKind:
-    mixer: str   # gqa | mla (mamba | mlstm | slstm: a later slice)
+    mixer: str   # gqa | mla | mamba | mlstm | slstm
     ffn: str     # dense | moe | none
 
 
 def layer_schedule(cfg: ModelConfig) -> list[BlockKind]:
-    """Per-layer (mixer, ffn) kinds: the reference's schedule for the
-    attention families."""
+    """Per-layer (mixer, ffn) kinds, the reference's: xLSTM puts an sLSTM
+    at every ``xlstm_slstm_ratio``-th block and has no FFN; a hybrid puts
+    attention where ``attn_layer_flags`` says and its SSM variant
+    elsewhere."""
     _check_supported(cfg)
+    attn_flags = cfg.attn_layer_flags()
     moe_flags = cfg.moe_layer_flags()
     kinds = []
     for i in range(cfg.num_layers):
-        mixer = "mla" if cfg.mla is not None else "gqa"
-        ffn = "moe" if moe_flags[i] else "dense"
+        if cfg.family == "ssm" and cfg.ssm.variant == "xlstm":
+            r = cfg.ssm.xlstm_slstm_ratio
+            mixer = "slstm" if (r and i % r == r - 1) else "mlstm"
+            ffn = "none"
+        elif attn_flags[i]:
+            mixer = "mla" if cfg.mla is not None else "gqa"
+            ffn = "moe" if moe_flags[i] else "dense"
+        else:  # hybrid non-attention layer
+            mixer = cfg.ssm.variant
+            ffn = "moe" if moe_flags[i] else "dense"
         if cfg.d_ff == 0 and ffn == "dense":
             ffn = "none"
         kinds.append(BlockKind(mixer, ffn))
@@ -72,15 +89,10 @@ def split_schedule(kinds: list[BlockKind]) -> tuple[int, int]:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    later = []
-    if cfg.ssm is not None or cfg.family in ("ssm", "hybrid"):
-        later.append("SSM mixers (models/ssm.py)")
     if cfg.frontend_dim or cfg.family in ("audio", "vlm"):
-        later.append("audio/VLM frontends")
-    if later:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(later)} arrive with the later slice of the "
-            f"port that ports the model families beyond GQA and MLA + MoE")
+            f"{cfg.name}: the audio/VLM frontends arrive with the later slice of "
+            f"the port that ports them")
 
 
 def _layer(tree, i: int):
@@ -103,8 +115,10 @@ def init_block(gen, cfg: ModelConfig, kind: BlockKind, *, stack: tuple = ()):
     p: dict[str, Any] = {"norm1": init_norm(cfg, gen.device, stack=stack)}
     if kind.mixer == "mla":
         p["attn"] = attn.init_mla(gen, cfg, stack=stack)
-    else:
+    elif kind.mixer == "gqa":
         p["attn"] = attn.init_gqa(gen, cfg, stack=stack)
+    else:
+        p["ssm"] = getattr(ssm_lib, f"init_{kind.mixer}")(gen, cfg, stack=stack)
     if kind.ffn != "none":
         p["norm2"] = init_norm(cfg, gen.device, stack=stack)
         if kind.ffn == "moe":
@@ -121,7 +135,17 @@ def apply_block(p, x, cfg: ModelConfig, kind: BlockKind, *, mode: str,
     (0 for a dense FFN)."""
     aux = torch.zeros((), device=x.device)
     h = apply_norm(p["norm1"], x, cfg)
-    if mode == "paged":
+    if kind.mixer in ("mamba", "mlstm", "slstm"):
+        # looked up at call time, so a caller can wrap a mixer's function
+        if mode == "decode":
+            a, state = getattr(ssm_lib, f"{kind.mixer}_decode")(p["ssm"], h, cache, cfg)
+            for k, v in state.items():
+                cache[k].copy_(v)
+            new_cache = cache
+        else:
+            a, state = getattr(ssm_lib, f"{kind.mixer}_forward")(p["ssm"], h, cfg)
+            new_cache = state if mode == "prefill" else None
+    elif mode == "paged":
         # init_paged_cache refuses non-GQA schedules up front
         assert kind.mixer == "gqa", kind.mixer
         a, new_cache = attn.gqa_paged_decode(p["attn"], h, cache, cfg, pos)
@@ -152,7 +176,16 @@ def block_cache_shapes(cfg: ModelConfig, kind: BlockKind, batch: int, seq_len: i
         return attn.gqa_cache_shape(cfg, batch, seq_len)
     if kind.mixer == "mla":
         return attn.mla_cache_shape(cfg, batch, seq_len)
+    if kind.mixer in ("mamba", "mlstm", "slstm"):
+        return getattr(ssm_lib, f"{kind.mixer}_state_shape")(cfg, batch)
     raise ValueError(kind.mixer)
+
+
+def _cache_dtype(cfg: ModelConfig, kind: BlockKind):
+    """Recurrent states stay f32; KV caches follow the compute dtype."""
+    if kind.mixer in ("mamba", "mlstm", "slstm"):
+        return torch.float32
+    return cfg.cdtype
 
 
 # ======================================================================
@@ -338,21 +371,21 @@ class Model:
         """Zero caches: ``shape_of(kind)`` is one layer's {name: shape},
         stacked (n_super, ...) for the superblock's layers."""
         dev = device_lib.resolve(device)
-        dt = self.cfg.cdtype
         q, _ = self.prefix_period
-        prefix = [{k: torch.zeros(s, dtype=dt, device=dev)
+        prefix = [{k: torch.zeros(s, dtype=_cache_dtype(self.cfg, self.schedule[i]), device=dev)
                    for k, s in shape_of(self.schedule[i]).items()} for i in range(q)]
         blocks = None
         if self.n_super:
-            blocks = {f"b{j}": {k: torch.zeros((self.n_super, *s), dtype=dt, device=dev)
+            blocks = {f"b{j}": {k: torch.zeros((self.n_super, *s),
+                                               dtype=_cache_dtype(self.cfg, kind), device=dev)
                                 for k, s in shape_of(kind).items()}
                       for j, kind in enumerate(self.superblock)}
         return {"prefix": prefix, "blocks": blocks}
 
     def init_cache(self, batch: int, seq_len: int, device=None):
         """Contiguous caches: GQA leaves (B, S, Hkv, dh), MLA's latent
-        ``c_kv`` (B, S, rank) and ``k_rope`` (B, S, rope); stacked
-        (n_super, ...)."""
+        ``c_kv`` (B, S, rank) and ``k_rope`` (B, S, rope), the recurrent
+        states (f32, no sequence axis); stacked (n_super, ...)."""
         return self._cache_tree(
             lambda kind: block_cache_shapes(self.cfg, kind, batch, seq_len), device)
 
@@ -360,8 +393,9 @@ class Model:
         """ONE paged pool shared by all in-flight requests: every layer's k/v
         lives in ``(num_blocks, block_size, Hkv, dh)`` blocks addressed
         through per-request block tables.  Paged serving is attention-only:
-        MLA latent caches have no per-head K/V to page, so a schedule that
-        is not all GQA raises the reference's ``ValueError``."""
+        MLA latent caches have no per-head K/V to page and recurrent states
+        no sequence axis, so a schedule that is not all GQA raises the
+        reference's ``ValueError``."""
         bad = {k.mixer for k in self.schedule if k.mixer != "gqa"}
         if bad:
             raise ValueError(

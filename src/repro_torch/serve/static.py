@@ -6,6 +6,14 @@ A fixed batch of uniform-length prompts, every row decoded for the full
 ``last=L-1``), so the caches are born full-size; decode is a Python loop of
 ``Model.decode_step`` over a contiguous cache.  It runs no paged kernel,
 which makes it the port's token oracle for ``ContinuousEngine``.
+
+The padding is the reference's, and so is what it does to a recurrent
+state (SSM and hybrid models): an attention cache's pads sit past the
+prompt and decode overwrites them, but a recurrent state has no positions
+to mask and absorbs the ``max_new_tokens`` pad tokens, so from the second
+token on the output parts from a decode that starts from an empty state.
+Their full forward also needs ``L + max_new_tokens`` to be a multiple of
+the config's ``chunk_size``.
 """
 from __future__ import annotations
 

@@ -39,7 +39,7 @@ def test_config_and_reduced_match_reference(arch):
 
 def test_unported_arch_is_not_registered():
     with pytest.raises(KeyError, match="not yet ported"):
-        get_config("jamba-1.5-large-398b")
+        get_config("llama4-maverick-400b-a17b")
 
 
 @pytest.mark.parametrize("seed", [0, 5])

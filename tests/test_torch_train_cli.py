@@ -78,7 +78,7 @@ def test_cli_lm_task_with_head_fused_flash_kd(monkeypatch, capsys, tmp_path):
 
 
 @pytest.mark.parametrize("flags,slice_", [
-    (["--arch", "xlstm-1.3b"], "own slice"),
+    (["--arch", "hubert-xlarge"], "own slice"),
 ], ids=["arch"])
 def test_cli_unported_flags_raise(flags, slice_, monkeypatch):
     with pytest.raises(NotImplementedError, match=slice_):
