@@ -209,7 +209,11 @@ Phases, each of which fails the run if it fails:
                drops): generate_static's greedy tokens equal the argmax of
                a full forward over the same tokens, and the absorbed MLA
                decode's logits within 1e-4 of the logits' scale of the
-               expanded form's
+               expanded form's; its tokens under "scan" (the decode step one
+               captured graph, src/repro_torch/serve/static.py) equal those
+               under "stepped", and a second parameter set of the same
+               shapes served under "scan" gets its own stepped tokens (the
+               program rebuilt for it and again for the first: 2 captures)
  23. ds bf16   deepseek-v2-lite-16b as configured (27 layers, bf16, 15.7 B
                parameters, random weights made on the card): the static path
                serves 8 prompts of 256 tokens, 32 new tokens each (MLA has no
@@ -218,7 +222,8 @@ Phases, each of which fails the run if it fails:
                and MLA decodes (named ranges under torch.profiler), beside
                its bytes bound (all weights but the embedding, and the
                expert banks alone: a group of 8 tokens has capacity 8 in
-               every one of the 64 experts)
+               every one of the 64 experts); then the static decode under
+               "scan" and "stepped" (static_modes, 8 new tokens)
  24. ds FedSDD deepseek-v2-lite-16b reduced, f32: 2 head-fused Flash-KD rounds
                with kernels 9/10 and with their plain versions from the same
                weights, deterministic algorithms (as phase 13), within 2e-4;
@@ -239,7 +244,8 @@ Phases, each of which fails the run if it fails:
                of the first 64 (one chunk) followed by decode of the rest
                equals the forward on the back half, both within 5e-4 of the
                logits' scale (the reference's decode-consistency check); the
-               states f32
+               states f32; generate_static over 48 + 16 tokens gives the
+               same tokens under "scan" and "stepped"
  26. xl bf16   xlstm-1.3b as configured (48 layers, bf16, random weights made
                on the card): the static path serves 8 prompts of 224 tokens,
                32 new tokens each (L + new = 256, a multiple of the chunk 64;
@@ -248,7 +254,8 @@ Phases, each of which fails the run if it fails:
                device and idle share and the device ms of the mLSTM and
                sLSTM decodes (named ranges under torch.profiler), beside the
                step's bytes bound (the weights but the embedding, each state
-               read and written once)
+               read and written once); then the static decode under "scan"
+               and "stepped" (static_modes, 184 + 8 tokens)
  27. xl FedSDD (a) xlstm-1.3b reduced, f32: 2 head-fused Flash-KD rounds with
                kernels 9/10 and with their plain versions from the same
                weights, deterministic algorithms, within 2e-4; (c) full
@@ -272,7 +279,8 @@ Phases, each of which fails the run if it fails:
                (each expert's capacity is the group's token count: no
                drops): decode from an empty state over 128 tokens (one
                chunk) equals the full forward within 5e-4 of the logits'
-               scale
+               scale; generate_static over 112 + 16 tokens gives the same
+               tokens under "scan" and "stepped"
  29. jb bf16   jamba at full width cut to the reference's reduced() schedule
                (4 layers, attn_period 4: Mamba/dense, Mamba/MoE, Mamba/dense,
                GQA/MoE; 23.0 B parameters, 46 GB), bf16, capacity factor 8:
@@ -282,7 +290,8 @@ Phases, each of which fails the run if it fails:
                128); tokens/s, TTFT, peak memory; a decode step's wall,
                device, idle share, the Mamba and MoE ranges, beside its bytes
                bound (every weight but the embedding, the states read and
-               written once, the live K/V read once)
+               written once, the live K/V read once); then the static decode
+               under "scan" and "stepped" (static_modes, 120 + 8 tokens)
  30. jb FedSDD jamba reduced, f32: 2 head-fused Flash-KD rounds, kernels 9/10
                against their plain versions, as phase 27 (a)
  31. kernels   one JSON line per the port's kernel contract; kernel 12's
@@ -304,6 +313,21 @@ Phases, each of which fails the run if it fails:
                rounds (and (a)'s, "reduced_launches"); every entry's
                "host_ms" is its wrapper's host time a call
  32. ok        {"ok": true, "device": {...}} as the last line
+
+Static decode (phases 22-29).  The static path's default on a card is
+"scan": the prefill eager, then each decode step one replay of a captured
+graph.  static_modes runs the same prompts under each mode: a warm call of
+the same shape, a timed call (TTFT, the decode's wall per step, tokens/s,
+the graphs captured, which must be 0), and a call whose decode runs under
+torch.profiler (device and busy ms per step, the idle share against the
+timed wall, the kernels the card ran and the kernel and graph launches the
+host made per step); one "scan vs stepped: static decode <arch>" line sets
+them side by side with the tokens on which the two modes agree (bf16: only
+printed; the f32 phases 22, 25 and 28 check them equal).  Phases 22, 23,
+25, 26, 28 and 29 each end with "released": once the phase has dropped its
+model, the card's allocated memory is within 0.25 GB of its value before
+the phase and no static decode program is left (the programs go with
+their model).
 
 Tolerances, the recurrent families (phases 25-29): decode against the
 full forward within 5e-4 of the logits' largest magnitude, the reference's
@@ -431,6 +455,38 @@ def phase(name: str) -> None:
     print(f"\n== {name} (at {time.perf_counter() - T_START:.1f} s{mem})", flush=True)
 
 
+RELEASE_SLACK_GB = 0.25   # a new stream's cuBLAS workspace and the like stay
+
+
+def holding() -> tuple:
+    """What the card holds now: allocated bytes and static decode programs."""
+    return torch.cuda.memory_allocated(), static_programs()
+
+
+def released(before: tuple, label: str) -> None:
+    """Once a phase has dropped its model: the card's allocated memory is
+    back near its value before the phase (``before``, from ``holding``) and
+    no static decode program (graph pool, buffers) outlived the model."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mem0, progs0 = before
+    left = (torch.cuda.memory_allocated() - mem0) / 1e9
+    progs = static_programs() - progs0
+    print(json.dumps({"phase": f"released: {label}", "allocated_gb_over_start": left,
+                      "graph_pool_gb": graph_pool_gb(), "static_programs_left": progs}),
+          flush=True)
+    check(left < RELEASE_SLACK_GB and progs == 0,
+          f"{label}: {left:.3f} GB still allocated after the phase dropped its model, "
+          f"{progs} static decode programs left")
+
+
+def static_programs() -> int:
+    """Static decode programs alive in the process (``serve/static.py``)."""
+    from repro_torch.serve import static
+    return sum(len(g.programs) for g in static._sets.values())
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -556,15 +612,18 @@ def busy_ms_of(prof) -> float:
     return union_ms([e for e in prof.events() if e.device_type == DeviceType.CUDA])
 
 
-def mode_windows(label: str, windows: dict, card: str) -> None:
+def mode_windows(label: str, windows: dict, card: str, **extra) -> None:
     """One line beside a phase's profiled windows: each step mode's wall,
-    device and idle share for the same steps."""
+    device and idle share for the same steps (and ``extra`` as it is)."""
     keys = [k for k in ("wall_ms_per_step", "wall_ms_per_micro_step", "device_ms_per_step",
                         "device_ms_per_micro_step", "idle_share", "busy_ms_per_step",
                         "busy_ms_per_micro_step", "busy_idle_share", "kernel_launches_per_step",
-                        "kernel_launches_per_micro_step") if k in windows["scan"]]
+                        "kernel_launches_per_micro_step", "host_launches_per_step",
+                        "tokens_per_s", "ttft_s", "captures_in_timed_call")
+            if k in windows["scan"]]
     print(json.dumps({"phase": f"scan vs stepped: {label}", "card": card,
-                      **{k: {m: w[k] for m, w in windows.items()} for k in keys}}), flush=True)
+                      **{k: {m: w[k] for m, w in windows.items()} for k in keys}, **extra}),
+          flush=True)
 
 
 def kernel_times(fn, reps: int = 25) -> dict:
@@ -3272,13 +3331,24 @@ def deepseek_f32_phase(zoo, get_config, serve, seed: int) -> None:
     cfg = dataclasses.replace(base, num_layers=2, param_dtype="float32",
                               compute_dtype="float32",
                               moe=dataclasses.replace(base.moe, capacity_factor=NO_DROPS))
+    before = holding()
     model = zoo.build_model(cfg)
     params = model.init(seed, device=DEV)
     B, L, new = 2, 32, 16
     gen = torch.Generator(device=DEV).manual_seed(seed)
     prompts = torch.randint(0, cfg.vocab_size, (B, L), generator=gen, device=DEV,
                             dtype=torch.int32)
-    out = serve.generate_static(model, params, prompts, new)
+    out = serve.generate_static(model, params, prompts, new, step_mode="scan")
+    stepped = serve.generate_static(model, params, prompts, new, step_mode="stepped")
+    # a second parameter set of the same shapes (the next round's checkpoint)
+    # gets its own tokens: the program is rebuilt for it, then for the first
+    params2 = model.init(seed + 1, device=DEV)
+    caps = captured()
+    out2 = serve.generate_static(model, params2, prompts, new, step_mode="scan")
+    again = serve.generate_static(model, params, prompts, new, step_mode="scan")
+    caps = captured() - caps
+    stepped2 = serve.generate_static(model, params2, prompts, new, step_mode="stepped")
+    del params2
     with torch.no_grad():
         seq = torch.cat([prompts, out[:, :-1]], dim=1)
         full, _ = model.logits(params, {"tokens": seq})
@@ -3292,15 +3362,24 @@ def deepseek_f32_phase(zoo, get_config, serve, seed: int) -> None:
            "schedule": [f"{k.mixer}/{k.ffn}" for k in model.schedule],
            "prefix_period": list(model.prefix_period), "tokens": B * new,
            "identical_tokens": bool(torch.equal(out, want)),
+           "scan_equals_stepped": bool(torch.equal(out, stepped)),
+           "second_set_scan_equals_stepped": bool(torch.equal(out2, stepped2)),
+           "first_set_again_equals_stepped": bool(torch.equal(again, stepped)),
+           "sets_differ": not bool(torch.equal(out2, stepped)),
+           "captures_for_the_two_sets": caps,
            "decode_vs_forward_max_abs_err": err, "logit_scale": scale,
            "tol": 1e-4 * scale}
     print(json.dumps(row), flush=True)
     check(row["identical_tokens"], f"deepseek f32: static tokens {out.tolist()} != forward "
                                    f"argmax {want.tolist()}")
+    check(row["scan_equals_stepped"] and row["second_set_scan_equals_stepped"]
+          and row["first_set_again_equals_stepped"] and row["sets_differ"] and caps == 2,
+          f"deepseek f32: scan against stepped over two parameter sets {row}")
     check(err <= 1e-4 * scale, f"deepseek f32: absorbed decode {err} from the expanded "
                                f"form (scale {scale})")
     del params, model, full, dec, cache
     torch.cuda.empty_cache()
+    released(before, "phase 22")
 
 
 # ---------------------------------------------------------------- phase 23
@@ -3383,10 +3462,98 @@ def profiled_decode_step(model, params, tok, cache, pos: int, ranges: dict) -> d
                              "ms": e.self_device_time_total / 1e3} for e in top]}
 
 
+HOST_LAUNCH_APIS = ("LaunchKernel", "GraphLaunch")   # cudaLaunchKernel(ExC), cuLaunchKernel(Ex),
+#                                                     cudaGraphLaunch: what the host enqueues
+STATIC_NEW = 8                   # the modes' window: 7 decode steps after the first token
+
+
+def _host_launches(prof) -> int:
+    from torch.autograd import DeviceType
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CPU
+               and any(api in e.name for api in HOST_LAUNCH_APIS))
+
+
+def static_modes(serve, model, params, prompts, new: int, label: str, card: str) -> dict:
+    """``generate_static`` under "scan" and "stepped" on the same prompts.
+    For each mode: a warm call of the same shape (scan captures its decode
+    program there), a timed call (TTFT: the prefill and the first token, up
+    to the decode; the decode's wall per step; tokens/s over the call;
+    the graphs captured, which must be 0), then a call whose decode runs
+    under torch.profiler (device ms and busy ms per step, the idle share
+    against the timed wall, the kernels the card ran and the launches the
+    host made per step).  Prints each mode's row and the two side by side
+    with how many tokens agree; returns {mode: tokens}."""
+    from unittest import mock
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import static
+    steps = new - 1
+    windows, outs = {}, {}
+    for mode in STEP_MODES:
+        fn = getattr(static, f"decode_{mode}")
+        seen: dict = {}
+
+        def decode(*a, _fn=fn, _seen=seen):
+            torch.cuda.synchronize()
+            _seen["enter"] = time.perf_counter()
+            if _seen.get("profile"):
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    out = _fn(*a)
+                    torch.cuda.synchronize()
+                _seen["prof"] = prof
+            else:
+                out = _fn(*a)
+                torch.cuda.synchronize()
+            _seen["exit"] = time.perf_counter()
+            return out
+
+        def call():
+            return serve.generate_static(model, params, prompts, new, step_mode=mode)
+
+        with mock.patch.object(static, f"decode_{mode}", decode):
+            call()
+            torch.cuda.synchronize()
+            caps = captured()
+            t0 = time.perf_counter()
+            outs[mode] = call()
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+            caps = captured() - caps
+            wall_ms = (seen["exit"] - seen["enter"]) * 1e3 / steps
+            ttft = seen["enter"] - t0
+            seen["profile"] = True
+            call()
+        prof = seen["prof"]
+        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        device_ms = sum(e.time_range.end - e.time_range.start for e in kern) / 1e3 / steps
+        busy_ms = union_ms(kern) / steps
+        windows[mode] = {"phase": f"static decode {label}", "step_mode": mode, "card": card,
+                         "batch": prompts.shape[0], "prompt_tokens": prompts.shape[1],
+                         "new_tokens": new, "decode_steps": steps,
+                         "wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
+                         "idle_share": 1 - device_ms / wall_ms, "busy_ms_per_step": busy_ms,
+                         "busy_idle_share": 1 - busy_ms / wall_ms,
+                         "kernel_launches_per_step": len(kern) / steps,
+                         "host_launches_per_step": _host_launches(prof) / steps,
+                         "tokens_per_s": prompts.shape[0] * new / total, "ttft_s": ttft,
+                         "total_s": total, "captures_in_timed_call": caps}
+        print(json.dumps(windows[mode]), flush=True)
+        check(caps == 0, f"static decode {label}: {caps} graphs captured in the timed "
+                         f"{mode} call after a warm call of the same shape")
+        check(bool(kern), f"static decode {label}: no device time under {mode}")
+    agree = int((outs["scan"] == outs["stepped"]).sum())
+    mode_windows(f"static decode {label}", windows, card, tokens_agreeing=agree,
+                 tokens=outs["scan"].numel())
+    return outs
+
+
 def deepseek_serve_phase(zoo, get_config, serve, seed: int, card: str) -> None:
     """Phase 23: deepseek-v2-lite-16b as configured (27 layers, bf16) serves
     8 prompts of 256 tokens through the static path, 32 new tokens each."""
     cfg = get_config(DEEPSEEK)
+    before = holding()
     model = zoo.build_model(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3436,8 +3603,11 @@ def deepseek_serve_phase(zoo, get_config, serve, seed: int, card: str) -> None:
     check(row["device_ms_moe_layers"] and row["device_ms_mla_layers"],
           f"deepseek serve: no device time in the MoE or MLA ranges: {ranges}")
     check(bool(logits.isfinite().all()), "deepseek serve: non-finite logits")
-    del params, model, cache, logits
+    del cache, logits
+    static_modes(serve, model, params, prompts, STATIC_NEW, DEEPSEEK, card)
+    del params, model
     torch.cuda.empty_cache()
+    released(before, "phase 23")
 
 
 # ---------------------------------------------------------------- phase 24
@@ -3663,7 +3833,7 @@ DECODE_TOL = 5e-4                # of the logits' scale: tests/test_decode_consi
 XLSTM_F32_LAYERS = 8             # two superblocks: six mLSTM, two sLSTM
 
 
-def xlstm_f32_phase(zoo, get_config, seed: int, card: str) -> dict:
+def xlstm_f32_phase(zoo, get_config, serve, seed: int, card: str) -> dict:
     """Phase 25: xlstm-1.3b at full width, 8 layers, f32: decode token by
     token from an empty state equals a full forward over the same 128
     tokens within 5e-4 of the logits' scale, and a prefill of the first 64
@@ -3672,12 +3842,16 @@ def xlstm_f32_phase(zoo, get_config, seed: int, card: str) -> dict:
     import dataclasses
     cfg = dataclasses.replace(get_config(XLSTM), num_layers=XLSTM_F32_LAYERS,
                               param_dtype="float32", compute_dtype="float32")
+    before = holding()
     model = zoo.build_model(cfg)
     params = model.init(seed, device=DEV)
     B, S = 4, 128
     gen = torch.Generator(device=DEV).manual_seed(seed)
     toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=DEV, dtype=torch.int32)
     half = cfg.ssm.chunk_size
+    # the static path: 48 + 16 tokens, one chunk
+    scan = serve.generate_static(model, params, toks[:, :48], 16, step_mode="scan")
+    stepped = serve.generate_static(model, params, toks[:, :48], 16, step_mode="stepped")
     with torch.no_grad():
         full, _ = model.logits(params, {"tokens": toks})
         dec = _decode_all(model, params, toks, model.init_cache(B, S, device=DEV))
@@ -3692,13 +3866,17 @@ def xlstm_f32_phase(zoo, get_config, seed: int, card: str) -> dict:
            "schedule": [k.mixer for k in model.schedule], "tokens": B * S,
            "logit_scale": scale, "tol": DECODE_TOL * scale,
            "decode_vs_forward_max_abs_err": err,
-           "prefill_then_decode_max_abs_err": err_half, "state_dtypes": dtypes}
+           "prefill_then_decode_max_abs_err": err_half, "state_dtypes": dtypes,
+           "static_scan_equals_stepped": bool(torch.equal(scan, stepped))}
     print(json.dumps(row), flush=True)
+    check(row["static_scan_equals_stepped"],
+          f"xlstm f32: static tokens under scan {scan.tolist()} != stepped {stepped.tolist()}")
     check(err <= DECODE_TOL * scale and err_half <= DECODE_TOL * scale,
           f"xlstm f32: decode parts from the forward {row}")
     check(dtypes == ["torch.float32"], f"xlstm f32: state dtypes {dtypes}")
     del params, model, full, dec, cache
     torch.cuda.empty_cache()
+    released(before, "phase 25")
     return row
 
 
@@ -3708,6 +3886,7 @@ def xlstm_serve_phase(zoo, get_config, serve, seed: int, card: str) -> dict:
     made on the card) serves 8 prompts of 224 tokens through the static
     path, 32 new tokens each (L + new = 256, a multiple of the chunk 64)."""
     cfg = get_config(XLSTM)
+    before = holding()
     model = zoo.build_model(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3747,8 +3926,12 @@ def xlstm_serve_phase(zoo, get_config, serve, seed: int, card: str) -> dict:
           f"xlstm serve: no device time in a mixer's range: {step['device_ms_by_range']}")
     check(bool(logits.isfinite().all()), "xlstm serve: non-finite logits")
     check(all(x.dtype == torch.float32 for x in _leaves(cache)), "xlstm serve: bf16 states")
-    del params, model, cache, logits
+    del cache, logits
+    # 184 + 8 = 192 tokens, three chunks
+    static_modes(serve, model, params, prompts[:, :184], STATIC_NEW, XLSTM, card)
+    del params, model
     torch.cuda.empty_cache()
+    released(before, "phase 26")
     return row
 
 
@@ -3848,7 +4031,7 @@ def _jamba_cfg(get_config, **changes):
                                **changes)
 
 
-def jamba_f32_phase(zoo, get_config, seed: int, card: str) -> dict:
+def jamba_f32_phase(zoo, get_config, serve, seed: int, card: str) -> dict:
     """Phase 28: jamba-1.5-large-398b at full width, f32, 2 layers (attn_period
     2: (Mamba, dense), (GQA, MoE); 11.9 B parameters, 47.6 GB): decode from
     an empty state over 128 tokens equals the full forward within 5e-4 of
@@ -3857,11 +4040,15 @@ def jamba_f32_phase(zoo, get_config, seed: int, card: str) -> dict:
     base = get_config(JAMBA)
     cfg = _jamba_cfg(get_config, num_layers=2, param_dtype="float32", compute_dtype="float32",
                      ssm=dataclasses.replace(base.ssm, attn_period=2))
+    before = holding()
     model = zoo.build_model(cfg)
     params = model.init(seed, device=DEV)
     B, S = 2, cfg.ssm.chunk_size
     gen = torch.Generator(device=DEV).manual_seed(seed)
     toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=DEV, dtype=torch.int32)
+    # the static path: 112 + 16 tokens, one chunk
+    scan = serve.generate_static(model, params, toks[:, :112], 16, step_mode="scan")
+    stepped = serve.generate_static(model, params, toks[:, :112], 16, step_mode="stepped")
     with torch.no_grad():
         full, _ = model.logits(params, {"tokens": toks})
         cache = model.init_cache(B, S, device=DEV)
@@ -3875,11 +4062,15 @@ def jamba_f32_phase(zoo, get_config, seed: int, card: str) -> dict:
            "capacity_factor": JAMBA_NO_DROPS, "logit_scale": scale, "tol": DECODE_TOL * scale,
            "decode_vs_forward_max_abs_err": err,
            "state_dtypes": {k: str(v.dtype) for k, v in cache["prefix"][0].items()}
-           if cache["prefix"] else {k: str(v.dtype) for k, v in cache["blocks"]["b0"].items()}}
+           if cache["prefix"] else {k: str(v.dtype) for k, v in cache["blocks"]["b0"].items()},
+           "static_scan_equals_stepped": bool(torch.equal(scan, stepped))}
     print(json.dumps(row), flush=True)
     check(err <= DECODE_TOL * scale, f"jamba f32: decode parts from the forward {row}")
+    check(row["static_scan_equals_stepped"],
+          f"jamba f32: static tokens under scan {scan.tolist()} != stepped {stepped.tolist()}")
     del params, model, full, dec, cache
     torch.cuda.empty_cache()
+    released(before, "phase 28")
     return row
 
 
@@ -3895,6 +4086,7 @@ def jamba_serve_phase(zoo, get_config, serve, seed: int, card: str) -> dict:
     import dataclasses
     base = get_config(JAMBA)
     cfg = _jamba_cfg(get_config, num_layers=4, ssm=dataclasses.replace(base.ssm, attn_period=4))
+    before = holding()
     model = zoo.build_model(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3950,8 +4142,12 @@ def jamba_serve_phase(zoo, get_config, serve, seed: int, card: str) -> dict:
     check(bool(logits.isfinite().all()) and math.isfinite(bf16_err),
           "jamba serve: non-finite logits")
     check(row["peak_mem_gb"] < 80.0, f"jamba serve: peak {row['peak_mem_gb']} GB")
-    del params, model, cache, logits
+    del cache, logits, blocks
+    # 120 + 8 = 128 tokens, one chunk
+    static_modes(serve, model, params, prompts[:, :120], STATIC_NEW, JAMBA, card)
+    del params, model
     torch.cuda.empty_cache()
+    released(before, "phase 29")
     return row
 
 
@@ -4110,7 +4306,7 @@ def main() -> int:
     wa_entry["deepseek"]["launches"] = ds["vectorized"]["launches"]["multi_weighted_average"]
 
     phase("25. xlstm-1.3b full width, f32, 8 layers: decode == forward")
-    xlstm_f32_phase(zoo, get_config, args.seed, card)
+    xlstm_f32_phase(zoo, get_config, serve, args.seed, card)
 
     phase("26. xlstm-1.3b as configured, bf16, 48 layers: static serve")
     xlstm_serve_phase(zoo, get_config, serve, args.seed, card)
@@ -4132,7 +4328,7 @@ def main() -> int:
             e["xlstm"]["reduced_launches"] = xlstm_rounds.get(e["name"], 0)
 
     phase("28. jamba-1.5-large-398b full width, f32, 2 layers: decode == forward")
-    jamba_f32_phase(zoo, get_config, args.seed, card)
+    jamba_f32_phase(zoo, get_config, serve, args.seed, card)
 
     phase("29. jamba-1.5-large-398b full width, bf16, 4 layers: static serve")
     jamba_serve_phase(zoo, get_config, serve, args.seed, card)

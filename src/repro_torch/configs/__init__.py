@@ -8,3 +8,4 @@ from repro_torch.configs.base import (  # noqa: F401
     list_configs,
     register,
 )
+from repro_torch.configs.shapes import INPUT_SHAPES, InputShape, get_shape  # noqa: F401

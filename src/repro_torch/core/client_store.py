@@ -171,6 +171,12 @@ class ClientStore:
         self._data = _LRU(self.capacity, on_evict=lambda k, v: me._on_data_evict(k, v))
         self._zero: Optional[PyTree] = None     # the zero control
 
+    @property
+    def has_controls(self) -> bool:
+        """Whether the control tier holds SCAFFOLD controls (``init_controls``
+        has run)."""
+        return self._zero is not None
+
     # ------------------------------------------------------- data tier
     @property
     def num_clients(self) -> int:

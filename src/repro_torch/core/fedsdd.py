@@ -456,6 +456,20 @@ class FederatedRunner:
                 control_out[int(client_id)] = new_c
         return params
 
+    def local_train(self, params: PyTree, client_id: int, state: FedState,
+                    rng: np.random.Generator) -> tuple[PyTree, int]:
+        """One client's full local training (``local_epochs`` over its
+        shard, the reference's minibatches drawn from ``rng``); returns the
+        trained params and the shard's size."""
+        cfg = self.cfg
+        n = self._store(state).num_examples(client_id)
+        bs = min(cfg.client_batch, n)
+        rows = []
+        for _ in range(cfg.local_epochs):
+            order = rng.permutation(n)
+            rows += [order[i:i + bs] for i in range(0, n - bs + 1, bs)]
+        return self._local_train_scheduled(params, client_id, state, rows), n
+
     # ---- vectorized engine ----------------------------------------------
     def _make_engine(self) -> VectorizedClientEngine:
         if self._engine is None:

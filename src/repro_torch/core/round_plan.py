@@ -90,8 +90,8 @@ class PendingKD:
     training (or at the drain).  ``teachers`` are the ring's views while
     ``bank`` holds it (no copy: the next push comes after the resolve), or
     the round's client models; ``dispatched`` is the device pair
-    ``(student, losses)`` once issued.  A job restored from a spill has no
-    bank: its teachers are its own."""
+    ``(student, losses)`` once ``pipe`` (the KD pipeline) issued it.  A job
+    restored from a spill has no bank: its teachers are its own."""
     round_idx: int
     student: PyTree                 # round t's raw group-0 aggregate
     teachers: list                  # the member trees
@@ -99,6 +99,21 @@ class PendingKD:
     dispatched: Optional[tuple] = None
     bank: Optional[Any] = None      # the TeacherBank whose views `teachers` are
     teacher_weights: Optional[torch.Tensor] = None   # (M,) trust weights or None
+    pipe: Optional[weakref.ref] = None   # the KDPipeline that issued `dispatched`
+
+    def result(self) -> tuple:
+        """The dispatched ``(student, losses)``.  Where the job is still in
+        flight on the KD lane, the caller's stream waits for it (an event
+        wait, no host sync) and the pipeline's programs are free again.
+        The job holds its pipeline weakly (a state must not keep the
+        pipeline's step programs and graph pool alive), so this raises once
+        the runner and its pipeline are gone."""
+        pipe = None if self.pipe is None else self.pipe()
+        if self.dispatched is None or pipe is None:
+            raise RuntimeError(f"PendingKD(round {self.round_idx}): "
+                               + ("not dispatched" if self.dispatched is None
+                                  else "its KD pipeline is gone"))
+        return pipe.join(self.dispatched)
 
 
 def spill_pending_kd(directory: str, pending: PendingKD) -> str:
@@ -183,7 +198,9 @@ class RoundExecutor:
         """Issue the deferred KD on the KD stream (no host sync); on the CPU
         it runs here."""
         if pending.dispatched is None:
-            pending.dispatched = self._pipe().distill_async(
+            pipe = self._pipe()
+            pending.pipe = weakref.ref(pipe)
+            pending.dispatched = pipe.distill_async(
                 pending.student, pending.teachers, self.runner.task.server_batches,
                 teacher_weights=pending.teacher_weights)
 
@@ -194,9 +211,8 @@ class RoundExecutor:
         if pending is None:
             return
         self.dispatch(pending)
-        pipe = self._pipe()
-        student, losses = pipe.join(pending.dispatched)
-        pending.record.update(pipe.losses_info(losses))
+        student, losses = pending.result()
+        pending.record.update(self._pipe().losses_info(losses))
         if pending.teacher_weights is not None:
             pending.record["teacher_trust"] = trust_record(pending.teacher_weights)
         if pending.bank is not None:
@@ -222,6 +238,7 @@ class RoundExecutor:
         rest of either alone; ``pending.dispatched`` gets the KD's device
         outputs and the buckets' outputs are returned in order."""
         pipe, eng = self._pipe(), self.runner._make_engine()
+        pending.pipe = weakref.ref(pipe)
         if not pipe.steps:
             pending.dispatched = pipe.distill_async(pending.student, pending.teachers,
                                                     self.runner.task.server_batches,

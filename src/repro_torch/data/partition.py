@@ -34,3 +34,19 @@ def dirichlet_partition(labels: np.ndarray, num_clients: int, alpha: float,
         rng.shuffle(arr)
         out.append(arr)
     return out
+
+
+def heterogeneity(partitions: list[np.ndarray], labels: np.ndarray) -> float:
+    """Mean total-variation distance between the client label histograms
+    and the global one: 0 for IID, towards 1 for fully skewed shards
+    (empty shards skipped)."""
+    labels = np.asarray(labels)
+    classes = np.unique(labels)
+    glob = np.array([(labels == c).mean() for c in classes])
+    tvs = []
+    for ix in partitions:
+        if len(ix) == 0:
+            continue
+        loc = np.array([(labels[ix] == c).mean() for c in classes])
+        tvs.append(0.5 * np.abs(loc - glob).sum())
+    return float(np.mean(tvs))

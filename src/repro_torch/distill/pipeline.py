@@ -158,6 +158,14 @@ class KDPipeline:
             self._batches_src = server_batches
         return self._batches
 
+    def nbytes(self) -> int:
+        """Device bytes of the retained server-batch stack: the KD side of
+        the server's residency audit beside ``ClientStore.nbytes()`` and
+        ``TeacherBank.nbytes()``; zero before the first round."""
+        if self._batches is None:
+            return 0
+        return sum(x.numel() * x.element_size() for x in tree_leaves(self._batches))
+
     # --------------------------------------------------- teacher precompute
     def _teacher_logits(self, teachers: Sequence[PyTree], batches):
         """Yield (m, b, logits) for every member m of the teacher list and

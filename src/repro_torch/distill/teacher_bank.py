@@ -102,6 +102,11 @@ class TeacherBank:
         self._cursor = (slot + 1) % self.R
 
     # ------------------------------------------------------------- read
+    def round_stack(self, slot: int) -> PyTree:
+        """(K, ...) stack of one ring slot, copied: a later ``push`` leaves
+        it as it was."""
+        return tree_map(lambda b: b[slot].clone(), self._bank)
+
     def _slots_newest_first(self) -> list[int]:
         held = [(r, s) for s, r in enumerate(self._slot_rounds) if r is not None]
         held.sort(reverse=True)

@@ -335,6 +335,14 @@ def kd_loss(student_logits: torch.Tensor, teacher_probs: torch.Tensor,
     return _KDLoss.apply(student_logits, teacher_probs.detach(), float(temperature))
 
 
+def ensemble_kd_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
+                     temperature: float = 1.0):
+    """The whole dense path in one call: a (K, B, V) teacher stack and the
+    (B, V) student -> ``kd_loss`` against ``ensemble_softmax``'s probs."""
+    return kd_loss(student_logits, ensemble_softmax(teacher_logits.detach(), temperature),
+                   temperature)
+
+
 # =============================================================== Flash-KD
 def _flash_lib():
     lib = build.load("flash_kd")

@@ -208,8 +208,18 @@ def gqa_forward(p, x, cfg):
     return out.reshape(B, S, -1) @ p["wo"].to(x.dtype), (k, v)
 
 
-def gqa_decode(p, x1, cache, cfg, pos: int):
-    """x1 (B,1,D); cache {'k','v'} (B,S,Hkv,dh); pos: int write index.
+def device_position(pos, device) -> torch.Tensor:
+    """A decode position as the 0-d int32 tensor on ``device`` that the
+    decode mixers take: a tensor is passed through, an int filled once."""
+    if isinstance(pos, torch.Tensor):
+        return pos
+    return torch.full((), pos, dtype=torch.int32, device=device)
+
+
+def gqa_decode(p, x1, cache, cfg, pos):
+    """x1 (B,1,D); cache {'k','v'} (B,S,Hkv,dh); pos: the write index, a
+    0-d int tensor on the device (an int is converted by
+    ``device_position``), never read back to the host.
 
     Writes the new token's K/V into ``cache`` IN PLACE (the reference
     returns an updated copy; its jitted callers donate the buffer, so no
@@ -217,16 +227,23 @@ def gqa_decode(p, x1, cache, cfg, pos: int):
     For sliding-window configs the cache is a ring buffer and pos wraps.
     """
     B = x1.shape[0]
+    pos = device_position(pos, x1.device)
     q, k, v = _project_qkv(p, x1, cfg)
     S = cache["k"].shape[1]
-    abs_pos = torch.full((B, 1), pos, device=x1.device)
+    abs_pos = pos.reshape(1, 1).expand(B, 1)
     q = apply_rope(q, abs_pos, cfg.rope_theta)
     k = apply_rope(k, abs_pos, cfg.rope_theta)
     slot = pos % S if cfg.attn_variant == "sliding" else pos
-    cache["k"][:, slot] = k[:, 0]
-    cache["v"][:, slot] = v[:, 0]
-    out = decode_attention(q, cache["k"], cache["v"], cache_len=min(pos + 1, S))
+    _write_row(cache["k"], slot, k)
+    _write_row(cache["v"], slot, v)
+    out = decode_attention(q, cache["k"], cache["v"], cache_len=torch.clamp(pos + 1, max=S))
     return out.reshape(B, 1, -1) @ p["wo"].to(x1.dtype), cache
+
+
+def _write_row(cache, slot, row) -> None:
+    """``cache[:, slot] = row[:, 0]`` in place, the 0-d ``slot`` kept on the
+    device (``index_copy_`` along the sequence axis)."""
+    cache.index_copy_(1, slot.reshape(1).long(), row)
 
 
 def gqa_paged_decode(p, x1, cache, cfg, pos_info):
@@ -332,22 +349,23 @@ def mla_forward(p, x, cfg):
     return out.reshape(B, S, -1) @ p["wo"].to(x.dtype), (c_kv, k_rope[..., 0, :])
 
 
-def mla_decode(p, x1, cache, cfg, pos: int):
+def mla_decode(p, x1, cache, cfg, pos):
     """Absorbed-form MLA decode: attention runs in the latent space over the
     compressed cache {'c_kv' (B,S,rank), 'k_rope' (B,S,rope)}, written IN
-    PLACE at ``pos`` (as ``gqa_decode``).  ``w_uk`` is absorbed into the
-    query and ``w_uv`` applied to the latent context, each viewed as
-    (rank, H, d): its columns are head-major, as the expanded form reshapes
-    them."""
+    PLACE at ``pos``, a 0-d device tensor or an int (as ``gqa_decode``).
+    ``w_uk`` is absorbed into the query and ``w_uv`` applied to the latent
+    context, each viewed as (rank, H, d): its columns are head-major, as
+    the expanded form reshapes them."""
     B = x1.shape[0]
     m, H = cfg.mla, cfg.num_heads
+    pos = device_position(pos, x1.device)
     q_nope, q_rope = _mla_q(p, x1, cfg)                  # (B,1,H,*)
-    abs_pos = torch.full((B, 1), pos, device=x1.device)
+    abs_pos = pos.reshape(1, 1).expand(B, 1)
     q_rope = apply_rope(q_rope, abs_pos, cfg.rope_theta)
     c_new, kr_new = _mla_compress(p, x1, cfg)
     kr_new = apply_rope(kr_new[..., None, :], abs_pos, cfg.rope_theta)[..., 0, :]
-    cache["c_kv"][:, pos] = c_new[:, 0]
-    cache["k_rope"][:, pos] = kr_new[:, 0]
+    _write_row(cache["c_kv"], pos, c_new)
+    _write_row(cache["k_rope"], pos, kr_new)
     c_kv, k_rope = cache["c_kv"], cache["k_rope"]
     S = c_kv.shape[1]
     w_uk = p["w_uk"].to(x1.dtype).reshape(m.kv_lora_rank, H, m.nope_head_dim)

@@ -117,3 +117,12 @@ def cross_entropy(logits, labels, mask=None):
         mask = mask.float()
         return (nll * mask).sum() / mask.sum().clamp(min=1.0)
     return nll.mean()
+
+
+def kl_divergence(student_logits, teacher_probs, temperature: float = 1.0):
+    """KL(teacher || student) at temperature τ (Hinton KD) in f32, the mean
+    over the batch times τ²."""
+    s = torch.log_softmax(student_logits.float() / temperature, dim=-1)
+    t = teacher_probs.float()
+    loss = (t * (torch.log(t.clamp(min=1e-20)) - s)).sum(-1)
+    return loss.mean() * temperature ** 2

@@ -358,51 +358,74 @@ class Model:
                                            pos=(block_tables, seq_lens))
         return self._logits_out(params, x)[:, 0], caches
 
-    def decode_step(self, params, tokens, caches, pos: int):
-        """tokens (B,1) int, pos int.  -> (logits (B,V), caches), the
-        caches written in place at ``pos``."""
+    def decode_step(self, params, tokens, caches, pos):
+        """tokens (B,1) int; pos a 0-d int tensor on the device (a step
+        program's position, never read back to the host) or an int, made
+        that tensor once here.  -> (logits (B,V), caches), the caches
+        written in place at ``pos``."""
+        pos = attn.device_position(pos, tokens.device)
         x = self._embed_in(params, {"tokens": tokens})
         x, caches, _ = self._stack_forward(params, x, mode="decode",
                                            caches=caches, pos=pos)
         return self._logits_out(params, x)[:, 0], caches
 
     # ---- caches ----------------------------------------------------------
-    def _cache_tree(self, shape_of, device):
-        """Zero caches: ``shape_of(kind)`` is one layer's {name: shape},
-        stacked (n_super, ...) for the superblock's layers."""
-        dev = device_lib.resolve(device)
+    def _shape_tree(self, shape_of):
+        """{"prefix": [...], "blocks": {...}} of (shape, dtype) leaves:
+        ``shape_of(kind)`` is one layer's {name: shape}, stacked
+        (n_super, ...) for the superblock's layers."""
+        cfg = self.cfg
         q, _ = self.prefix_period
-        prefix = [{k: torch.zeros(s, dtype=_cache_dtype(self.cfg, self.schedule[i]), device=dev)
+        prefix = [{k: (s, _cache_dtype(cfg, self.schedule[i]))
                    for k, s in shape_of(self.schedule[i]).items()} for i in range(q)]
         blocks = None
         if self.n_super:
-            blocks = {f"b{j}": {k: torch.zeros((self.n_super, *s),
-                                               dtype=_cache_dtype(self.cfg, kind), device=dev)
+            blocks = {f"b{j}": {k: ((self.n_super, *s), _cache_dtype(cfg, kind))
                                 for k, s in shape_of(kind).items()}
                       for j, kind in enumerate(self.superblock)}
         return {"prefix": prefix, "blocks": blocks}
 
-    def init_cache(self, batch: int, seq_len: int, device=None):
-        """Contiguous caches: GQA leaves (B, S, Hkv, dh), MLA's latent
-        ``c_kv`` (B, S, rank) and ``k_rope`` (B, S, rope), the recurrent
-        states (f32, no sequence axis); stacked (n_super, ...)."""
-        return self._cache_tree(
-            lambda kind: block_cache_shapes(self.cfg, kind, batch, seq_len), device)
+    def cache_shapes(self, batch: int, seq_len: int):
+        """Shape pytree of the contiguous caches, each leaf (shape, torch
+        dtype): GQA leaves (B, S, Hkv, dh), MLA's latent ``c_kv`` (B, S,
+        rank) and ``k_rope`` (B, S, rope), the recurrent states (f32, no
+        sequence axis); stacked (n_super, ...)."""
+        return self._shape_tree(
+            lambda kind: block_cache_shapes(self.cfg, kind, batch, seq_len))
 
-    def init_paged_cache(self, num_blocks: int, block_size: int, device=None):
-        """ONE paged pool shared by all in-flight requests: every layer's k/v
-        lives in ``(num_blocks, block_size, Hkv, dh)`` blocks addressed
-        through per-request block tables.  Paged serving is attention-only:
-        MLA latent caches have no per-head K/V to page and recurrent states
-        no sequence axis, so a schedule that is not all GQA raises the
-        reference's ``ValueError``."""
+    def paged_cache_shapes(self, num_blocks: int, block_size: int):
+        """Shape pytree of ONE paged pool shared by all in-flight requests:
+        every layer's k/v lives in ``(num_blocks, block_size, Hkv, dh)``
+        blocks addressed through per-request block tables.  Paged serving
+        is attention-only: MLA latent caches have no per-head K/V to page
+        and recurrent states no sequence axis, so a schedule that is not
+        all GQA raises the reference's ``ValueError``."""
         bad = {k.mixer for k in self.schedule if k.mixer != "gqa"}
         if bad:
             raise ValueError(
                 f"paged serving supports all-GQA schedules only, got "
                 f"mixer(s) {sorted(bad)} — use the contiguous static path")
         shape = attn.gqa_paged_cache_shape(self.cfg, num_blocks, block_size)
-        return self._cache_tree(lambda kind: shape, device)
+        return self._shape_tree(lambda kind: shape)
+
+    @staticmethod
+    def _zeros(shapes, device):
+        """Zero tensors for a shape pytree of ``_shape_tree``'s form."""
+        dev = device_lib.resolve(device)
+
+        def layer(blk):
+            return {k: torch.zeros(s, dtype=dt, device=dev) for k, (s, dt) in blk.items()}
+        blocks = shapes["blocks"]
+        return {"prefix": [layer(blk) for blk in shapes["prefix"]],
+                "blocks": None if blocks is None else {j: layer(b) for j, b in blocks.items()}}
+
+    def init_cache(self, batch: int, seq_len: int, device=None):
+        """Zero contiguous caches of ``cache_shapes``."""
+        return self._zeros(self.cache_shapes(batch, seq_len), device)
+
+    def init_paged_cache(self, num_blocks: int, block_size: int, device=None):
+        """The zero paged pool of ``paged_cache_shapes``."""
+        return self._zeros(self.paged_cache_shapes(num_blocks, block_size), device)
 
 
 def build_model(cfg: ModelConfig) -> Model:

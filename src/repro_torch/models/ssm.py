@@ -141,8 +141,10 @@ def mamba_forward(p, x, cfg, state=None):
     y = y + p["D_skip"].float() * x_conv.float()
     y = (y * F.silu(z.float())).to(x.dtype)
     out = y @ p["out_proj"].to(x.dtype)
-    # the last dc-1 pre-conv inputs, so decode can continue the conv
-    return out, {"h": h, "conv": x_in[:, -(cfg.ssm.d_conv - 1):]}
+    # the last dc-1 pre-conv inputs, so decode can continue the conv; both
+    # copied, as views they would pin the last chunk's (B, ch, di, ds)
+    # states and the whole (B, S, 2·di) projection as long as the cache
+    return out, {"h": h.clone(), "conv": x_in[:, -(cfg.ssm.d_conv - 1):].clone()}
 
 
 def mamba_decode(p, x1, state, cfg):

@@ -115,6 +115,59 @@ def sgd(lr: float, momentum: float = 0.0, weight_decay: float = 0.0) -> Optimize
     return Optimizer(init, update, update_)
 
 
+# ---------------------------------------------------------------- Adam
+def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+         weight_decay: float = 0.0) -> Optimizer:
+    """Adam with the reference's bias correction and decoupled weight decay
+    (``-lr·wd·p`` added to the update).  The step count ``t`` is an int32
+    0-d tensor on the params' device, so ``update_`` advances it in place
+    and a captured client step carries it with no host counter."""
+    def init(params):
+        dev = tree_leaves(params)[0].device
+        return {"m": tree_zeros_like(params), "v": tree_zeros_like(params),
+                "t": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    def moments(grads, state, inplace: bool):
+        g, m, v = tree_leaves(grads), tree_leaves(state["m"]), tree_leaves(state["v"])
+        if inplace:
+            torch._foreach_mul_(m, b1)
+            torch._foreach_mul_(v, b2)
+        else:
+            m, v = torch._foreach_mul(m, b1), torch._foreach_mul(v, b2)
+        torch._foreach_add_(m, torch._foreach_mul(g, 1 - b1))
+        g2 = torch._foreach_mul(g, 1 - b2)
+        torch._foreach_mul_(g2, g)
+        torch._foreach_add_(v, g2)
+        return m, v
+
+    def direction(m, v, t, params):
+        tf = t.float()
+        u = torch._foreach_div(m, 1 - b1 ** tf)
+        torch._foreach_mul_(u, -lr)
+        d = torch._foreach_div(v, 1 - b2 ** tf)
+        torch._foreach_sqrt_(d)
+        torch._foreach_add_(d, eps)
+        torch._foreach_div_(u, d)
+        if weight_decay:
+            ps = [p.to(x.dtype) for p, x in zip(tree_leaves(params), u)]
+            torch._foreach_sub_(u, torch._foreach_mul(ps, lr * weight_decay))
+        return u
+
+    def update(grads, state, params):
+        t = state["t"] + 1
+        m, v = moments(grads, state, inplace=False)
+        u = direction(m, v, t, params)
+        return (tree_unflatten(grads, u),
+                {"m": tree_unflatten(grads, m), "v": tree_unflatten(grads, v), "t": t})
+
+    def update_(grads, state, params):
+        state["t"].add_(1)
+        m, v = moments(grads, state, inplace=True)
+        _apply_updates_(tree_leaves(params), direction(m, v, state["t"], params))
+
+    return Optimizer(init, update, update_)
+
+
 # ---------------------------------------------------------------- FedProx
 def with_fedprox(base: Optimizer, mu: float) -> Optimizer:
     """Adds μ(w − w_anchor) to the gradient.  State carries the anchor;

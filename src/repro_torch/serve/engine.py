@@ -182,6 +182,10 @@ class ContinuousEngine:
         return (self.num_active == 0 and not self.queue
                 and not self._done_buf)
 
+    @property
+    def pool_utilization(self) -> float:
+        return self.alloc.utilization
+
     # ---- admission -----------------------------------------------------
     def _can_admit(self, req: Request) -> tuple[int, list[int]] | None:
         try:

@@ -1,5 +1,5 @@
-"""Whole-tree algebra over tensor pytrees (port of the subset of
-``repro/utils/pytree.py`` that the two client engines use).
+"""Whole-tree algebra over tensor pytrees (port of
+``repro/utils/pytree.py``).
 
 A tree is what the reference's parameter trees are: nested dicts (and
 lists, tuples, NamedTuples) whose leaves are tensors.  Every function
@@ -49,8 +49,17 @@ def tree_zeros_like(tree: PyTree) -> PyTree:
     return tree_map(torch.zeros_like, tree)
 
 
+def tree_add(a: PyTree, b: PyTree) -> PyTree:
+    return tree_map(torch.add, a, b)
+
+
 def tree_sub(a: PyTree, b: PyTree) -> PyTree:
     return tree_map(torch.sub, a, b)
+
+
+def tree_axpy(alpha, x: PyTree, y: PyTree) -> PyTree:
+    """alpha * x + y."""
+    return tree_map(lambda xi, yi: alpha * xi + yi, x, y)
 
 
 def tree_scale(tree: PyTree, s) -> PyTree:
@@ -158,3 +167,75 @@ def tree_group_weighted_mean(stacked: PyTree, weights, group_ids,
         return out.index_add_(0, gid, x * wx)
 
     return tree_map(leaf, stacked)
+
+
+def tree_dot(a: PyTree, b: PyTree):
+    """Sum over the leaves of each pair's dot product (a 0-d tensor)."""
+    return sum(torch.vdot(x.reshape(-1), y.reshape(-1)) for x, y in
+               zip(tree_leaves(a), tree_leaves(b)))
+
+
+def tree_sq_dist(a: PyTree, b: PyTree):
+    d = tree_sub(a, b)
+    return tree_dot(d, d)
+
+
+def tree_size(tree: PyTree) -> int:
+    return sum(x.numel() for x in tree_leaves(tree))
+
+
+def tree_bytes(tree: PyTree) -> int:
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+def tree_flatten_to_vector(tree: PyTree) -> torch.Tensor:
+    """Every leaf raveled into one flat f32 vector, in ``tree_leaves`` order."""
+    return torch.cat([x.reshape(-1).float() for x in tree_leaves(tree)])
+
+
+def tree_unflatten_from_vector(vec: torch.Tensor, like: PyTree) -> PyTree:
+    """Inverse of ``tree_flatten_to_vector``: ``vec``'s slices in ``like``'s
+    shapes and dtypes."""
+    out, off = [], 0
+    for x in tree_leaves(like):
+        out.append(vec[off:off + x.numel()].reshape(x.shape).to(x.dtype))
+        off += x.numel()
+    return tree_unflatten(like, out)
+
+
+def _map_with_path(fn: Callable, tree: PyTree, path: str) -> PyTree:
+    """``tree_map`` with each leaf's path, written as ``jax.tree_util.keystr``
+    writes it: ``['k']`` a dict key, ``[i]`` a sequence index, ``.f`` a
+    NamedTuple field."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, f"{path}[{k!r}]") for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_with_path(fn, v, f"{path}.{f}")
+                            for f, v in zip(tree._fields, tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_with_path(fn, v, f"{path}[{i}]") for i, v in enumerate(tree))
+    if tree is None:
+        return None
+    return fn(path, tree)
+
+
+def tree_map_with_path(fn: Callable, tree: PyTree) -> PyTree:
+    """``fn(path, leaf)`` over the leaves, ``path`` as ``tree_paths`` gives it."""
+    return _map_with_path(fn, tree, "")
+
+
+def tree_paths(tree: PyTree) -> list[str]:
+    """Each leaf's path, ``jax.tree_util.keystr``'s form (``['blocks']['b0']
+    ['k']``), in ``tree_leaves`` order: dict keys in insertion order, where
+    JAX sorts them."""
+    out: list = []
+    tree_map_with_path(lambda p, _: out.append(p), tree)
+    return out
+
+
+def tree_all_finite(tree: PyTree) -> torch.Tensor:
+    """A 0-d bool tensor: every floating leaf all finite (True with none)."""
+    flags = [torch.isfinite(x).all() for x in tree_leaves(tree) if x.is_floating_point()]
+    if not flags:
+        return torch.tensor(True)
+    return torch.stack(flags).all()
