@@ -39,7 +39,10 @@ Phases, each of which fails the run if it fails:
                split-K at starcoder2-3b's and qwen2.5-14b's shapes: seq_len
                0, 1, 16k +- 1, live ranges ending on a split boundary, lo
                inside a block, first blocks wholly before the window, and
-               tables far longer than every row (empty splits)
+               tables far longer than every row (empty splits); and at the
+               last families' shapes: llama4-maverick's (Hkv=8, G=5, dh=128,
+               window 8,192, lens 0, 1, 8,191, 8,192, 8,193 and 10,240) and
+               llava's (Hkv=8, G=4, dh=128, no window), each timed
   4. f32/2     qwen2.5-14b at full width, 2 layers, f32: ContinuousEngine and
                generate_static give identical greedy tokens
   5. bf16/48   qwen2.5-14b as configured (48 layers, bf16, random weights
@@ -103,7 +106,10 @@ Phases, each of which fails the run if it fails:
                shapes; CUDA-event timings at 512 x 2,048 x 256,000 beside the
                bound, the plain version and a library composition, and the
                same for kernels 9 and 10 at deepseek-v2-lite-16b's untied head
-               (512 x 2,048 x 102,400); kernels
+               (512 x 2,048 x 102,400) and at the last families' untied
+               heads, llama4-maverick's 512 x 5,120 x 202,048 (W 4.1 GB in
+               f32), hubert-xlarge's 512 x 1,280 x 504 and llava's 512 x
+               4,096 x 32,000; kernels
                9 and 10's bounds count the bf16 tensor-core products they
                run (3 and 9 with an f32 head: each product as hi·hi + hi·lo
                + lo·hi), with the f32 CUDA-core bound and the one-product
@@ -150,9 +156,11 @@ Phases, each of which fails the run if it fails:
                decode micro-step; tokens/s, TTFT p50, the long prefill, peak
                memory; a profiled decode chunk as in phase 5 (launches per
                micro-step beside the earlier design's 2,360)
- 18. overlap   phases 8 and 11's ResNet-56 FedSDD configuration, 3 rounds from
-               the same weights under sequential off and async, vectorized
-               off, async and fused (overlap=..., core/round_plan.py), cuDNN
+ 18. overlap   phases 8 and 11's FedSDD configuration, 3 rounds from the
+               same weights under sequential off and async on ResNet-56, and
+               sequential off and vectorized off, async and fused on
+               ResNet-20 (the depth cut to keep the run within its time
+               limit) (overlap=..., core/round_plan.py), cuDNN
                deterministic: per round t_round and t_local (t_kd under off),
                captures and paired-program captures, the drain's seconds,
                launches (kernels 2 / 3 / 4: 3 / 600 / 600 in every mode,
@@ -188,8 +196,10 @@ Phases, each of which fails the run if it fails:
                version (the KD tolerance), launches 2 / 400 / 400, the last
                round's robust Eq. 2 on the card against the port's CPU run of
                the same stacked updates (rtol 1e-6, atol 1e-7), Krum's score
-               gap printed; (c) kill and restart: sequential overlap="async",
-               SCAFFOLD, the spilling store, the ring in bf16; 3 rounds
+               gap printed; (c) kill and restart, on ResNet-20 (the depth
+               cut to keep the run within its time limit): sequential,
+               overlap="async", SCAFFOLD, the spilling store, the ring in
+               bf16; 3 rounds
                uninterrupted against 2 rounds, save_state with the KD job in
                flight, a fresh runner restored, round 3 and the drain: models
                and c_global bit for bit; save and restore seconds, the
@@ -265,9 +275,9 @@ Phases, each of which fails the run if it fails:
                its plain version over that tree at G = 2, N = 2, timed; (d)
                kernels 9/10 against their plain versions at xlstm's head (512
                x 2,048 x 50,304, untied, f32 head, bf16 cache), timed; (b) full
-               width, f32, at the deepest multiple of 4 layers (up to 48)
-               whose peak, reckoned from phase 24's peak per model byte, is
-               under 76 GB: fedsdd K=2 R=2 over 4 clients, 2 rounds, lm_task
+               width, f32, 24 layers (the depth cut to keep the run within
+               its time limit; the peak reckoned from phase 24's peak per
+               model byte): fedsdd K=2 R=2 over 4 clients, 2 rounds, lm_task
                of 8 docs of 128 tokens, head-fused Flash-KD, the ring in bf16:
                t_local, t_kd, the cache build, peak memory (under 76 GB),
                captures (none in round 2), kernels 9/10's launches (20 a
@@ -294,7 +304,47 @@ Phases, each of which fails the run if it fails:
                under "scan" and "stepped" (static_modes, 120 + 8 tokens)
  30. jb FedSDD jamba reduced, f32: 2 head-fused Flash-KD rounds, kernels 9/10
                against their plain versions, as phase 27 (a)
- 31. kernels   one JSON line per the port's kernel contract; kernel 12's
+ 31. l4 f32/2  llama4-maverick-400b-a17b at full width (d_model 5,120, 40
+               heads / 8 KV of 128, window 8,192, V 202,048, top-1 + 1
+               shared expert of 8,192), 2 layers (MoE at layer 0, dense at
+               1), f32, 32 of its 128 experts (6.5 B parameters, 26 GB; 128
+               would be 74 GB), capacity factor 32 (no drops): decode from
+               an empty cache over 128 tokens equals the full forward within
+               5e-4 of the logits' scale; generate_static's tokens under
+               "scan" equal "stepped"'s; the ContinuousEngine's (kernel 1)
+               equal generate_static's for 6 requests within the window
+ 32. l4 bf16   llama4-maverick at full width, 2 layers, all 128 experts (18.5
+               B parameters, 37 GB), bf16, capacity factor 1.25: the
+               ContinuousEngine serves 8 requests of 32-2,048 tokens and one
+               of 10,240 (past the window); token counts, the drained pool,
+               2 launches of kernel 1 per micro-step (counted), tokens/s,
+               TTFT p50, peak memory; a profiled chunk under each step mode
+               (the MoE FFN's named range in the eager one) beside the
+               micro-step's bytes bound (every weight but the embedding);
+               then static_modes (8 prompts of 256 + 8)
+ 33. llava     llava-next-mistral-7b as configured (32 layers, bf16, 7.3 B
+               parameters): the ContinuousEngine serves 16 text requests;
+               32 launches of kernel 1 per micro-step, tokens/s, TTFT, a
+               profiled chunk beside its bytes bound; one prefill over the
+               prefix budget (2,880 patch embeddings + 128 text tokens),
+               timed, finite logits; then static_modes
+ 34. frontends (a) llama4-maverick, hubert-xlarge and llava reduced, f32: 2
+               head-fused Flash-KD rounds with kernels 9/10 and with their
+               plain versions, within 2e-4 (as phase 27 (a)); (b)
+               hubert-xlarge at full depth and width (48 layers, f32, 0.95 B
+               parameters; peak reckoned at phase 24's 12.2 GB a model GB):
+               fedsdd K=2 R=2 over 4 clients, 2 rounds of 8 docs of 128
+               frames, head-fused Flash-KD, bf16 ring: t_local, t_kd, the
+               cache build, peak (under 76 GB), no capture in round 2,
+               kernels 9/10 20 times a round; before them one vectorized
+               round of 2 clients (its client engine stepped, as phase 24's)
+               whose Eq. 2 launches kernel 5 over hubert's tree, and kernel 5
+               against its plain version over it, timed; (c) llava
+               at full width, 2 layers, f32: the same rounds over 2 docs a
+               client of 3,072 tokens, client batch 2, one doc a server
+               batch (1,536 spliced patch embeddings a doc; the loss scores
+               positions 2,880-3,071, so the client loss is above 0)
+ 35. kernels   one JSON line per the port's kernel contract; kernel 12's
                entry is its bf16 row at qwen2.5-14b's width (the configs'
                dtype), with the f32 row beside it under "f32"; kernel 1's
                also gives "starcoder2_ms", its times in the two starcoder2-3b
@@ -310,9 +360,15 @@ Phases, each of which fails the run if it fails:
                is its row over the 24-layer xLSTM tree and its launch in
                that vectorized round, kernels 9 and 10's "xlstm" their rows
                at xlstm-1.3b's head and their launches in phase 27 (b)'s
-               rounds (and (a)'s, "reduced_launches"); every entry's
+               rounds (and (a)'s, "reduced_launches"); kernel 1's
+               "llama4" and "llava" its bf16 rows of phase 3 at their shapes
+               and its launches on phases 32 and 33's counted batches;
+               kernels 9 and 10's "llama4", "hubert" and "llava" their rows at
+               those heads (phase 12) and their launches in phase 34 (llama4:
+               its reduced rounds); kernel 5's "hubert" its row over hubert's
+               tree and its launch in that vectorized round; every entry's
                "host_ms" is its wrapper's host time a call
- 32. ok        {"ok": true, "device": {...}} as the last line
+ 36. ok        {"ok": true, "device": {...}} as the last line
 
 Static decode (phases 22-29).  The static path's default on a card is
 "scan": the prefill eager, then each decode step one replay of a captured
@@ -763,6 +819,10 @@ def compare_kernel(ops, args, window: int, label: str, timed: bool):
 
 STARCODER_WINDOW = 4096
 STARCODER_LENS = [0, 1, 4095, 4096, 4097, 9000, 16384, 20512]
+LLAMA4_WINDOW = 8192
+LLAMA4_LENS = [0, 1, 8191, 8192, 8193, 10240]   # both sides of the window, phase 32's long prompt
+# the timed bf16 rows of the last families (kernel 1's "llama4" and "llava")
+PAGED_TIMED_NEW = {"llama4": f"llama4 bfloat16 window={LLAMA4_WINDOW}", "llava": "llava bfloat16"}
 QWEN_WINDOW = 256
 # the starcoder2-3b cases kernel 1's split-K was designed for
 STARCODER_TIMED = ("starcoder2 bfloat16 window=4096", "starcoder2 bfloat16")
@@ -785,7 +845,7 @@ def split_edge_lens(ops, B, Hkv, G, dh, nbmax, window, dtype):
 
 
 def kernel_phase(ops, seed: int) -> dict:
-    """Returns the timed starcoder2-3b rows by case."""
+    """Returns the timed starcoder2-3b, llama4 and llava rows by case."""
     gen = torch.Generator(device=DEV).manual_seed(seed)
     lens = [0, 1, 16, 17, 2048, 300, 777, 1500]
     timed = {}
@@ -805,6 +865,13 @@ def kernel_phase(ops, seed: int) -> dict:
         for window in (STARCODER_WINDOW, 0):
             label = f"starcoder2 {name}" + (f" window={window}" if window else "")
             timed[label] = compare_kernel(ops, starcoder, window, label, timed=True)
+        # llama4-maverick's windowed decode (G 5, window 8,192) and llava's (G 4)
+        llama4 = paged_case(gen, B=len(LLAMA4_LENS), Hkv=8, G=5, dh=128, bs=16,
+                            lens=LLAMA4_LENS, dtype=dtype)
+        label = f"llama4 {name} window={LLAMA4_WINDOW}"
+        timed[label] = compare_kernel(ops, llama4, LLAMA4_WINDOW, label, timed=True)
+        llava = paged_case(gen, B=8, Hkv=8, G=4, dh=128, bs=16, lens=lens, dtype=dtype)
+        timed[f"llava {name}"] = compare_kernel(ops, llava, 0, f"llava {name}", timed=True)
         # the split-K's edges at starcoder2-3b's and qwen2.5-14b's shapes:
         # the long prompt's table and qwen's serve-run table, each with a
         # window and without, and tables far longer than every row (empty
@@ -882,6 +949,34 @@ def f32_depth2_phase(serve, zoo, get_config, seed: int):
     torch.cuda.empty_cache()
 
 
+def _named(label: str, fn):
+    """``fn`` inside a ``record_function`` range named ``label``."""
+    from torch.profiler import record_function
+
+    def run(*a, **k):
+        with record_function(label):
+            return fn(*a, **k)
+    return run
+
+
+def range_ms(prof, ranges) -> dict:
+    """Device ms of the profiled kernels by named range: the named ranges
+    show on the device as spans of their own, and each kernel goes to the
+    range whose span holds its start."""
+    from torch.autograd import DeviceType
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in events if e.name in ranges]
+    by_range = dict.fromkeys(ranges, 0.0)
+    for e in events:
+        if e.name in ranges:
+            continue
+        for name, lo, hi in spans:
+            if lo <= e.time_range.start < hi:
+                by_range[name] += (e.time_range.end - e.time_range.start) / 1e3
+                break
+    return by_range
+
+
 def _kernel_group(name: str) -> str:
     low = name.lower()
     if "pagedrows" in low:              # kernel 1: splitk::decode_kernel<..., PagedRows>
@@ -891,7 +986,8 @@ def _kernel_group(name: str) -> str:
     return "other"
 
 
-def profile_chunk(engine, serve, vocab: int, rng, before_launches: int) -> dict:
+def profile_chunk(engine, serve, vocab: int, rng, before_launches: int,
+                  ranges: dict | None = None) -> dict:
     """Where a decode micro-step's time goes, with every lane busy: one
     chunk timed on the host clock, then the next chunk under torch.profiler
     for the device time by kernel (the profiler's own host cost would
@@ -899,9 +995,15 @@ def profile_chunk(engine, serve, vocab: int, rng, before_launches: int) -> dict:
     kernel 1's share is its device time over the micro-step's.  The kernel
     launches per micro-step stand beside ``before_launches``, the count
     with kernel 1's one-CTA-per-head design (one launch a layer then, as
-    now)."""
+    now).  ``ranges`` ({name: its module}): each function in a named range
+    and its device ms per micro-step (``device_ms_by_range``); only an
+    eager ("stepped") chunk shows the ranges, a replayed graph has none."""
+    from contextlib import ExitStack
+    from unittest import mock
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    ranges = ranges or {}
     k = engine.chunk_steps
     reqs = make_requests(serve.Request, vocab, engine.max_batch, rng, (32, 512),
                          (1 + 3 * k, 1 + 3 * k))
@@ -914,11 +1016,17 @@ def profile_chunk(engine, serve, vocab: int, rng, before_launches: int) -> dict:
     engine.step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / k
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with ExitStack() as stack:
+        for name, mod in ranges.items():
+            stack.enter_context(mock.patch.object(mod, name, _named(name, getattr(mod, name))))
+        prof = stack.enter_context(profile(activities=[ProfilerActivity.CPU,
+                                                       ProfilerActivity.CUDA]))
         engine.step()                       # the last chunk, then eviction
         torch.cuda.synchronize()
     check(engine.idle, "profile: requests left after their last chunk")
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    by_range = {name: ms / k for name, ms in range_ms(prof, ranges).items()}
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and e.key not in ranges]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / k
     span_ms = busy_ms_of(prof) / k
     groups = dict.fromkeys(("matmul", "paged_decode", "other"), 0.0)
@@ -936,21 +1044,24 @@ def profile_chunk(engine, serve, vocab: int, rng, before_launches: int) -> dict:
             "paged_decode_share_of_device": groups["paged_decode"] / busy_ms if kern else None,
             "kernel_launches_per_micro_step": sum(e.count for e in kern) / k,
             "kernel_launches_per_micro_step_before": before_launches,
+            **({"device_ms_by_range": by_range} if ranges else {}),
             "top_kernels": [{"name": e.key[:80], "per_micro_step": e.count / k,
                              "ms_per_micro_step": e.self_device_time_total / 1e3 / k}
                             for e in top]}
 
 
 def profile_modes(engine, serve, vocab: int, rng, before_launches: int, label: str,
-                  card: str) -> None:
-    """``profile_chunk`` under each step mode, then the two side by side."""
+                  card: str, ranges: dict | None = None) -> dict:
+    """``profile_chunk`` under each step mode, then the two side by side;
+    returns the windows by mode."""
     windows = {}
     for mode in STEP_MODES:
         with step_mode(mode):
-            windows[mode] = {**profile_chunk(engine, serve, vocab, rng, before_launches),
-                             "step_mode": mode}
+            windows[mode] = {**profile_chunk(engine, serve, vocab, rng, before_launches,
+                                             ranges), "step_mode": mode}
         print(json.dumps(windows[mode]), flush=True)
     mode_windows(label, windows, card)
+    return windows
 
 
 def serve_phase(serve, zoo, ops, get_config, seed: int, card: str):
@@ -1919,12 +2030,19 @@ def flash_check(kd_ops, flash, label, s=None, h=None, w=None, b=None, z=None, ta
     return rows
 
 
+# the last families' heads, D x V: (key on the kernels line, model)
+FRONTEND_HEADS = (("llama4", "llama4-maverick-400b-a17b", 5120, 202048),
+                  ("hubert", "hubert-xlarge", 1280, 504),
+                  ("llava", "llava-next-mistral-7b", 4096, 32000))
+
+
 def flash_phase(kd_ops, flash, seed: int) -> dict:
     """Kernels 7-10 against their plain versions; returns the rows timed at
     the LM path's shapes: 512 rows, V = 256,000 (gemma-2b), D = 2,048,
     f32 student or head, bf16 cache with its lse, the tied head; and under
     "deepseek" kernels 9 and 10's rows at deepseek-v2-lite-16b's untied head
-    (V = 102,400)."""
+    (V = 102,400), under "llama4", "hubert" and "llava" theirs at those
+    models' untied heads (``FRONTEND_HEADS``: D x V)."""
     gen = torch.Generator(device=DEV).manual_seed(seed)
     f32, bf16 = torch.float32, torch.bfloat16
     timed = {}
@@ -1955,14 +2073,16 @@ def flash_phase(kd_ops, flash, seed: int) -> dict:
                 timed.update(rows)
         del embed
         torch.cuda.empty_cache()
-    # deepseek-v2-lite-16b's head: untied, V = 102,400, timed
-    V = 102400
-    w = rnd((D, V), 0.02)
-    timed["deepseek"] = flash_check(kd_ops, flash, f"512x{D}x{V} untied (deepseek-v2-lite-16b)",
-                                    h=rnd((512, D), 1), w=w, z=rnd((512, V), 3, bf16),
-                                    timed=True)
-    del w
-    torch.cuda.empty_cache()
+    # deepseek-v2-lite-16b's head: untied, V = 102,400, timed; then the last
+    # families' heads (llama4-maverick, hubert-xlarge, llava), untied, timed
+    for key, model, Dh, V in (("deepseek", "deepseek-v2-lite-16b", D, 102400),
+                              *FRONTEND_HEADS):
+        w = rnd((Dh, V), 0.02)
+        timed[key] = flash_check(kd_ops, flash, f"512x{Dh}x{V} untied ({model})",
+                                 h=rnd((512, Dh), 1), w=w, z=rnd((512, V), 3, bf16),
+                                 timed=True)
+        del w
+        torch.cuda.empty_cache()
     # ... and every option where it is cheap: untied, bias, f32 cache, no lse
     for B, V in ((5, 50304), (512, 517)):
         for tied in (True, False):
@@ -2557,7 +2677,6 @@ def starcoder_serve_phase(serve, zoo, get_config, seed: int, card: str) -> None:
     its sliding_attention calls timed apart."""
     from unittest import mock
 
-    from repro_torch import kernels
     cfg = get_config("starcoder2-3b")
     model = zoo.build_model(cfg)
     t0 = time.perf_counter()
@@ -2566,54 +2685,13 @@ def starcoder_serve_phase(serve, zoo, get_config, seed: int, card: str) -> None:
     print(f"init: {serve.pool_bytes(params) / 1e9:.2f} GB of {cfg.param_dtype} weights "
           f"in {time.perf_counter() - t0:.2f} s", flush=True)
     rng = np.random.default_rng(seed)
-    engine = serve.ContinuousEngine(model, params, max_batch=8, num_blocks=2600,
-                                    block_size=16, max_seq_len=max(LONG_PROMPT, 2048) + 64,
-                                    chunk_steps=8)
-    kernels.launches.clear()
-    drive(engine, make_requests(serve.Request, cfg.vocab_size, 2, rng, (32, 64), (8, 8)))
-    reqs = make_requests(serve.Request, cfg.vocab_size, 7, rng, (32, 2048), (8, 64))
-    reqs.append(serve.Request(rid=7, tokens=rng.integers(0, cfg.vocab_size, LONG_PROMPT)
-                              .astype(np.int32), max_new_tokens=32))
-    steps0 = engine.steps
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    results, _ = drive(engine, reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    micro = engine.steps - steps0
-    # the kernel's launches, counted over a third batch of short prompts
-    steps1 = engine.steps
-    with card_launches() as ran:
-        drive(engine, make_requests(serve.Request, cfg.vocab_size, 8, rng, (32, 512), (8, 24)))
-    launches, counted_micro = ran["paged_decode"], engine.steps - steps1
-    host = kernels.launches["paged_decode"]
-    by_rid = {r.rid: r for r in results}
-    check(len(results) == len(reqs), f"starcoder2: {len(results)} results for {len(reqs)}")
-    for r in reqs:
-        check(not by_rid[r.rid].cancelled and len(by_rid[r.rid].tokens) == r.max_new_tokens,
-              f"starcoder2: request {r.rid}: {len(by_rid[r.rid].tokens)} tokens")
-    check(engine.alloc.used_blocks == 0 and engine.reserved_tokens == 0,
-          "starcoder2: pool not free after the drain")
-    check(host > 0 and launches > 0 and launches == cfg.num_layers * counted_micro,
-          f"starcoder2: {launches} paged_decode launches on the card ({host} by the "
-          f"wrapper) for {counted_micro} micro-steps x {cfg.num_layers}")
-    ntok = sum(len(r.tokens) for r in results)
-    ttft = sorted(r.ttft for r in results)
-    long = by_rid[7]
-    print(json.dumps({"phase": "starcoder2-3b bf16 full depth, full width", "card": card,
-                      "requests": len(results), "generated_tokens": ntok,
-                      "prompt_tokens": int(sum(len(r.tokens) for r in reqs)),
-                      "wall_s": wall, "tokens_per_s": ntok / wall,
-                      "ttft_p50_ms": ttft[len(ttft) // 2] * 1e3,
-                      "long_prefill_s": long.t_first - long.t_admit,
-                      "micro_steps": micro, "counted_micro_steps": counted_micro,
-                      "paged_decode_launches": launches,
-                      "launches_per_micro_step": launches / counted_micro,
-                      "paged_decode_wrapper_launches": host,
-                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}), flush=True)
-    profile_modes(engine, serve, cfg.vocab_size, rng, 2360, "starcoder2-3b decode micro-step",
-                  card)
+    _, reqs = engine_serve(
+        serve, model, params, cfg,
+        lambda: [*make_requests(serve.Request, cfg.vocab_size, 7, rng, (32, 2048), (8, 64)),
+                 serve.Request(rid=7, tokens=rng.integers(0, cfg.vocab_size, LONG_PROMPT)
+                               .astype(np.int32), max_new_tokens=32)],
+        rng, "starcoder2-3b bf16 full depth, full width", card, num_blocks=2600,
+        max_seq_len=max(LONG_PROMPT, 2048) + 64, before_launches=2360)
 
     spent = [0.0]
     real = zoo.attn.sliding_attention
@@ -2636,7 +2714,7 @@ def starcoder_serve_phase(serve, zoo, get_config, seed: int, card: str) -> None:
     print(json.dumps({"phase": f"starcoder2-3b prefill of {LONG_PROMPT} tokens", "card": card,
                       "prefill_s": prefill_s, "sliding_attention_s": spent[0],
                       "sliding_attention_share": spent[0] / prefill_s}), flush=True)
-    del engine, params, model
+    del params, model
     torch.cuda.empty_cache()
 
 
@@ -2644,17 +2722,22 @@ def starcoder_serve_phase(serve, zoo, get_config, seed: int, card: str) -> None:
 RESNET56_RUN = dict(K=4, R=2, num_clients=20, participation=0.4, client_batch=64,
                     client_lr=0.05, server_lr=0.05, temperature=4.0, local_epochs=1,
                     distill_steps=200)
-OVERLAP_RUNS = (("sequential", "off"), ("sequential", "async"), ("vectorized", "off"),
-                ("vectorized", "async"), ("vectorized", "fused"))
+# (engine, overlap, model): the vectorized runs, and the sequential off run
+# they are spread against, at ResNet-20 (the depth cut to keep the whole run
+# within its time limit; at ResNet-56 they took about 150 s)
+OVERLAP_RUNS = (("sequential", "off", "resnet56"), ("sequential", "async", "resnet56"),
+                ("sequential", "off", "resnet20"), ("vectorized", "off", "resnet20"),
+                ("vectorized", "async", "resnet20"), ("vectorized", "fused", "resnet20"))
 OVERLAP_ROUNDS = 3               # round 1 captures, round 2 the KD's and the pairs', 3 steady
 OVERLAP_TOL = ROUND_TOL          # drained models against off
 PAIR = "fused/kd+bucket"
 
 
-def resnet56_task(seed: int):
-    """Phases 8 and 11's ResNet-56 task: 20 clients over 50,000 images."""
+def resnet_task(seed: int, model: str = "resnet56"):
+    """Phases 8 and 11's task: 20 clients over 50,000 images, ResNet-56 (or
+    another depth of the family)."""
     from repro_torch.core.tasks import classification_task
-    return classification_task(model="resnet56", num_clients=20, alpha=0.1, num_train=50000,
+    return classification_task(model=model, num_clients=20, alpha=0.1, num_train=50000,
                                num_server=2048, server_batch=256, seed=seed, device=DEV)
 
 
@@ -2753,26 +2836,29 @@ def vectorized_cnn_overlap(fed, seed: int) -> dict:
 
 
 def overlap_phase(fed, task, seed: int, card: str):
-    """ResNet-56 FedSDD (phases 8 and 11's configuration), 3 rounds under
-    each engine and overlap mode from the same weights, cuDNN
+    """FedSDD in phases 8 and 11's configuration (``task``, ResNet-56; the
+    vectorized runs at ResNet-20, ``OVERLAP_RUNS``), 3 rounds under each
+    engine and overlap mode from the same weights for each model, cuDNN
     deterministic; each overlapped run drained by finalize and held against
-    its engine's off run.  Returns the sequential off run's runner and
-    state (its ring holds K·R = 8 teachers)."""
+    its engine's off run.  Returns the sequential ResNet-56 off run's runner
+    and state (its ring holds K·R = 8 teachers)."""
     from repro_torch import kernels
     from repro_torch.core import step_graph
     from repro_torch.core.scheduler import overlap_summary
     from repro_torch.utils.pytree import tree_map
-    init = fed.make_runner("fedsdd", task, device=DEV, seed=seed,
-                           **RESNET56_RUN).init_state().global_models
+    tasks = {"resnet56": task, "resnet20": resnet_task(seed, "resnet20")}
+    init = {model: fed.make_runner("fedsdd", t, device=DEV, seed=seed,
+                                   **RESNET56_RUN).init_state().global_models
+            for model, t in tasks.items()}
     torch.backends.cudnn.deterministic = True
     results = {}
     try:
-        for execution, mode in OVERLAP_RUNS:
+        for execution, mode, model in OVERLAP_RUNS:
             gc.collect()
-            runner = fed.make_runner("fedsdd", task, device=DEV, seed=seed, overlap=mode,
-                                     execution=execution, **RESNET56_RUN)
+            runner = fed.make_runner("fedsdd", tasks[model], device=DEV, seed=seed,
+                                     overlap=mode, execution=execution, **RESNET56_RUN)
             state = fed.FedState(round=0,
-                                 global_models=[tree_map(torch.clone, m) for m in init],
+                                 global_models=[tree_map(torch.clone, m) for m in init[model]],
                                  ensemble=fed.TeacherBank(4, 2))
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -2794,7 +2880,7 @@ def overlap_phase(fed, task, seed: int, card: str):
                 t_drain, t_run = time.perf_counter() - t0, time.perf_counter() - t_run
             peak, host = torch.cuda.max_memory_allocated() / 1e9, dict(kernels.launches)
             probe = replay_probe(runner, execution) if mode == "async" else {}
-            results[execution, mode] = {
+            results[execution, mode, model] = {
                 "runner": runner, "state": state, "rounds": rounds, "launches": dict(ran),
                 "wrapper_launches": host, "peak_mem_gb": peak,
                 "t_drain_s": t_drain, "t_run_s": t_run, "probe": probe,
@@ -2816,10 +2902,12 @@ def overlap_phase(fed, task, seed: int, card: str):
     # rounds carry such roundings far (the engines part by as much), so the
     # vectorized runs are held at 2e-4 on phase 10's CNN instead, and the
     # two overlapped vectorized modes against each other here
-    engines = drained_err(("vectorized", "off"), ("sequential", "off"))
-    fused_vs_async = drained_err(("vectorized", "fused"), ("vectorized", "async"))
+    engines = drained_err(("vectorized", "off", "resnet20"), ("sequential", "off", "resnet20"))
+    fused_vs_async = drained_err(("vectorized", "fused", "resnet20"),
+                                 ("vectorized", "async", "resnet20"))
     cnn = vectorized_cnn_overlap(fed, seed)
-    print(json.dumps({"phase": "ResNet-56 overlapped: drained models", "card": card,
+    print(json.dumps({"phase": "overlapped: drained models (vectorized at ResNet-20)",
+                      "card": card,
                       "vectorized_off_vs_sequential_off": engines,
                       "vectorized_fused_vs_async": fused_vs_async,
                       "cnn_vectorized_vs_off": cnn, "tol": OVERLAP_TOL}), flush=True)
@@ -2828,13 +2916,13 @@ def overlap_phase(fed, task, seed: int, card: str):
     check(all(e <= OVERLAP_TOL for e in cnn.values()),
           f"overlap: vectorized CNN rounds drained {cnn} from off (tol {OVERLAP_TOL})")
     tols = {"sequential": OVERLAP_TOL, "vectorized": None}
-    for (execution, mode), r in results.items():
-        off = results[execution, "off"]
-        err = drained_err((execution, mode), (execution, "off"))
+    for (execution, mode, model), r in results.items():
+        off = results[execution, "off", model]
+        err = drained_err((execution, mode, model), (execution, "off", model))
         o3 = off["rounds"][-1]
         summary = overlap_summary(o3["t_local"], o3["t_kd"], r["rounds"][-1]["t_round"])
-        line = {"phase": "ResNet-56 FedSDD, overlapped", "card": card, "engine": execution,
-                "overlap": mode, "rounds": r["rounds"], "t_drain_s": r["t_drain_s"],
+        line = {"phase": "FedSDD, overlapped", "card": card, "model": model,
+                "engine": execution, "overlap": mode, "rounds": r["rounds"], "t_drain_s": r["t_drain_s"],
                 "t_run_s": r["t_run_s"], "drained_max_abs_err_vs_off": err,
                 "tol": tols[execution], "overlap_summary_round3": summary,
                 "paired_programs": r["pairs"], "launches": r["launches"],
@@ -2871,7 +2959,7 @@ def overlap_phase(fed, task, seed: int, card: str):
             check(r["probe"]["hidden_ms"] > 0, f"overlap {execution}/async: KD and client step "
                   f"programs on two streams took no less than one after the other "
                   f"({r['probe']})")
-    off = results["sequential", "off"]
+    off = results["sequential", "off", "resnet56"]
     return off["runner"], off["state"]
 
 
@@ -3115,11 +3203,12 @@ def robust_resnet56_part(fed, kd_ops, kd_ref, task, seed: int, tmp: str) -> dict
 
 
 def kill_restart_part(fed, task, seed: int, tmp: str) -> dict:
-    """(c) ResNet-56, sequential, overlap="async", SCAFFOLD, the spilling
-    store, the ring in bf16, cuDNN deterministic: 3 rounds uninterrupted
-    against 2 rounds, save_state with the round-2 KD job dispatched on the
-    KD stream, the runner dropped, a fresh runner restored, round 3 and the
-    drain.  Models and c_global bit for bit."""
+    """(c) ``task`` (phase 8's configuration at ResNet-20: the depth cut to
+    keep the run within its time limit), sequential, overlap="async",
+    SCAFFOLD, the spilling store, the ring in bf16, cuDNN deterministic: 3
+    rounds uninterrupted against 2 rounds, save_state with the round-2 KD
+    job dispatched on the KD stream, the runner dropped, a fresh runner
+    restored, round 3 and the drain.  Models and c_global bit for bit."""
     from repro_torch.fedckpt.checkpointer import Checkpointer
     cfg = dict(RESNET56_RUN, overlap="async", local_algo="scaffold", client_store="spilling",
                teacher_dtype="bfloat16", seed=seed)
@@ -3195,7 +3284,8 @@ def robust_phase(fed, kd_ops, kd_ref, task, seed: int, card: str) -> dict:
             t1 = time.perf_counter()
             line["resnet56"] = robust_resnet56_part(fed, kd_ops, kd_ref, task, seed, tmp)
             t2 = time.perf_counter()
-            line["kill_restart"] = kill_restart_part(fed, task, seed, tmp)
+            line["kill_restart"] = kill_restart_part(fed, resnet_task(seed, "resnet20"), seed,
+                                                     tmp)
             line["seconds"] = {"cnn": t1 - t0, "resnet56": t2 - t1,
                                "kill_restart": time.perf_counter() - t2}
     finally:
@@ -3417,13 +3507,7 @@ def profiled_decode_step(model, params, tok, cache, pos: int, ranges: dict) -> d
     from unittest import mock
 
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    def named(label, fn):
-        def run(*a, **k):
-            with record_function(label):
-                return fn(*a, **k)
-        return run
+    from torch.profiler import ProfilerActivity, profile
 
     with torch.no_grad():
         model.decode_step(params, tok, cache, pos)
@@ -3436,20 +3520,14 @@ def profiled_decode_step(model, params, tok, cache, pos: int, ranges: dict) -> d
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
         with ExitStack() as stack:
             for name, mod in ranges.items():
-                stack.enter_context(mock.patch.object(mod, name, named(name, getattr(mod, name))))
+                stack.enter_context(mock.patch.object(mod, name, _named(name, getattr(mod, name))))
             prof = stack.enter_context(profile(activities=[ProfilerActivity.CPU,
                                                            ProfilerActivity.CUDA]))
             model.decode_step(params, tok, cache, pos + 1 + reps)
             torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = [(e.name, e.time_range.start, e.time_range.end) for e in events if e.name in ranges]
-    kern = [e for e in events if e.name not in ranges]
-    by_range = dict.fromkeys(ranges, 0.0)
-    for e in kern:
-        for name, lo, hi in spans:
-            if lo <= e.time_range.start < hi:
-                by_range[name] += (e.time_range.end - e.time_range.start) / 1e3
-                break
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and e.name not in ranges]
+    by_range = range_ms(prof, ranges)
     device_ms = sum(e.time_range.end - e.time_range.start for e in kern) / 1e3
     busy_ms = union_ms(kern)
     avg = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
@@ -3939,7 +4017,10 @@ def xlstm_serve_phase(zoo, get_config, serve, seed: int, card: str) -> dict:
 # peak / model bytes of phase 24's sequential FedSDD run (deepseek 2 layers,
 # K=2 R=2, 4 clients, f32, bf16 ring: 53.0 GB for 4.34 GB models, PERF.md)
 FEDSDD_PEAK_PER_MODEL = 53.0 / 4.34
-XLSTM_VEC_LAYERS = 24            # the vectorized round: a 2-client stack under scan
+# both full-width rounds' depth: the vectorized one's 2-client stack under
+# scan fits at 24; the sequential run fit at all 48 (peak 60.7 GB) but took
+# 69 s of the whole run's time limit (PERF.md §7)
+XLSTM_FED_LAYERS = 24
 
 
 def _xlstm_cfg(get_config, layers: int):
@@ -3959,17 +4040,6 @@ def xlstm_param_count(cfg) -> int:
     return (cfg.num_layers - n_s) * mlstm + n_s * slstm + 2 * V * D + D
 
 
-def xlstm_fed_depth(get_config) -> tuple[int, float]:
-    """The deepest multiple of 4 layers (the 3:1 mLSTM:sLSTM superblock), up
-    to the full 48, whose reckoned sequential FedSDD peak is under 76 GB."""
-    for layers in range(48, 0, -4):
-        reckoned = FEDSDD_PEAK_PER_MODEL * xlstm_param_count(_xlstm_cfg(get_config, layers)) \
-            * 4 / 1e9
-        if reckoned < PEAK_LIMIT_GB:
-            return layers, reckoned
-    raise RuntimeError("xlstm: no depth fits")
-
-
 def xlstm_fedsdd_phase(fed, wa_ops, wa_ref, kd_ops, flash, seed: int, card: str) -> dict:
     """Phase 27 (b)-(d): xlstm-1.3b at full width, f32.  (c) one vectorized
     round (K=2, 2 of 4 clients, no KD steps, the bucket step captured) at
@@ -3978,26 +4048,27 @@ def xlstm_fedsdd_phase(fed, wa_ops, wa_ref, kd_ops, flash, seed: int, card: str)
     9/10 against their plain versions at xlstm's head (512 x 2,048 x 50,304,
     untied, f32 head, bf16 cache), timed; (b) fedsdd K=2 R=2 over 4 clients,
     2 rounds, lm_task of 8 docs of 128 tokens, head-fused Flash-KD, the
-    ring in bf16, sequential, at the depth ``xlstm_fed_depth`` reckons.
-    Returns the phase's line."""
+    ring in bf16, sequential; both rounds at ``XLSTM_FED_LAYERS``, the
+    sequential run's peak reckoned from phase 24's before it.  Returns the
+    phase's line."""
     from repro_torch.configs import get_config
     from repro_torch.core.tasks import lm_task
-    layers, reckoned = xlstm_fed_depth(get_config)
+    layers = XLSTM_FED_LAYERS
     cfg = _xlstm_cfg(get_config, layers)
     n_params = xlstm_param_count(cfg)
     line = {"phase": f"xlstm-1.3b full width, {layers} of 48 layers, FedSDD", "card": card,
             "layers": layers, "params_per_model": n_params, "model_gb_f32": n_params * 4 / 1e9,
-            "reckoned_peak_gb": reckoned}
+            "reckoned_peak_gb": FEDSDD_PEAK_PER_MODEL * n_params * 4 / 1e9}
+    check(line["reckoned_peak_gb"] < PEAK_LIMIT_GB, f"xlstm: reckoned {line}")
     kw = dict(num_clients=4, client_batch=4, local_epochs=1, client_lr=0.01, server_lr=0.01,
               kd_kernel="flash", kd_head_fusion=True, teacher_dtype="bfloat16", seed=seed)
-    task_of = lambda c: lm_task(c, num_clients=4, docs_per_client=8, seq=128,  # noqa: E731
-                                server_batches_n=2, server_batch=4, seed=seed, device=DEV)
+    task = lm_task(cfg, num_clients=4, docs_per_client=8, seq=128, server_batches_n=2,
+                   server_batch=4, seed=seed, device=DEV)
 
-    # (c) the vectorized round at 24 layers, its bucket step a captured program
+    # (c) the vectorized round, its bucket step a captured program
     line["vectorized"], line["kernel_5_xlstm_tree"] = vectorized_kernel5_round(
-        fed, wa_ops, wa_ref, task_of(_xlstm_cfg(get_config, XLSTM_VEC_LAYERS)), kw,
-        f"xlstm-1.3b {XLSTM_VEC_LAYERS}-layer", seed, card)
-    line["vectorized"]["layers"] = XLSTM_VEC_LAYERS
+        fed, wa_ops, wa_ref, task, kw, f"xlstm-1.3b {layers}-layer", seed, card)
+    line["vectorized"]["layers"] = layers
 
     # (d) kernels 9/10 at xlstm's head
     gen = torch.Generator(device=DEV).manual_seed(seed)
@@ -4011,9 +4082,9 @@ def xlstm_fedsdd_phase(fed, wa_ops, wa_ref, kd_ops, flash, seed: int, card: str)
 
     # (b) the sequential rounds with head-fused Flash-KD
     line["sequential"], state, pipe, line["init_s"] = sequential_fedsdd_rounds(
-        fed, task_of(cfg), kw, 20, f"xlstm-1.3b {layers}-layer", card)
+        fed, task, kw, 20, f"xlstm-1.3b {layers}-layer", card)
     print(json.dumps({k: v for k, v in line.items() if k != "head"}), flush=True)
-    del pipe, state
+    del pipe, state, task
     gc.collect()
     torch.cuda.empty_cache()
     return line
@@ -4151,6 +4222,323 @@ def jamba_serve_phase(zoo, get_config, serve, seed: int, card: str) -> dict:
     return row
 
 
+# ---------------------------------------------------------------- phase 31
+LLAMA4 = "llama4-maverick-400b-a17b"
+HUBERT = "hubert-xlarge"
+LLAVA = "llava-next-mistral-7b"
+LLAMA4_F32_EXPERTS = 32          # of 128: 6.5 B parameters, 26 GB in f32 (128 would be 74)
+LLAMA4_F32_CAPACITY = 32.0       # capacity = a group's tokens x 32 / 32 experts: no drops
+
+
+def _llama4_cfg(get_config, **changes):
+    """llama4-maverick at full width, 2 layers (MoE at layer 0, dense at 1)."""
+    import dataclasses
+    return dataclasses.replace(get_config(LLAMA4), num_layers=2, **changes)
+
+
+def llama4_f32_phase(zoo, get_config, serve, seed: int, card: str) -> dict:
+    """Phase 31: llama4-maverick at full width, 2 layers, f32, 32 of its 128
+    experts, capacity factor 32 (no drops): decode from an empty cache over
+    128 tokens equals the full forward within 5e-4 of the logits' scale;
+    generate_static's tokens under "scan" equal those under "stepped"; the
+    ContinuousEngine's tokens (kernel 1, window 8,192) equal
+    generate_static's for requests within the window."""
+    import dataclasses
+    base = get_config(LLAMA4)
+    cfg = _llama4_cfg(get_config, param_dtype="float32", compute_dtype="float32",
+                      moe=dataclasses.replace(base.moe, num_experts=LLAMA4_F32_EXPERTS,
+                                              capacity_factor=LLAMA4_F32_CAPACITY))
+    before = holding()
+    model = zoo.build_model(cfg)
+    params = model.init(seed, device=DEV)
+    B, S = 2, 128
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=DEV, dtype=torch.int32)
+    scan = serve.generate_static(model, params, toks[:, :48], 16, step_mode="scan")
+    stepped = serve.generate_static(model, params, toks[:, :48], 16, step_mode="stepped")
+    with torch.no_grad():
+        full, _ = model.logits(params, {"tokens": toks})
+        dec = _decode_all(model, params, toks, model.init_cache(B, S, device=DEV))
+    scale = float(full.abs().max())
+    err = float((dec - full).abs().max())
+    del full, dec
+    # the engine against the static path, every request within the window
+    from repro_torch import kernels
+    rng = np.random.default_rng(seed)
+    reqs = make_requests(serve.Request, cfg.vocab_size, 6, rng, (16, 400), (4, 24))
+    check(all(len(r.tokens) + r.max_new_tokens <= cfg.sliding_window for r in reqs),
+          "llama4 f32: a request outgrows the window")
+    engine = serve.ContinuousEngine(model, params, max_batch=4, num_blocks=200,
+                                    block_size=16, max_seq_len=432, chunk_steps=4)
+    kernels.launches.clear()
+    with card_launches() as ran:
+        results, _ = drive(engine, reqs)
+    launches, host = ran["paged_decode"], kernels.launches["paged_decode"]
+    got = {r.rid: r.tokens for r in results}
+    static = {r.rid: serve.generate_static(model, params, r.tokens[None],
+                                           r.max_new_tokens)[0].cpu().tolist() for r in reqs}
+    row = {"phase": "llama4-maverick full width, f32, 2 layers", "card": card,
+           "schedule": [f"{k.mixer}/{k.ffn}" for k in model.schedule],
+           "prefix_period": list(model.prefix_period),
+           "params": sum(x.numel() for x in _leaves(params)),
+           "experts": LLAMA4_F32_EXPERTS, "capacity_factor": LLAMA4_F32_CAPACITY,
+           "tokens": B * S, "logit_scale": scale, "tol": DECODE_TOL * scale,
+           "decode_vs_forward_max_abs_err": err,
+           "static_scan_equals_stepped": bool(torch.equal(scan, stepped)),
+           "engine_requests": len(reqs),
+           "engine_equals_static": [got[r.rid] == static[r.rid] for r in reqs],
+           "paged_decode_launches": launches, "paged_decode_wrapper_launches": host,
+           "micro_steps": engine.steps}
+    print(json.dumps(row), flush=True)
+    check(err <= DECODE_TOL * scale, f"llama4 f32: decode parts from the forward {row}")
+    check(row["static_scan_equals_stepped"],
+          f"llama4 f32: static tokens under scan {scan.tolist()} != stepped {stepped.tolist()}")
+    check(all(row["engine_equals_static"]), f"llama4 f32: engine against static {got} {static}")
+    check(launches == cfg.num_layers * engine.steps and host > 0,
+          f"llama4 f32: {launches} launches on the card ({host} by the wrapper) for "
+          f"{engine.steps} micro-steps")
+    del engine, params, model
+    torch.cuda.empty_cache()
+    released(before, "phase 31")
+    return row
+
+
+# ------------------------------------------------------------- phases 32-33
+def engine_serve(serve, model, params, cfg, make_reqs, rng, label: str, card: str, *,
+                 num_blocks: int, max_seq_len: int, before_launches: int,
+                 ranges: dict | None = None, weights_bound: bool = False) -> tuple:
+    """``ContinuousEngine(max_batch=8, block_size=16, chunk_steps=8)`` serves
+    ``make_reqs()`` after a warm-up of 2 short requests (every batch drawn
+    from ``rng``): token counts, the drained pool, tokens/s, TTFT p50, the
+    longest prompt's prefill, peak memory; kernel 1's launches counted over
+    a third batch of 8 short requests (one a layer a micro-step); then one
+    chunk profiled under each step mode (``profile_modes``), with ``ranges``
+    and, with ``weights_bound``, a micro-step's bytes bound: every weight
+    but the embedding read once (a MoE layer's 8 tokens a micro-step have
+    capacity 8 in every expert, so the batched products read every bank).
+    Phases 17, 32 and 33.  Returns (the line, the requests)."""
+    from repro_torch import kernels
+    engine = serve.ContinuousEngine(model, params, max_batch=8, num_blocks=num_blocks,
+                                    block_size=16, max_seq_len=max_seq_len, chunk_steps=8)
+    kernels.launches.clear()
+    drive(engine, make_requests(serve.Request, cfg.vocab_size, 2, rng, (32, 64), (8, 8)))
+    reqs = make_reqs()
+    steps0, captures0 = engine.steps, captured()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results, _ = drive(engine, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    micro = engine.steps - steps0
+    steps1 = engine.steps
+    with card_launches() as ran:
+        drive(engine, make_requests(serve.Request, cfg.vocab_size, 8, rng, (32, 512), (8, 24)))
+    launches, counted_micro = ran["paged_decode"], engine.steps - steps1
+    host = kernels.launches["paged_decode"]
+    by_rid = {r.rid: r for r in results}
+    check(len(results) == len(reqs), f"{label}: {len(results)} results for {len(reqs)}")
+    for r in reqs:
+        check(not by_rid[r.rid].cancelled and len(by_rid[r.rid].tokens) == r.max_new_tokens,
+              f"{label}: request {r.rid}: {len(by_rid[r.rid].tokens)} tokens")
+    check(engine.alloc.used_blocks == 0 and engine.reserved_tokens == 0,
+          f"{label}: pool not free after the drain")
+    check(host > 0 and launches > 0 and launches == cfg.num_layers * counted_micro,
+          f"{label}: {launches} paged_decode launches on the card ({host} by the wrapper) "
+          f"for {counted_micro} micro-steps x {cfg.num_layers}")
+    ntok = sum(len(r.tokens) for r in results)
+    ttft = sorted(r.ttft for r in results)
+    longest = by_rid[max(reqs, key=lambda r: len(r.tokens)).rid]
+    line = {"phase": f"{label} serve", "card": card, "requests": len(results),
+            "generated_tokens": ntok, "prompt_tokens": int(sum(len(r.tokens) for r in reqs)),
+            "wall_s": wall, "tokens_per_s": ntok / wall,
+            "ttft_p50_ms": ttft[len(ttft) // 2] * 1e3,
+            "longest_prompt": max(len(r.tokens) for r in reqs),
+            "longest_prefill_s": longest.t_first - longest.t_admit, "micro_steps": micro,
+            "captures_after_warm_up": captured() - captures0,
+            "counted_micro_steps": counted_micro, "paged_decode_launches": launches,
+            "paged_decode_launches_per_micro_step": launches / counted_micro,
+            "paged_decode_wrapper_launches": host,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if weights_bound:
+        nbytes = sum(x.numel() * x.element_size() for x in _leaves(params))
+        nbytes -= params["embed"].numel() * params["embed"].element_size()
+        line["micro_step_weights_gb"] = nbytes / 1e9
+        line["micro_step_bytes_bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    print(json.dumps(line), flush=True)
+    line["profile"] = profile_modes(engine, serve, cfg.vocab_size, rng, before_launches,
+                                    f"{label} decode micro-step", card, ranges)
+    if ranges:
+        check(all(line["profile"]["stepped"]["device_ms_by_range"].values()),
+              f"{label}: no device time in a range: {line['profile']['stepped']}")
+    return line, reqs
+
+
+def llama4_serve_phase(zoo, get_config, serve, seed: int, card: str) -> dict:
+    """Phase 32: llama4-maverick at full width, 2 layers (MoE, dense), all
+    128 experts, bf16, the configured capacity factor 1.25, random weights
+    made on the card: the ContinuousEngine serves 8 requests of 32-2,048
+    tokens and one of 10,240 (past the 8,192 window); kernel 1 twice a
+    micro-step; a profiled chunk with the MoE FFN's range beside the
+    micro-step's bytes bound; then the static decode under both step modes."""
+    cfg = _llama4_cfg(get_config)
+    before = holding()
+    model = zoo.build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed, device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    print(f"init: {serve.pool_bytes(params) / 1e9:.2f} GB of {cfg.param_dtype} weights "
+          f"in {init_s:.2f} s", flush=True)
+    rng = np.random.default_rng(seed)
+    line, _ = engine_serve(
+        serve, model, params, cfg,
+        lambda: [*make_requests(serve.Request, cfg.vocab_size, 8, rng, (32, 2048), (8, 64)),
+                 serve.Request(rid=8, tokens=rng.integers(0, cfg.vocab_size, LLAMA4_LENS[-1])
+                               .astype(np.int32), max_new_tokens=32)],
+        rng, "llama4-maverick 2-layer bf16", card, num_blocks=2000,
+        max_seq_len=max(LLAMA4_LENS[-1], 2048) + 64, before_launches=0,
+        ranges={"moe_ffn": zoo.moe_lib}, weights_bound=True)
+    line.update(params=sum(x.numel() for x in _leaves(params)), init_s=init_s)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    prompts = torch.randint(0, cfg.vocab_size, (8, 256), generator=gen, device=DEV,
+                            dtype=torch.int32)
+    static_modes(serve, model, params, prompts, STATIC_NEW, LLAMA4, card)
+    del params, model
+    torch.cuda.empty_cache()
+    released(before, "phase 32")
+    return line
+
+
+def llava_serve_phase(zoo, get_config, serve, seed: int, card: str) -> dict:
+    """Phase 33: llava-next-mistral-7b as configured (32 layers, bf16, random
+    weights made on the card): the ContinuousEngine serves 16 text requests
+    (the engines take tokens, as the reference's); kernel 1 once a layer a
+    micro-step; a profiled chunk; one prefill over the configured prefix
+    budget, 2,880 patch embeddings + 128 text tokens, timed; then the
+    static decode under both step modes."""
+    cfg = get_config(LLAVA)
+    before = holding()
+    model = zoo.build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed, device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    print(f"init: {serve.pool_bytes(params) / 1e9:.2f} GB of {cfg.param_dtype} weights "
+          f"in {init_s:.2f} s", flush=True)
+    rng = np.random.default_rng(seed)
+    line, _ = engine_serve(
+        serve, model, params, cfg,
+        lambda: make_requests(serve.Request, cfg.vocab_size, 16, rng, (32, 512), (8, 64)),
+        rng, "llava-next-mistral-7b bf16", card, num_blocks=1024, max_seq_len=640,
+        before_launches=0, weights_bound=True)
+    # the prefix budget: 2,880 projected patch embeddings spliced over the
+    # first positions, then 128 text tokens
+    P, text = cfg.num_prefix_embeds, 128
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, P + text), generator=gen,
+                                     device=DEV, dtype=torch.int32),
+             "embeds": torch.randn((1, P, cfg.frontend_dim), generator=gen, device=DEV)}
+    with torch.no_grad():
+        model.prefill(params, batch)                # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = model.prefill(params, batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    line.update(params=sum(x.numel() for x in _leaves(params)), init_s=init_s,
+                prefix_prefill={"patch_embeds": P, "text_tokens": text, "prefill_s": prefill_s,
+                                "cache_seq": caches["blocks"]["b0"]["k"].shape[2]})
+    print(json.dumps({"phase": "llava prefill over the prefix budget", "card": card,
+                      **line["prefix_prefill"]}), flush=True)
+    check(bool(logits.isfinite().all()) and tuple(logits.shape) == (1, cfg.vocab_size),
+          f"llava prefill: logits {tuple(logits.shape)}")
+    del logits, caches, batch
+    prompts = torch.randint(0, cfg.vocab_size, (8, 256), generator=gen, device=DEV,
+                            dtype=torch.int32)
+    static_modes(serve, model, params, prompts, STATIC_NEW, LLAVA, card)
+    del params, model
+    torch.cuda.empty_cache()
+    released(before, "phase 33")
+    return line
+
+
+# ---------------------------------------------------------------- phase 34
+LLAVA_ROUND_SEQ = 3072           # past the 2,880-position prefix budget the loss masks out
+
+
+def frontends_fedsdd_phase(fed, wa_ops, wa_ref, kd_ops, flash, seed: int, card: str) -> dict:
+    """Phase 34.  (a) llama4-maverick, hubert-xlarge and llava reduced, f32:
+    2 head-fused Flash-KD rounds with kernels 9/10 and with their plain
+    versions from the same weights, within 2e-4; (b) hubert-xlarge at full
+    depth and width (48 layers, f32): fedsdd K=2 R=2 over 4 clients, 2
+    rounds, lm_task of 8 docs of 128 frames, head-fused Flash-KD, the ring
+    in bf16, after one vectorized round of 2 clients (its client engine
+    stepped) whose Eq. 2 launches kernel 5 over hubert's tree, and kernel
+    5 against its plain version over it; (c) llava at full width, 2 layers,
+    f32: the same rounds over 2 docs a client of 3,072 tokens, client batch
+    2, one doc a server batch (3,072 KD rows; 1,536 spliced patch
+    embeddings a doc, the loss over positions 2,880-3,071).  Returns the
+    phase's line."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tasks import lm_task
+    line = {"phase": "the frontends and llama4 FedSDD", "card": card,
+            "reduced": {arch: head_fused_rounds_phase(fed, kd_ops, flash, seed, arch)
+                        for arch in (LLAMA4, HUBERT, LLAVA)}}
+    kw = dict(num_clients=4, client_batch=4, local_epochs=1, client_lr=0.01, server_lr=0.01,
+              kd_kernel="flash", kd_head_fusion=True, teacher_dtype="bfloat16", seed=seed)
+
+    # (b) hubert-xlarge at full depth and width
+    cfg = dataclasses.replace(get_config(HUBERT), param_dtype="float32",
+                              compute_dtype="float32")
+    n_params = cfg.num_params()
+    hub = {"params_per_model": n_params, "model_gb_f32": n_params * 4 / 1e9,
+           "reckoned_peak_gb": FEDSDD_PEAK_PER_MODEL * n_params * 4 / 1e9}
+    check(hub["reckoned_peak_gb"] < PEAK_LIMIT_GB, f"hubert: reckoned {hub}")
+    task = lm_task(cfg, num_clients=4, docs_per_client=8, seq=128, server_batches_n=2,
+                   server_batch=4, seed=seed, device=DEV)
+    # the vectorized round first, its client engine stepped, as phase 24
+    # runs deepseek's: under scan the bucket program's static buffers and
+    # graph pool for a 2-client stack of 3.8 GB models held 35.7 GB and the
+    # round ran out of memory (PERF.md, §6)
+    with step_mode("stepped"):
+        hub["vectorized"], hub["kernel_5_hubert_tree"] = vectorized_kernel5_round(
+            fed, wa_ops, wa_ref, task, kw, "hubert-xlarge 48-layer", seed, card)
+    hub["sequential"], state, pipe, hub["init_s"] = sequential_fedsdd_rounds(
+        fed, task, kw, 20, "hubert-xlarge 48-layer", card)
+    del pipe, state, task
+    gc.collect()
+    torch.cuda.empty_cache()
+    hub["allocated_gb_after"] = torch.cuda.memory_allocated() / 1e9
+    line["hubert"] = hub
+
+    # (c) llava at full width, 2 layers, docs past the prefix budget
+    cfg = dataclasses.replace(get_config(LLAVA), num_layers=2, param_dtype="float32",
+                              compute_dtype="float32")
+    task = lm_task(cfg, num_clients=4, docs_per_client=2, seq=LLAVA_ROUND_SEQ,
+                   server_batches_n=2, server_batch=1, seed=seed, device=DEV)
+    lv = {"params_per_model": cfg.num_params(), "seq": LLAVA_ROUND_SEQ,
+          "patch_embeds_per_doc": task.client_data[0]["embeds"].shape[1]}
+    lv["sequential"], state, pipe, lv["init_s"] = sequential_fedsdd_rounds(
+        fed, task, dict(kw, client_batch=2), 20, "llava 2-layer", card)
+    with torch.no_grad():
+        loss, _ = task.loss_fn(state.global_models[0],
+                               task.make_batch(task.client_data[0], [0, 1]))
+    lv["client_loss"] = float(loss)
+    check(lv["client_loss"] > 0 and math.isfinite(lv["client_loss"]),
+          f"llava round: client loss {lv['client_loss']} (0 would mean no scored position)")
+    del pipe, state, task
+    gc.collect()
+    torch.cuda.empty_cache()
+    line["llava"] = lv
+    print(json.dumps(line), flush=True)
+    return line
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4196,7 +4584,7 @@ def main() -> int:
     sass_phase(build)
 
     phase("3. paged_decode vs plain")
-    starcoder_rows = kernel_phase(ops, args.seed)
+    paged_rows = kernel_phase(ops, args.seed)
 
     phase("4. qwen2.5-14b full width, f32, 2 layers: engine == static")
     f32_depth2_phase(serve, zoo, get_config, args.seed)
@@ -4204,7 +4592,7 @@ def main() -> int:
     phase("5. qwen2.5-14b full width, bf16, 48 layers: serve 16 requests")
     entry = serve_phase(serve, zoo, ops, get_config, args.seed, card)
     # kernel 1 at the starcoder2-3b cases its split-K was designed for
-    entry["starcoder2_ms"] = {case: starcoder_rows[case]["ms"] for case in STARCODER_TIMED}
+    entry["starcoder2_ms"] = {case: paged_rows[case]["ms"] for case in STARCODER_TIMED}
 
     torch.cuda.empty_cache()
 
@@ -4245,6 +4633,7 @@ def main() -> int:
     fused_launches = gemma_phase(fed, args.seed, card)
     path_launches = {**unfused_launches, **fused_launches}
     deepseek_rows = flash_rows.pop("deepseek")
+    frontend_rows = {key: flash_rows.pop(key) for key, *_ in FRONTEND_HEADS}
     flash_entries = [{"name": name, "route": "cuda", "source": FLASH_SOURCE,
                       "replaces": FLASH_TPU[name], "launches": path_launches.get(name, 0),
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"], "host_ms": r["host_ms"],
@@ -4276,8 +4665,9 @@ def main() -> int:
     phase("17. starcoder2-3b full width, bf16, 30 layers: serve 8 requests")
     starcoder_serve_phase(serve, zoo, get_config, args.seed, card)
 
-    phase("18. ResNet-56 FedSDD, overlapped rounds: off, async (both engines), fused")
-    r56 = resnet56_task(args.seed)
+    phase("18. FedSDD, overlapped rounds: off, async (both engines), fused; ResNet-56 "
+          "sequential, ResNet-20 vectorized")
+    r56 = resnet_task(args.seed)
     runner3, state3 = overlap_phase(fed, r56, args.seed, card)
 
     phase("19. ResNet-56 FedSDD round: legacy KD oracle vs fused; Table 5 ensemble accuracy")
@@ -4336,7 +4726,45 @@ def main() -> int:
     phase("30. jamba-1.5-large-398b reduced, f32: head-fused rounds, kernels vs plain")
     head_fused_rounds_phase(fed, kd_ops, flash, args.seed, JAMBA)
 
-    phase("31. kernels")
+    phase("31. llama4-maverick full width, f32, 2 layers, 32 experts: decode == forward, "
+          "engine == static")
+    llama4_f32_phase(zoo, get_config, serve, args.seed, card)
+
+    phase("32. llama4-maverick full width, bf16, 2 layers, 128 experts: serve 9 requests")
+    l4 = llama4_serve_phase(zoo, get_config, serve, args.seed, card)
+
+    phase("33. llava-next-mistral-7b as configured, bf16, 32 layers: serve 16 requests")
+    lv = llava_serve_phase(zoo, get_config, serve, args.seed, card)
+    for key, line in (("llama4", l4), ("llava", lv)):     # kernel 1 at their shapes and paths
+        r = paged_rows[PAGED_TIMED_NEW[key]]
+        entry[key] = {k: r[k] for k in ("case", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")}
+        entry[key]["launches"] = line["paged_decode_launches"]
+
+    phase("34. llama4-maverick, hubert-xlarge and llava FedSDD: reduced kernels vs plain, "
+          "full-size rounds, kernel 5")
+    fr = frontends_fedsdd_phase(fed, wa_ops, wa_ref, kd_ops, flash, args.seed, card)
+    hub = fr["hubert"]
+    wa_entry["hubert"] = {k: hub["kernel_5_hubert_tree"][k]
+                          for k in ("case", "leaves", "shape", "max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms")}
+    wa_entry["hubert"]["launches"] = hub["vectorized"]["launches"]["multi_weighted_average"]
+    # launches on each model's largest round: llama4 has only its reduced one
+    round_launches = {"hubert": hub["sequential"], "llava": fr["llava"]["sequential"]}
+    reduced = dict(zip(("llama4", "hubert", "llava"), fr["reduced"].values()))
+    for e in flash_entries:     # kernels 9 and 10 at the three heads and on their rounds
+        if e["name"] not in frontend_rows["llama4"]:
+            continue
+        for key, rows in frontend_rows.items():
+            r = rows[e["name"]]
+            e[key] = {k: r[k] for k in ("case", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")}
+            e[key]["reduced_launches"] = reduced[key].get(e["name"], 0)
+            e[key]["launches"] = (sum(rd["launches"].get(e["name"], 0)
+                                      for rd in round_launches[key])
+                                  if key in round_launches else e[key]["reduced_launches"])
+
+    phase("35. kernels")
     print(f"total {time.perf_counter() - T_START:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [entry, *kd_entries, wa_entry, single_entry,

@@ -2,9 +2,8 @@
 
 ``ModelConfig`` and ``reduced()`` are copied field for field so that a
 config here and its counterpart in the JAX package describe the same
-model; ``pdtype``/``cdtype`` return ``torch.dtype``s.  Only the
-architectures the port can build are registered (see ``_ensure_loaded``);
-``ASSIGNED_ARCHS`` keeps the reference's full list.
+model; ``pdtype``/``cdtype`` return ``torch.dtype``s.  Every one of the
+reference's ``ASSIGNED_ARCHS`` is registered (``_ensure_loaded``).
 """
 from __future__ import annotations
 
@@ -256,8 +255,7 @@ def register(cfg: ModelConfig) -> ModelConfig:
 def get_config(name: str) -> ModelConfig:
     _ensure_loaded()
     if name not in _REGISTRY:
-        raise KeyError(f"unknown or not yet ported arch {name!r}; "
-                       f"known: {sorted(_REGISTRY)}")
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
 
@@ -281,10 +279,5 @@ def _ensure_loaded() -> None:
         return
     _LOADED = True
     import importlib
-    # the dense all-GQA architectures (starcoder2-3b with sliding-window
-    # attention), deepseek-v2-lite-16b (MLA + MoE), xlstm-1.3b (mLSTM +
-    # sLSTM) and jamba-1.5-large-398b (Mamba + GQA + MoE); llama4-maverick
-    # and the audio/VLM frontends come with the slices that port them
-    for m in ("gemma_2b", "stablelm_3b", "qwen2_5_14b", "starcoder2_3b",
-              "deepseek_v2_lite_16b", "xlstm_1_3b", "jamba_1_5_large_398b"):
-        importlib.import_module(f"repro_torch.configs.{m}")
+    for arch in ASSIGNED_ARCHS:
+        importlib.import_module(f"repro_torch.configs.{arch.replace('-', '_').replace('.', '_')}")

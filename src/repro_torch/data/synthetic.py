@@ -104,10 +104,22 @@ def make_lm_batch(vocab: int, batch: int, seq: int, seed: int = 0):
 
 
 def make_model_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0):
-    """Token batch for a token-input family (the audio and VLM frontends
-    arrive with a later slice)."""
-    if cfg.family in ("audio", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.family} batches arrive with the slice that ports the "
-            f"modality frontends")
-    return make_lm_batch(cfg.vocab_size, batch, seq, seed)
+    """Training batch matching ``Model.loss``'s expectations per family,
+    the reference's byte for byte: tokens for the token-input families;
+    for audio frame ``embeds``, ``labels`` and a bool ``mask`` of the
+    frames to predict (frame 0 always set); for a VLM the token batch plus
+    ``min(num_prefix_embeds, seq // 2)`` patch ``embeds``."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "audio":
+        mask = rng.random((batch, seq)) < 0.15
+        mask[:, 0] = True  # ensure non-empty
+        return {
+            "embeds": rng.normal(0, 1, (batch, seq, cfg.frontend_dim)).astype(np.float32),
+            "labels": rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32),
+            "mask": mask,
+        }
+    b = make_lm_batch(cfg.vocab_size, batch, seq, seed)
+    if cfg.family == "vlm":
+        P = min(cfg.num_prefix_embeds, seq // 2)
+        b["embeds"] = rng.normal(0, 1, (batch, P, cfg.frontend_dim)).astype(np.float32)
+    return b

@@ -9,7 +9,8 @@ router and shared experts and an MLA layer's projections their
 list; a recurrent block's weights sit under ``ssm``: Mamba's ``in_proj``,
 ``conv_w``, ``A_log``, ...; mLSTM's ``wq``/``wk``/``wv``, gates and
 ``w_z``; sLSTM's ``w_in``, its recurrent ``r`` (n_super, nh, dh, 4·dh) and
-``b``).  ``params_to_numpy`` goes the other way.  This module accepts numpy
+``b``; the audio and VLM families' ``frontend``: ``proj1``, ``proj2`` and
+HuBERT's ``mask_embed``).  ``params_to_numpy`` goes the other way.  This module accepts numpy
 only and imports nothing of JAX.
 
 bfloat16: numpy holds it as ``ml_dtypes.bfloat16``, which

@@ -10,6 +10,7 @@ architecture, on either client engine:
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b --kd-kernel flash --kd-head-fusion
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v2-lite-16b --K 2
   PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-1.3b --kd-kernel flash --kd-head-fusion
+  PYTHONPATH=src python -m repro_torch.launch.train --arch hubert-xlarge --kd-kernel flash --kd-head-fusion
   PYTHONPATH=src python -m repro_torch.launch.train --preset fedbe
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --rounds 2
   PYTHONPATH=src python -m repro_torch.launch.train --execution vectorized --overlap fused
@@ -25,11 +26,11 @@ uploads, ``--aggregator`` / ``--clip-norm`` the robust Eq. 2,
 ``--teacher-trust`` the trust-weighted teachers); ``--ckpt-dir`` keeps
 ``ckpt_*`` model snapshots and ``state_*`` full-state checkpoints (a
 pending KD job included) there after every round, and ``--resume`` starts
-from the newest loadable one.  A flag for what the port does not run yet
-raises ``NotImplementedError`` naming the slice that brings it: an
-``--arch`` of llama4-maverick or the audio/VLM families.  The LM task's
-``seq`` (32) is a multiple of the reduced SSM chunk (16), as the
-recurrent families' full forward needs.
+from the newest loadable one.  ``--arch`` takes every assigned
+architecture, the audio and VLM frontends included (their batches carry
+frame or patch embeddings).  The LM task's ``seq`` (32) is a multiple of
+the reduced SSM chunk (16), as the recurrent families' full forward
+needs.
 """
 from __future__ import annotations
 
@@ -38,20 +39,11 @@ import json
 import os
 import time
 
-from repro_torch.configs import ASSIGNED_ARCHS, get_config, list_configs
+from repro_torch.configs import ASSIGNED_ARCHS, get_config
 from repro_torch.core.faults import FaultPlan
 from repro_torch.core.fedsdd import PRESETS, make_runner
 from repro_torch.core.tasks import classification_task, lm_task
 from repro_torch.fedckpt.checkpointer import Checkpointer
-
-
-def _refuse_unported(args) -> None:
-    """The CLI-level options of the reference this port does not run yet."""
-    if args.arch is not None and args.arch not in list_configs():
-        raise NotImplementedError(
-            f"repro_torch.launch.train: --arch {args.arch}: llama4-maverick and the "
-            f"audio/VLM frontends arrive with their own slice of the port; the LM task "
-            f"runs {list_configs()}")
 
 
 def _fault_plan(args) -> FaultPlan | None:
@@ -127,7 +119,6 @@ def main() -> None:
     ap.add_argument("--teacher-trust", action="store_true")
     ap.add_argument("--out", default=None, help="write history JSON here")
     args = ap.parse_args()
-    _refuse_unported(args)
 
     if args.arch:
         cfg = get_config(args.arch).reduced()

@@ -1,5 +1,6 @@
-"""Model zoo: dense GQA, MLA + MoE, xLSTM and hybrid Mamba decoders (port
-of ``repro/models/model_zoo.py``).
+"""Model zoo: dense GQA, MLA + MoE, xLSTM and hybrid Mamba decoders, and
+the audio encoder and VLM decoder behind their stubbed frontends (port of
+``repro/models/model_zoo.py``).
 
 The parameter tree is the reference's: ``embed``, ``final_norm``,
 ``lm_head`` (unless tied), an optional unrolled ``prefix`` list and
@@ -12,6 +13,16 @@ indexes layer ``i``, so one layer's paged pool ``pool[i]`` is a contiguous
 ``(nb, bs, Hkv, dh)`` tensor the decode kernel reads directly.  Each block
 returns the router's aux loss (zero for a dense FFN); ``loss`` adds
 ``router_aux_coef · aux / #MoE layers``.
+
+The frontends take precomputed embeddings, as the reference's do: a
+``frontend`` subtree (``proj1`` (frontend_dim, D), ``proj2`` (D, D), and
+for audio a ``mask_embed`` (D,)) maps them through ``gelu(e @ proj1) @
+proj2``.  HuBERT (audio, ``causal=False``) reads only frames, swaps in
+``mask_embed`` where ``batch["mask"]`` is set and scores the cross-entropy
+at those frames; its ``embed`` is a parameter the loss never reaches.
+LLaVA (VLM) splices the projected patch embeddings over its first P token
+positions and, with no ``loss_mask``, scores the positions from
+``num_prefix_embeds`` on.
 
 Decode caches and paged pools are updated in place (the reference's
 jitted callers donate them): an attention decode writes its row, and a
@@ -29,6 +40,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch import device as device_lib
 from repro_torch.configs.base import ModelConfig
@@ -53,7 +65,6 @@ def layer_schedule(cfg: ModelConfig) -> list[BlockKind]:
     at every ``xlstm_slstm_ratio``-th block and has no FFN; a hybrid puts
     attention where ``attn_layer_flags`` says and its SSM variant
     elsewhere."""
-    _check_supported(cfg)
     attn_flags = cfg.attn_layer_flags()
     moe_flags = cfg.moe_layer_flags()
     kinds = []
@@ -86,13 +97,6 @@ def split_schedule(kinds: list[BlockKind]) -> tuple[int, int]:
             if n % p == 0 and all(rest[i] == rest[i % p] for i in range(n)):
                 return q, p
     return 0, L
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.frontend_dim or cfg.family in ("audio", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.name}: the audio/VLM frontends arrive with the later slice of "
-            f"the port that ports them")
 
 
 def _layer(tree, i: int):
@@ -193,7 +197,6 @@ def _cache_dtype(cfg: ModelConfig, kind: BlockKind):
 # ======================================================================
 class Model:
     def __init__(self, cfg: ModelConfig):
-        _check_supported(cfg)
         self.cfg = cfg
 
     # ---- structure ---------------------------------------------------
@@ -237,6 +240,15 @@ class Model:
         if not cfg.tie_embeddings:
             params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
                                            cfg.pdtype, scale=0.02)
+        if cfg.frontend_dim:
+            params["frontend"] = {
+                "proj1": dense_init(gen, cfg.frontend_dim, cfg.d_model, cfg.pdtype),
+                "proj2": dense_init(gen, cfg.d_model, cfg.d_model, cfg.pdtype),
+            }
+            if cfg.family == "audio":
+                params["frontend"]["mask_embed"] = (
+                    torch.randn(cfg.d_model, generator=gen, device=dev) * 0.02
+                ).to(cfg.pdtype)
         if q:
             params["prefix"] = [init_block(gen, cfg, self.schedule[i])
                                 for i in range(q)]
@@ -247,12 +259,28 @@ class Model:
         return params
 
     # ---- embedding in / logits out ------------------------------------
+    def _frontend(self, params, embeds):
+        """``gelu(embeds @ proj1) @ proj2`` in the compute dtype (the tanh
+        gelu, ``jax.nn.gelu``'s)."""
+        cd, fe = self.cfg.cdtype, params["frontend"]
+        x = embeds.to(cd) @ fe["proj1"].to(cd)
+        return F.gelu(x, approximate="tanh") @ fe["proj2"].to(cd)
+
     def _embed_in(self, params, batch):
         cfg = self.cfg
+        if cfg.family == "audio":
+            x = self._frontend(params, batch["embeds"])
+            if "mask" in batch:
+                me = params["frontend"]["mask_embed"].to(cfg.cdtype)
+                x = torch.where(batch["mask"][..., None], me, x)
+            return x
         x = params["embed"][batch["tokens"].long()].to(cfg.cdtype)
         if cfg.tie_embeddings:
             x = x * torch.full((), float(np.sqrt(cfg.d_model)), dtype=cfg.cdtype,
                                device=x.device)
+        if cfg.family == "vlm" and "embeds" in batch:
+            pe = self._frontend(params, batch["embeds"])
+            x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
         return x
 
     def head(self, params):
@@ -317,13 +345,23 @@ class Model:
 
     def loss(self, params, batch):
         """Next-token cross-entropy over the batch, masked by the optional
-        ``loss_mask``, plus ``router_aux_coef · aux / #MoE layers`` for a
-        MoE config; returns (loss, {"ce", "moe_aux"}) — "ce" is the total,
-        as in the reference.  The audio/VLM targets arrive with their
-        slice."""
+        ``loss_mask`` (a VLM's default: the positions from
+        ``num_prefix_embeds`` on), or for audio the cross-entropy at the
+        frames ``batch["mask"]`` sets; plus ``router_aux_coef · aux / #MoE
+        layers`` for a MoE config; returns (loss, {"ce", "moe_aux"}) — "ce"
+        is the total, as in the reference."""
         cfg = self.cfg
         logits, aux = self.logits(params, batch)
-        loss = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+        labels = batch["labels"]
+        if cfg.family == "audio":
+            mask = batch.get("mask")
+        else:
+            mask = batch.get("loss_mask")
+            if cfg.family == "vlm" and mask is None:
+                S = labels.shape[1]
+                mask = (torch.arange(S, device=labels.device)
+                        >= cfg.num_prefix_embeds).expand(labels.shape)
+        loss = cross_entropy(logits, labels, mask)
         if cfg.moe is not None:
             loss = loss + cfg.moe.router_aux_coef * aux / max(1, sum(cfg.moe_layer_flags()))
         return loss, {"ce": loss, "moe_aux": aux}

@@ -62,13 +62,15 @@ def _apply_updates_(ps: list, us: list) -> None:
 def value_and_grad(fn: Callable, has_aux: bool = False) -> Callable:
     """``jax.value_and_grad`` for a function of a param tree: returns
     ``(value, grads)`` (``((loss, aux), grads)`` with ``has_aux``), the
-    value detached and the grads a tree like the params."""
+    value detached and the grads a tree like the params.  A leaf the value
+    never reaches (HuBERT's ``embed``) gets zeros, as ``jax.grad`` gives."""
 
     def wrapped(params, *args):
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
         out = fn(tree_unflatten(params, leaves), *args)
         loss = out[0] if has_aux else out
-        grads = tree_unflatten(params, torch.autograd.grad(loss, leaves))
+        grads = tree_unflatten(params, torch.autograd.grad(
+            loss, leaves, allow_unused=True, materialize_grads=True))
         if has_aux:
             return (loss.detach(), out[1]), grads
         return loss.detach(), grads

@@ -19,7 +19,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 
-ARCHS = ["qwen2.5-14b", "gemma-2b", "stablelm-3b", "deepseek-v2-lite-16b"]
+ARCHS = ["qwen2.5-14b", "gemma-2b", "stablelm-3b", "deepseek-v2-lite-16b",
+         "llama4-maverick-400b-a17b", "hubert-xlarge", "llava-next-mistral-7b"]
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
@@ -38,8 +39,12 @@ def test_config_and_reduced_match_reference(arch):
 
 
 def test_unported_arch_is_not_registered():
-    with pytest.raises(KeyError, match="not yet ported"):
-        get_config("llama4-maverick-400b-a17b")
+    """Every assigned architecture is registered (none is left to port);
+    a name that is not one raises ``KeyError``."""
+    from repro_torch.configs import ASSIGNED_ARCHS
+    assert all(get_config(arch).name == arch for arch in ASSIGNED_ARCHS)
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("llama5-unknown")
 
 
 @pytest.mark.parametrize("seed", [0, 5])

@@ -4,7 +4,6 @@ across (``jax.tree.map(np.asarray, model.init(PRNGKey(0)))`` →
 (GQA, QKV bias, SwiGLU), Gemma (MQA, tied embeddings, GeGLU) and StableLM
 (LayerNorm).  f32; logits at 2e-4 as in ``test_serve.py``.
 """
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -136,14 +135,21 @@ def test_interop_takes_numpy_only():
 
 
 def test_unported_families_raise():
-    """The reduced xlstm-1.3b builds (the SSM mixers are ported) and runs a
-    forward; the audio/VLM frontends still raise."""
+    """No family is left unported: the reduced xlstm-1.3b and the audio and
+    VLM frontends build and run a forward, and the port registers the
+    reference's architectures, no more and no fewer."""
     cfg = get_config("xlstm-1.3b").reduced()
     model = build_model(cfg)
     assert [k.mixer for k in model.schedule] == ["mlstm"] * 3 + ["slstm"]
     toks = torch.from_numpy(make_model_batch(cfg, 2, 16, seed=1)["tokens"])
     logits, _ = model.logits(model.init(0, device="cpu"), {"tokens": toks})
     assert logits.shape == (2, 16, cfg.vocab_size) and bool(logits.isfinite().all())
-    with pytest.raises(NotImplementedError, match="frontends"):
-        build_model(dataclasses.replace(get_config("qwen2.5-14b").reduced(), family="vlm",
-                                        frontend_dim=64))
+    for arch in ("hubert-xlarge", "llava-next-mistral-7b"):
+        cfg = get_config(arch).reduced()
+        model = build_model(cfg)
+        batch = {k: torch.from_numpy(v) for k, v in make_model_batch(cfg, 2, 16, seed=1).items()}
+        logits, _ = model.logits(model.init(0, device="cpu"), batch)
+        assert logits.shape == (2, 16, cfg.vocab_size) and bool(logits.isfinite().all())
+    from repro.configs import list_configs as jax_list_configs
+    from repro_torch.configs import list_configs
+    assert list_configs() == jax_list_configs()

@@ -56,9 +56,6 @@ MODULES_NOT_PORTED = {
     "analysis/passes.py": "program contracts: ROADMAP.md §A, Tail",
     "analysis/sync.py": "program contracts: ROADMAP.md §A, Tail",
     "analysis/trace_guard.py": "program contracts: ROADMAP.md §A, Tail",
-    "configs/hubert_xlarge.py": "ROADMAP.md §A, the audio and VLM frontends",
-    "configs/llava_next_mistral_7b.py": "ROADMAP.md §A, the audio and VLM frontends",
-    "configs/llama4_maverick_400b_a17b.py": "ROADMAP.md §A, llama4-maverick-400b-a17b",
     "core/distributed.py": SHARD_MAP,
     "launch/mesh.py": SHARD_MAP,
     "sharding/__init__.py": SHARD_MAP,

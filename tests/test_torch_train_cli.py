@@ -4,8 +4,8 @@ line (``[preset] round t/T acc=… kd=…``) and history file; ``--overlap``
 and ``--kd-pipeline legacy`` run to a drained, complete history; the fault
 flags with an attack and a robust aggregator run on both engines; a run
 checkpointed with ``--ckpt-dir`` and resumed with ``--resume`` ends where the
-uninterrupted one does; a flag for what the port does not run yet raises
-``NotImplementedError`` naming its slice.
+uninterrupted one does; ``--arch`` trains each of the last families
+ported (llama4-maverick's top-1 MoE, the audio and VLM frontends).
 """
 import json
 import re
@@ -77,12 +77,19 @@ def test_cli_lm_task_with_head_fused_flash_kd(monkeypatch, capsys, tmp_path):
     assert all(rec["kd_steps"] == 2 and "acc_main" not in rec for rec in history)
 
 
-@pytest.mark.parametrize("flags,slice_", [
-    (["--arch", "hubert-xlarge"], "own slice"),
-], ids=["arch"])
-def test_cli_unported_flags_raise(flags, slice_, monkeypatch):
-    with pytest.raises(NotImplementedError, match=slice_):
-        _main(monkeypatch, *SMALL, *flags)
+@pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b", "hubert-xlarge",
+                                  "llava-next-mistral-7b"])
+def test_cli_unported_flags_raise(arch, monkeypatch, capsys, tmp_path):
+    """The ``--arch`` values this CLI once refused now train 2 rounds of
+    their ``reduced()`` models, head-fused Flash-KD included."""
+    out = tmp_path / "history.json"
+    _main(monkeypatch, "--device", "cpu", "--arch", arch, "--clients", "4", "--rounds", "2",
+          "--local-epochs", "1", "--distill-steps", "2", "--K", "2", "--kd-kernel", "flash",
+          "--kd-head-fusion", "--out", str(out))
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert [re.fullmatch(r"\[fedsdd\] round (\d)/2 kd=\d+\.\d{4}", x) is not None
+            for x in lines[:-1]] == [True, True], lines
+    assert [rec["round"] for rec in json.loads(out.read_text())] == [1, 2]
 
 
 def test_cli_deepseek_moe_mla_runs(monkeypatch, capsys, tmp_path):
