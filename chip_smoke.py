@@ -20,6 +20,23 @@ beside it an increment of its slot in a counter on the card, which each
 replay runs (repro_torch.kernels.counted).  Each wrapper's eager count
 must be above 0 in the same run.  The serving phases 5 and 17 read the
 launches from a third batch.
+
+The program contracts (src/repro_torch/analysis): phases 5, 8, 11, 14 and
+18 each hold one steady-state scope under TraceGuard and sync_contract
+(the card's sync debug mode "error" and the funnel over torch.Tensor's
+materialisations) and print a "contracts" line; the run fails unless the
+scope captured no graph, built or loaded no kernel, made no un-annotated
+device->host sync and launched each kernel of its path: phase 5 the
+third batch's first step (8 admissions and a decode chunk, kernel 1),
+phases 8 and 11 round 2 (kernels 2-4, and 5 on the vectorized engine),
+phase 14 round 2 (kernels 9-10), phase 18 round 3 of each async and
+fused run (kernels 2-4, and 5 vectorized).  The launches are
+kernels.Snapshot copies on either side of the scope (no host wait; in
+phase 18 they also wait for the KD lane on the card, not on the host).
+Before phase 5 two planted violations must raise: a .item() inside a
+contract (through the funnel, and through the card layer with the funnel
+bypassed), and a step program fed a new shape inside a TraceGuard, which
+must name it.  Every bound is utils/hlo.roofline's over H100Spec.
 Phases, each of which fails the run if it fails:
 
   1. card      name and power limit (nvidia-smi); TF32 off for matmul/cuDNN
@@ -457,9 +474,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12                      # H100 SXM, data sheet
-PEAK_FLOPS = {torch.float32: 67e12,            # f32 outside the tensor cores
-              torch.bfloat16: 989e12}          # bf16 tensor cores, dense
+# the H100 SXM's roofline constants, from repro_torch.utils.hlo.H100Spec
+# (use_h100_spec, once src/ is importable): HBM's rate and the peak rate
+# for each type, f32 on the CUDA cores and bf16 on the tensor cores (dense)
+SPEC = None
+HBM_BYTES_PER_S: float = 0.0
+PEAK_FLOPS: dict = {}
 PAGED_DECODE_TPU = "src/repro/kernels/flash_attention/kernel.py:226"
 F32_TOL = 1e-5                                 # rtol = atol, elementwise
 BF16_ROW_TOL = 1.6e-2                          # of each row's max |plain|
@@ -472,6 +492,7 @@ KD_LOSS_RTOL = 1e-4
 KD_BF16_GRAD_ROW_TOL = 8e-3                    # of each row's max |plain|
 KD_GRAD_ATOL = 1e-6                            # × |g|·τ/B, the gradient's own scale
 ROUND_TOL = 2e-4                               # main model, kernels vs plain
+KD_PATH = ("ensemble_softmax", "kd_loss_fwd", "kd_loss_bwd")   # kernels 2-4 on a round
 WA_TPU = {"multi_weighted_average": "src/repro/kernels/weight_avg/kernel.py:53",
           "weighted_average": "src/repro/kernels/weight_avg/kernel.py:29"}
 WA_SOURCE = "src/repro_torch/kernels/csrc/weight_avg.cu"
@@ -493,6 +514,16 @@ FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FA_F32_TOL = 1e-5                              # rtol = atol, elementwise
 FA_GRAD_TOL = 1e-4                             # the reference's gradient test
 DEV = "cuda"
+
+
+def use_h100_spec() -> None:
+    """Every bound below from ``repro_torch.utils.hlo``: ``H100Spec``'s
+    constants and ``roofline``'s terms (``_bound``)."""
+    global SPEC, HBM_BYTES_PER_S, PEAK_FLOPS
+    from repro_torch.utils.hlo import H100Spec
+    SPEC = H100Spec()
+    HBM_BYTES_PER_S = SPEC.hbm_bandwidth
+    PEAK_FLOPS = {torch.float32: SPEC.peak_flops_f32, torch.bfloat16: SPEC.peak_flops_bf16}
 
 
 def check(ok: bool, msg: str) -> None:
@@ -651,6 +682,103 @@ def captured() -> int:
     return sum(captures.values())
 
 
+@contextmanager
+def contracts(label: str, owners, expect: tuple, streams=()):
+    """One steady-state round or decode chunk under the port's program
+    contracts: ``TraceGuard`` (no capture, no kernel build; ``owners``' step
+    programs watched) and ``sync_contract`` (the card's sync debug mode and
+    the funnel: an un-annotated sync raises where it happens).  The
+    scope's launches are ``kernels.Snapshot``s on either side, taken
+    without a host wait once ``streams`` (the current one by default; the
+    KD lane too where the KD runs there) reach the scope's edge.  Yields a
+    dict that ``contracts_line`` prints and checks after the caller's own
+    wait for the card: ``expect`` are the path's kernels, each launched in
+    the scope."""
+    from repro_torch import kernels
+    from repro_torch.analysis import TraceGuard, sync_contract
+    tg = TraceGuard(label)
+    for owner in owners:
+        tg.watch_programs(owner)
+    out = {"label": label, "expect": expect, "guard": tg,
+           "before": kernels.Snapshot(*streams)}
+    with tg, sync_contract(label) as scope:
+        yield out
+    out.update(scope=scope, after=kernels.Snapshot(*streams))
+
+
+def run_owners(runner) -> list:
+    """A runner's step-program owners: its set (client and bucket programs,
+    and the KD's when they share it), the KD pipeline and the fused pairs."""
+    pairs = runner._executor()._pairs
+    return [runner.graphs, runner._kd_pipeline(), *([pairs] if pairs is not None else [])]
+
+
+def contracts_line(res: dict, card: str) -> dict:
+    """Print a ``contracts`` scope's line (the card waited for first) and
+    fail the run unless it captured, built and synced nothing and launched
+    each of its path's kernels."""
+    torch.cuda.synchronize()
+    tg, ran = res["guard"], res["after"].read() - res["before"].read()
+    line = {"phase": f"contracts: {res['label']}", "card": card, "captures": tg.traces,
+            "kernel_builds": sum(tg.built().values()),
+            "unannotated_syncs": len(res["scope"].violations), "launches": dict(ran),
+            "path_kernels": list(res["expect"]), "watched_programs": len(tg.cache_growth()),
+            "captured": tg.captured(), "cache_growth": tg.report()["cache_growth"]}
+    print(json.dumps(line), flush=True)
+    tg.assert_steady_state()
+    check(line["unannotated_syncs"] == 0 and all(ran.get(k, 0) > 0 for k in res["expect"]),
+          f"contracts {res['label']}: {line}")
+    return line
+
+
+def planted_contracts(card: str) -> dict:
+    """The contracts catch what they exist for, on the card: a ``.item()``
+    inside ``sync_contract`` raises ``SyncViolation`` through the funnel
+    and, with the funnel bypassed (``TensorBase.item``, the C method it
+    wraps), through the card's sync debug mode; a step program fed a new
+    shape inside a ``TraceGuard`` raises ``TraceViolation`` naming it."""
+    from repro_torch.analysis import SyncViolation, TraceGuard, TraceViolation, sync_contract
+    from repro_torch.core.step_graph import StepGraphs
+    x = torch.ones(4, device=DEV)
+    caught = {}
+    for layer, pull in (("funnel", lambda: x.sum().item()),
+                        ("card", lambda: torch._C.TensorBase.item(x.sum()))):
+        caught[layer] = None
+        try:
+            with sync_contract(f"planted {layer}"):
+                pull()
+        except SyncViolation as e:
+            caught[layer] = str(e).splitlines()[0]
+    graphs = StepGraphs("scan")
+
+    def program(n: int):
+        def build():
+            buf = {"x": torch.zeros(n, device=DEV)}
+            return (lambda: buf["x"].add_(1)), buf
+        return graphs.program("planted/step", (n,), build)
+
+    program(4)()                        # the warm shape: captured here
+    with TraceGuard("planted").watch_programs(graphs) as tg:
+        program(4)()                    # a replay
+        program(8)()                    # a new shape: a capture
+    trace = None
+    try:
+        tg.assert_steady_state()
+    except TraceViolation as e:
+        trace = str(e).splitlines()[0]
+    line = {"phase": "contracts: planted violations", "card": card,
+            "sync_funnel": caught["funnel"], "sync_card_layer": caught["card"],
+            "trace_guard": trace}
+    print(json.dumps(line), flush=True)
+    check(caught["funnel"] is not None and "(item)" in caught["funnel"],
+          f"planted .item(): the funnel did not raise ({caught})")
+    check(caught["card"] is not None and "card layer" in caught["card"],
+          f"planted .item() past the funnel: the card layer did not raise ({caught})")
+    check(trace is not None and "planted/step" in trace,
+          f"planted new shape: TraceGuard did not name the program ({trace})")
+    return line
+
+
 def union_ms(events) -> float:
     """Milliseconds in which at least one of the profiled kernels ``events``
     ran: the union of their intervals.  Kernels of one CUDA graph may run
@@ -762,9 +890,7 @@ def paged_bound(q, k_pool, bt, sl, window: int):
     nbytes = (rows * Hkv * dh * 2 * elt + 2 * q.numel() * elt
               + bt.numel() * 4 + sl.numel() * 4)
     flops = 4 * rows * H * dh
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return _bound(nbytes, flops, q.dtype)
 
 
 def library_call(q, k_pool, v_pool, bt, sl, window: int = 0):
@@ -1095,7 +1221,14 @@ def serve_phase(serve, zoo, ops, get_config, seed: int, card: str):
     counted = make_requests(serve.Request, cfg.vocab_size, 8, rng, (32, 512), (8, 24))
     steps1 = engine.steps
     with card_launches() as ran:
-        drive(engine, counted)
+        for r in counted:
+            engine.submit(r)
+        # its first step (8 admissions, one decode chunk) under the contracts
+        with contracts("qwen2.5-14b admission and decode chunk", [engine],
+                       ("paged_decode",)) as held:
+            engine.step()
+        drive(engine, [])
+    contracts_line(held, card)
     launches, counted_micro = ran["paged_decode"], engine.steps - steps1
     host = kernels.launches["paged_decode"]
     check(captured() == captures0, f"serve: {captured() - captures0} captures after the warm-up")
@@ -1197,9 +1330,7 @@ def kd_bound(name: str, M: int, B: int, V: int, elt: int):
         nbytes, ops = B * V * (elt + 4) + B * 4, 8 * B * V
     else:                                       # s, t, g -> grad (B,V) in s's type
         nbytes, ops = B * V * (2 * elt + 4) + 4, 6 * B * V
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FLOPS[torch.float32] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return _bound(nbytes, ops)
 
 
 def kd_plain(kd_ref) -> dict:
@@ -1457,10 +1588,15 @@ def resnet56_phase(fed, kd_ops, kd_ref, seed: int, card: str, kd6: dict) -> list
     torch.cuda.synchronize()
     kernels.launches.clear()
     rounds, launches = [], Counter()
-    for _ in range(2):
+    for i in range(2):
         before, t0, captures0 = client_steps[0], time.perf_counter(), captured()
         with card_launches() as ran:
-            state = runner.run(1, state=state)
+            if i == 0:
+                state = runner.run(1, state=state)
+            else:       # round 2, the steady state, under the contracts
+                with contracts("ResNet-56 round 2, sequential", run_owners(runner),
+                               KD_PATH) as held:
+                    state = runner.run(1, state=state)
         launches.update(ran)
         rec = state.history[-1]
         n = client_steps[0] - before
@@ -1475,6 +1611,7 @@ def resnet56_phase(fed, kd_ops, kd_ref, seed: int, card: str, kd6: dict) -> list
     launches, host = dict(launches), dict(kernels.launches)
     task.make_batch = make_batch
     peak = torch.cuda.max_memory_allocated() / 1e9
+    contracts_line(held, card)
     for r in rounds:
         print(json.dumps({"phase": "ResNet-56 FedSDD round", "card": card, **r}), flush=True)
     print(json.dumps({"phase": "ResNet-56 FedSDD run", "card": card, "rounds": 2,
@@ -1553,9 +1690,7 @@ def wa_within(out, ref, x, w) -> bool:
 def wa_bound(G: int, N: int, D: int, elt: int):
     """(bound_ms, bound_by): x read once, the weights read once, the output
     written once over HBM bandwidth, vs 2·G·N·D f32 operations."""
-    t_bytes = (G * N * D * elt + G * N * 4 + G * D * elt) / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * G * N * D / PEAK_FLOPS[torch.float32] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return _bound(G * N * D * elt + G * N * 4 + G * D * elt, 2 * G * N * D)
 
 
 def wa_library(x, w):
@@ -1745,11 +1880,16 @@ def resnet56_vectorized_phase(fed, wa_ops, wa_ref, seed: int, card: str,
     kernels.launches.clear()
     rounds, launches = [], Counter()
     with mock.patch.object(fed, "aggregate_groups", recording_aggregate):
-        for _ in range(2):
+        for i in range(2):
             torch.cuda.reset_peak_memory_stats()
             t0, captures0 = time.perf_counter(), captured()
             with card_launches() as ran:
-                state = runner.run(1, state=state)
+                if i == 0:
+                    state = runner.run(1, state=state)
+                else:   # round 2, the steady state, under the contracts
+                    with contracts("ResNet-56 round 2, vectorized", run_owners(runner),
+                                   (*KD_PATH, "multi_weighted_average")) as held:
+                        state = runner.run(1, state=state)
             launches.update(ran)
             rec = state.history[-1]
             real = int(sum(p.num_steps.sum() for p in plans[-1]))
@@ -1770,6 +1910,7 @@ def resnet56_vectorized_phase(fed, wa_ops, wa_ref, seed: int, card: str,
     launches, host = dict(launches), dict(kernels.launches)
     eng.train_round = train_round
     peak = max(r["peak_mem_gb"] for r in rounds)
+    contracts_line(held, card)
     for r, seq in zip(rounds, sequential_rounds):
         print(json.dumps({"phase": "ResNet-56 FedSDD round, vectorized", "card": card, **r,
                           "sequential_t_local_s": seq["t_local_s"],
@@ -1865,9 +2006,12 @@ def plain_flash(kd_ops, flash):
     return stack
 
 
-def _bound(nbytes: float, ops: float, peak: float = PEAK_FLOPS[torch.float32]):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / peak * 1e3
+def _bound(nbytes: float, ops: float, dtype: torch.dtype = torch.float32):
+    """(bound_ms, bound_by): the larger of ``roofline``'s memory term for
+    ``nbytes`` and its compute term for ``ops`` on ``dtype`` (one card)."""
+    from repro_torch.utils.hlo import roofline
+    t = roofline(ops, nbytes, 0.0, 1, spec=SPEC, dtype=str(dtype).removeprefix("torch."))
+    t_bytes, t_ops = t.memory_s * 1e3, t.compute_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1900,9 +2044,9 @@ def flash_bound(name: str, B: int, V: int, D: int, es: int, et: int, bias: bool,
     head = D * V * es + B * D * es + (V * es if bias else 0) + B * V * et + rows
     ops = head_products(name, es) * 2 * B * D * V
     if name == "flash_kd_head_fwd":             # h, W, b, t -> loss, lse_s, lse_t
-        return _bound(head, ops, PEAK_FLOPS[torch.bfloat16])
+        return _bound(head, ops, torch.bfloat16)
     return _bound(head + D * V * es + B * D * es + (V * es if bias else 0),   # + dh, dW, db
-                  ops, PEAK_FLOPS[torch.bfloat16])
+                  ops, torch.bfloat16)
 
 
 def head_bounds(name: str, B: int, V: int, D: int, es: int) -> dict:
@@ -2257,15 +2401,15 @@ def gemma_phase(fed, seed: int, card: str) -> dict:
     pipe = runner._kd_pipeline()
     check(pipe.head_fused and pipe.cache_dtype == torch.bfloat16,
           "gemma-2b: the KD pipeline is not head-fused with a bf16 cache")
-    cache_s = []
+    cache_ev = []
     build_cache = pipe.precompute_cache
 
-    def timed_cache(*a, **k):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
+    def timed_cache(*a, **k):       # CUDA events: no host wait inside the round
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
         out = build_cache(*a, **k)
-        torch.cuda.synchronize()
-        cache_s.append(time.perf_counter() - t)
+        ev[1].record()
+        cache_ev.append(ev)
         return out
 
     pipe.precompute_cache = timed_cache
@@ -2273,17 +2417,23 @@ def gemma_phase(fed, seed: int, card: str) -> dict:
     torch.cuda.synchronize()
     kernels.launches.clear()
     launches = Counter()
-    for _ in range(2):
+    for i in range(2):
         torch.cuda.reset_peak_memory_stats()
         t0, captures0 = time.perf_counter(), captured()
         with card_launches() as ran:
-            state = runner.run(1, state=state)
+            if i == 0:
+                state = runner.run(1, state=state)
+            else:       # round 2, the steady state, under the contracts
+                with contracts("gemma-2b round 2, head-fused Flash-KD", run_owners(runner),
+                               ("flash_kd_head_fwd", "flash_kd_head_bwd")) as held:
+                    state = runner.run(1, state=state)
         launches.update(ran)
         rec = state.history[-1]
         rounds.append({"round": rec["round"], "active": rec["active"],
                        "captures": captured() - captures0,
                        "t_round_s": time.perf_counter() - t0, "t_local_s": rec["t_local"],
-                       "t_kd_s": rec["t_kd"], "t_cache_s": cache_s[-1],
+                       "t_kd_s": rec["t_kd"],
+                       "t_cache_s": cache_ev[-1][0].elapsed_time(cache_ev[-1][1]) / 1e3,
                        "kd_steps_per_s": steps_kd / rec["t_kd"],
                        "kd_loss_first": rec["kd_loss_first"], "kd_loss_last": rec["kd_loss_last"],
                        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -2291,6 +2441,7 @@ def gemma_phase(fed, seed: int, card: str) -> dict:
                        "launches": dict(ran)})
     launches, host = dict(launches), dict(kernels.launches)
     pipe.precompute_cache = build_cache
+    contracts_line(held, card)
     for r in rounds:
         print(json.dumps({"phase": "gemma-2b FedSDD round, head-fused Flash-KD", "card": card,
                           **r}), flush=True)
@@ -2418,9 +2569,7 @@ def fa_forward_bound(q, k, causal: bool, window: int):
     B, Sq, H, dh = q.shape
     ops = 4 * B * H * band_pairs(Sq, k.shape[1], causal, window) * dh
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FLOPS[q.dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return _bound(nbytes, ops, q.dtype)
 
 
 def fa_decode_bound(q1, k, live: int):
@@ -2430,9 +2579,7 @@ def fa_decode_bound(q1, k, live: int):
     B, _, H, dh = q1.shape
     Hkv, elt = k.shape[2], q1.element_size()
     nbytes = 2 * B * live * Hkv * dh * elt + 2 * q1.numel() * elt
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 4 * B * H * live * dh / PEAK_FLOPS[q1.dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return _bound(nbytes, 4 * B * H * live * dh, q1.dtype)
 
 
 def fa_library(q, k, v, causal: bool, window: int):
@@ -2863,12 +3010,21 @@ def overlap_phase(fed, task, seed: int, card: str):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             kernels.launches.clear()
-            rounds = []
+            rounds, held = [], None
             with card_launches() as ran:
                 t_run = time.perf_counter()
-                for _ in range(OVERLAP_ROUNDS):
+                for i in range(OVERLAP_ROUNDS):
                     c0, p0 = captured(), step_graph.captures[PAIR]
-                    state = runner.run_round(state)
+                    if mode == "off" or i < OVERLAP_ROUNDS - 1:
+                        state = runner.run_round(state)
+                    else:   # the steady round under the contracts; the
+                        # launch snapshots wait for the KD lane, not the host
+                        path = KD_PATH + (("multi_weighted_average",)
+                                          if execution == "vectorized" else ())
+                        streams = (torch.cuda.current_stream(), runner._kd_pipeline().lane())
+                        with contracts(f"{model} round {i + 1}, {execution} {mode}",
+                                       run_owners(runner), path, streams) as held:
+                            state = runner.run_round(state)
                     rounds.append({"round": state.round, "captures": captured() - c0,
                                    "paired_captures": step_graph.captures[PAIR] - p0,
                                    **{k: state.history[-1][k] for k in
@@ -2879,6 +3035,8 @@ def overlap_phase(fed, task, seed: int, card: str):
                 torch.cuda.synchronize()
                 t_drain, t_run = time.perf_counter() - t0, time.perf_counter() - t_run
             peak, host = torch.cuda.max_memory_allocated() / 1e9, dict(kernels.launches)
+            if held is not None:
+                contracts_line(held, card)
             probe = replay_probe(runner, execution) if mode == "async" else {}
             results[execution, mode, model] = {
                 "runner": runner, "state": state, "rounds": rounds, "launches": dict(ran),
@@ -4555,6 +4713,7 @@ def main() -> int:
               f"of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(src))
+    use_h100_spec()
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops
@@ -4590,6 +4749,7 @@ def main() -> int:
     f32_depth2_phase(serve, zoo, get_config, args.seed)
 
     phase("5. qwen2.5-14b full width, bf16, 48 layers: serve 16 requests")
+    planted_contracts(card)
     entry = serve_phase(serve, zoo, ops, get_config, args.seed, card)
     # kernel 1 at the starcoder2-3b cases its split-K was designed for
     entry["starcoder2_ms"] = {case: paged_rows[case]["ms"] for case in STARCODER_TIMED}

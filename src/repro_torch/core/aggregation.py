@@ -24,6 +24,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from repro_torch.device import to_device
 from repro_torch.kernels.weight_avg import ops as wops
 from repro_torch.utils.pytree import (seeded_normal, tree_group_weighted_mean, tree_leaves,
                                       tree_map, tree_stacked_weighted_mean,
@@ -67,9 +68,9 @@ def fedavg_aggregate_grouped(stacked: PyTree, num_samples, group_ids,
     if uniform and group_major and _kernel_route(stacked):
         n = int(counts[0])
         dev = tree_leaves(stacked)[0].device
-        w = torch.as_tensor(
+        w = to_device(torch.as_tensor(
             np.asarray(num_samples, np.float64)  # lint-ok: RA101 host counts
-            .reshape(num_groups, n), dtype=torch.float32).to(dev)
+            .reshape(num_groups, n), dtype=torch.float32), dev)
         regrouped = tree_map(lambda x: x.reshape((num_groups, n) + tuple(x.shape[1:])),
                              stacked)
         return wops.group_weighted_average_pytree(regrouped, w)
@@ -114,7 +115,7 @@ def fedavg_aggregate_grouped_masked(
     # a zero weight does not silence a poisoned row (0·NaN = NaN, summed
     # into its group): dead rows are zeroed outright
     dev = tree_leaves(stacked)[0].device
-    maskt = torch.from_numpy(mask).to(dev)
+    maskt = to_device(mask, dev)
     stacked = tree_map(
         lambda x: torch.where(maskt.reshape((-1,) + (1,) * (x.ndim - 1)), x,
                               torch.zeros((), dtype=x.dtype, device=dev))
@@ -123,12 +124,12 @@ def fedavg_aggregate_grouped_masked(
     agg = tree_group_weighted_mean(stacked, w, gid, num_groups)
     if zero_fill:
         total_w = np.bincount(gid, weights=w_full, minlength=num_groups)
-        frac = torch.from_numpy((live_w / np.maximum(total_w, 1e-300)).astype(np.float32)).to(dev)
+        frac = to_device((live_w / np.maximum(total_w, 1e-300)).astype(np.float32), dev)
         agg = tree_map(
             lambda x: x * frac.reshape((num_groups,) + (1,) * (x.ndim - 1)).to(x.dtype)
             if x.is_floating_point() else x, agg)
     if empty:
-        idx = torch.tensor(empty, dtype=torch.int64, device=dev)
+        idx = to_device(torch.tensor(empty, dtype=torch.int64), dev)
         agg = tree_map(lambda a, f: a.index_copy(0, idx, f.index_select(0, idx).to(a.dtype)),
                        agg, fallback_stacked)
     return agg, empty

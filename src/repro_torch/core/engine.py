@@ -37,6 +37,7 @@ from repro_torch.core.client_store import InMemoryStore
 from repro_torch.core.grouping import group_major_order
 from repro_torch.core.step_graph import (StepGraphs, StepProgram, clone_tensors, copy_into,
                                          shape_key, static_like)
+from repro_torch.device import to_device
 from repro_torch.optim.optimizers import Optimizer, advance_steps, apply_updates
 from repro_torch.utils.pytree import (tree_leaves, tree_map, tree_stack, tree_unstack,
                                       tree_where)
@@ -160,8 +161,8 @@ def plans_from_entries(task, entries: Sequence[ClientEntry], store=None,
             order=np.asarray([e.pos for e in sub]),
             batch_size=bs,
             data=data,
-            indices=torch.from_numpy(np.stack(idxs)).to(dev),
-            step_mask=torch.from_numpy(np.stack(masks)).to(dev),
+            indices=to_device(np.stack(idxs), dev),
+            step_mask=to_device(np.stack(masks), dev),
             num_steps=np.asarray([len(e.idx) for e in sub]),
         ))
     return plans
@@ -218,6 +219,11 @@ class VectorizedClientEngine:
         self.optimizer = optimizer
         self._grad_fn = None
         self._buckets: dict = {}      # static key -> the bucket program of largest capacity
+
+    def jit_programs(self) -> dict:
+        """The engine's bucket step programs by label (see
+        ``analysis.TraceGuard``)."""
+        return self.graphs.jit_programs("engine/")
 
     def vmapped_grad(self) -> Callable:
         """``(stacked params, stacked batch) -> (grads, (loss, aux))``, each
@@ -383,7 +389,7 @@ class VectorizedClientEngine:
         # permutation is needed even for a single bucket
         inv = np.argsort(np.concatenate([b[0].order for b in buckets]))
         dev = tree_leaves(buckets[0][1])[0].device
-        perm = torch.from_numpy(inv).to(dev)
+        perm = to_device(inv, dev)
         stacked = tree_map(lambda *xs: torch.cat(xs)[perm], *[b[1] for b in buckets])
         group_ids = np.concatenate([b[0].group_of for b in buckets])[inv]
         sizes = np.concatenate([b[0].sizes for b in buckets])[inv]

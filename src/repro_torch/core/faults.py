@@ -46,6 +46,7 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.analysis.sync import allowed_sync
 from repro_torch.utils.pytree import seeded_normal, tree_leaves, tree_map, tree_unflatten
 
 PyTree = Any
@@ -206,7 +207,11 @@ def poison_rows(stacked: PyTree, rows: Sequence[int]) -> PyTree:
 def all_finite(tree: PyTree) -> bool:
     """Whether every floating leaf is finite (one host read)."""
     flags = [torch.isfinite(x).all() for x in tree_leaves(tree) if x.is_floating_point()]
-    return bool(torch.stack(flags).all()) if flags else True
+    if not flags:
+        return True
+    with allowed_sync("isfinite upload guard ruling: one bool pull per client "
+                      "per degraded round (sequential oracle)"):
+        return bool(torch.stack(flags).all())
 
 
 def finite_rows(stacked: PyTree) -> np.ndarray:
@@ -219,7 +224,8 @@ def finite_rows(stacked: PyTree) -> np.ndarray:
     for x in leaves:
         f = torch.isfinite(x.reshape(x.shape[0], -1)).all(dim=1)
         m = f if m is None else m & f
-    return m.cpu().numpy()  # lint-ok: RA101 the (C,) guard pull of a degraded round
+    with allowed_sync("isfinite upload guard: one (C,) bool pull per degraded round"):
+        return m.cpu().numpy()
 
 
 # ---------------------------------------------------------------------

@@ -961,7 +961,7 @@ class _VectorizedRoundOps:
             stacked_k = stack_models(state.global_models)   # (K, ...)
 
             def init_params_for(plan):
-                gid = torch.from_numpy(plan.group_of).to(dev)
+                gid = device_lib.to_device(plan.group_of, dev)
                 return tree_map(lambda x: x[gid], stacked_k)
 
             def init_opt_state_for(plan, w0):
@@ -1031,7 +1031,7 @@ class _VectorizedRoundOps:
             self.stacked, self.gids, self.sizes, _, cids = self.results[0]
         else:
             inv = np.argsort(np.concatenate([r[3] for r in self.results]))
-            perm = torch.from_numpy(inv).to(self.runner.device)
+            perm = device_lib.to_device(inv, self.runner.device)
             self.stacked = tree_map(lambda *xs: torch.cat(xs)[perm],
                                     *[r[0] for r in self.results])
             self.gids = np.concatenate([r[1] for r in self.results])[inv]
@@ -1079,7 +1079,7 @@ class _VectorizedRoundOps:
             surv = self._survivors()
             keep = [i for i, c in enumerate(self.cids_round) if int(c) in surv]
             if keep:
-                ki = torch.tensor(keep, dtype=torch.int64, device=runner.device)
+                ki = device_lib.to_device(torch.tensor(keep, dtype=torch.int64), runner.device)
                 stack = tree_map(lambda x: x[ki], stack)
                 sizes = [sizes[i] for i in keep]
             else:

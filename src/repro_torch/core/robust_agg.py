@@ -38,6 +38,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis.sync import allowed_sync
 from repro_torch.core.aggregation import (fedavg_aggregate_grouped_masked,
                                           survivor_group_weights)
 from repro_torch.utils.pytree import tree_leaves, tree_map
@@ -111,7 +112,8 @@ def _krum(sub: PyTree, f: int, multi: bool) -> PyTree:
         return tree_map(lambda x: x[0], sub)
     scores = krum_scores(_flatten_rows(sub), f)
     if not multi:
-        sel = int(torch.argmin(scores))     # one scalar read a group a round
+        with allowed_sync("krum selection index: one scalar pull per group per round"):
+            sel = int(torch.argmin(scores))
         return tree_map(lambda x: x[sel], sub)
     best = torch.argsort(scores, stable=True)[:max(1, n - f)]
     return tree_map(lambda x: x[best].float().mean(dim=0).to(x.dtype)
@@ -141,7 +143,9 @@ def clip_to_median_norm(stacked: PyTree, group_ids, num_groups: int, survivor_ma
         n2 = s if n2 is None else n2 + s
     if n2 is None:
         return stacked
-    norms = torch.sqrt(n2).cpu().numpy().astype(np.float64)  # lint-ok: RA101 the clip radius
+    with allowed_sync("host clip radius: one (C,) norm pull per round feeds the "
+                      "per-group median-norm ball"):
+        norms = torch.sqrt(n2).cpu().numpy().astype(np.float64)
     factor = np.ones_like(norms)
     for k in range(num_groups):
         rows = np.nonzero((gid == k) & mask)[0]

@@ -62,6 +62,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis.sync import allowed_sync
 from repro_torch.core.step_graph import StepGraphs
 from repro_torch.fedckpt.checkpointer import leaf_to_numpy, load_pytree, save_json, save_pytree
 from repro_torch.utils.pytree import tree_leaves, tree_map, tree_unstack
@@ -72,15 +73,22 @@ OVERLAP_MODES = ("off", "async", "fused")
 
 
 def synchronize(device: torch.device) -> None:
-    """Wait for the device's queued work (a no-op on the CPU)."""
+    """Wait for the device's queued work (a no-op on the CPU): the phase
+    timer's wait before ``t_local`` / ``t_kd`` are read."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        with allowed_sync("the phase timer: t_local and t_kd are read once the "
+                          "device drains, as the reference's block_until_ready"):
+            torch.cuda.synchronize(device)
 
 
 def synchronize_stream(device: torch.device) -> None:
-    """Wait for the current stream's queued work, not for other streams'."""
+    """Wait for the current stream's queued work, not for other streams':
+    the overlapped round's timer (ROADMAP.md §C: a wait the reference's
+    overlapped round does not make)."""
     if device.type == "cuda":
-        torch.cuda.current_stream(device).synchronize()
+        with allowed_sync("the overlapped round's timer: t_round is read once "
+                          "the caller's stream drains"):
+            torch.cuda.current_stream(device).synchronize()
 
 
 @dataclass
@@ -160,7 +168,8 @@ def restore_pending_kd(path: str, student_like: PyTree) -> PendingKD:
 
 def trust_record(weights: torch.Tensor) -> list[float]:
     """The history record's trust weights: one host read, 4 decimals."""
-    host = weights.cpu().tolist()  # lint-ok: RA101 the record's one read
+    with allowed_sync("per-round teacher-trust weights into the history record"):
+        host = weights.cpu().tolist()
     return [round(float(w), 4) for w in host]
 
 
@@ -220,7 +229,8 @@ class RoundExecutor:
         state.global_models[0] = student
         state.last_distilled = (pending.round_idx, student)
         if self.runner.task.eval_fn is not None:
-            pending.record["acc_main"] = self.runner.task.eval_fn(student)
+            with allowed_sync("per-round eval of the distilled main model"):
+                pending.record["acc_main"] = self.runner.task.eval_fn(student)
         state.pending_kd = None
 
     def close(self) -> None:
@@ -287,7 +297,8 @@ class RoundExecutor:
                 rec["t_kd"] = time.perf_counter() - t0
             state.global_models = new_globals
             if task.eval_fn is not None:
-                rec["acc_main"] = task.eval_fn(new_globals[0])
+                with allowed_sync("per-round eval of the main model"):
+                    rec["acc_main"] = task.eval_fn(new_globals[0])
             rec["t_round"] = time.perf_counter() - t_start
             state.history.append(rec)
             state.round = t
@@ -322,7 +333,8 @@ class RoundExecutor:
             if cfg.overlap == "async":
                 self.dispatch(state.pending_kd)
         elif task.eval_fn is not None:
-            rec["acc_main"] = task.eval_fn(new_globals[0])
+            with allowed_sync("per-round eval of the main model"):
+                rec["acc_main"] = task.eval_fn(new_globals[0])
         synchronize_stream(dev)
         rec["t_round"] = time.perf_counter() - t_start
         state.history.append(rec)

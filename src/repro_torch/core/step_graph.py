@@ -194,6 +194,7 @@ class StepProgram:
         self.device, self.stream, self.pool, self.state = device, stream, pool, state
         self.graph: torch.cuda.CUDAGraph | None = None
         self.dropped = False
+        self.captures = 0                       # this program's own (TraceGuard.watch)
 
     def __call__(self) -> None:
         _check_lane(self.name, self.state, self.device)
@@ -218,6 +219,7 @@ class StepProgram:
                                f"failed: {e}") from e
         torch.cuda.current_stream(dev).wait_stream(stream)
         self.graph = graph
+        self.captures += 1
         captures[self.name] += 1
 
 
@@ -235,6 +237,7 @@ class PairedProgram:
         self.name, self.a, self.b = name, a, b
         self.device, self.stream, self.side, self.pool = a.device, stream, side, pool
         self.graph: torch.cuda.CUDAGraph | None = None
+        self.captures = 0
 
     def __call__(self) -> None:
         for prog in (self.a, self.b):
@@ -269,6 +272,7 @@ class PairedProgram:
                                f"failed: {e}") from e
         cur.wait_stream(cap)
         self.graph = graph
+        self.captures += 1
         captures[self.name] += 1
 
 
@@ -347,6 +351,21 @@ class StepGraphs:
     @property
     def pairs(self) -> dict:
         return self._store.pairs
+
+    def jit_programs(self, prefix: str = "") -> dict:
+        """The set's step programs and paired programs whose names start
+        with ``prefix``, by label (the name, with ``[i]`` after the second
+        and later of one name, which differ in shapes): what
+        ``analysis.TraceGuard.watch_programs`` watches."""
+        out: dict = {}
+        for prog in [*self.programs.values(), *self.pairs.values()]:
+            if not prog.name.startswith(prefix):
+                continue
+            label, i = prog.name, 1
+            while label in out:
+                label, i = f"{prog.name}[{i}]", i + 1
+            out[label] = prog
+        return out
 
     def shared(self, name: str, like: PyTree) -> PyTree:
         """A static buffer tree like ``like``, one per ``name`` and shapes,

@@ -68,15 +68,6 @@ def _xent(logits, y):
     return -logp.gather(-1, y.long()[:, None]).mean()
 
 
-def _to_device(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """A host array to ``dev``; to a GPU through pinned memory, so the copy
-    is queued on the stream instead of waiting for it to drain."""
-    t = torch.from_numpy(np.ascontiguousarray(arr))
-    if dev.type == "cuda":
-        return t.pin_memory().to(dev, non_blocking=True)
-    return t.to(dev)
-
-
 # ------------------------------------------------------- lazy client data
 class LazyClientData:
     """A sequence of client shards made on first touch, for C = 1M clients
@@ -171,7 +162,7 @@ def classification_task(model: str = "cnn",
 
     def make_batch(ds, idx):
         x, y = ds
-        return {"x": _to_device(x[idx], dev), "y": _to_device(y[idx], dev)}
+        return {"x": device_lib.to_device(x[idx], dev), "y": device_lib.to_device(y[idx], dev)}
 
     return FedTask(init_fn=init_fn, loss_fn=loss_fn, logits_fn=logits_fn,
                    client_data=client_data, server_batches=server_batches,
@@ -199,7 +190,7 @@ def synthetic_scaling_task(num_clients: int, examples_per_client: int = 64,
 
     def make_batch(ds, idx):
         x, y = ds
-        return {"x": _to_device(x[idx], dev), "y": _to_device(y[idx], dev)}
+        return {"x": device_lib.to_device(x[idx], dev), "y": device_lib.to_device(y[idx], dev)}
 
     return FedTask(init_fn=init_fn,
                    loss_fn=lambda p, b: (_xent(_mlp_logits(p, b["x"]), b["y"]), {}),
@@ -244,7 +235,7 @@ def lm_task(cfg, num_clients: int = 8, docs_per_client: int = 8, seq: int = 32,
         server_batches.append({k: torch.from_numpy(v).to(dev) for k, v in b.items()})
 
     def make_batch(ds, idx):
-        return {k: _to_device(v[np.asarray(idx)], dev) for k, v in ds.items()}
+        return {k: device_lib.to_device(v[np.asarray(idx)], dev) for k, v in ds.items()}
 
     return FedTask(init_fn=model.init_from, loss_fn=loss_fn, logits_fn=logits_fn,
                    client_data=client_data, server_batches=server_batches,

@@ -70,6 +70,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch.analysis.sync import allowed_sync
 from repro_torch.core.robust_agg import median
 from repro_torch.core.step_graph import (StepGraphs, StepProgram, copy_into, on_lane,
                                          shape_key, static_like)
@@ -149,6 +150,10 @@ class KDPipeline:
         self._lane = None
 
     # ------------------------------------------------- server batch cache
+    def jit_programs(self) -> dict:
+        """The KD step programs by label (see ``analysis.TraceGuard``)."""
+        return self.graphs.jit_programs("kd/")
+
     def batches_for(self, server_batches: Sequence[Any]) -> PyTree:
         # identity check against a retained reference: holding the keyed
         # list alive means a same-id reallocation can never alias the cache
@@ -500,7 +505,8 @@ class KDPipeline:
 
     def _info(self, losses: torch.Tensor) -> dict:
         """The per-round KD record: the one host pull of the phase."""
-        losses = np.asarray(losses.cpu())  # lint-ok: RA101 the one per-round loss pull
+        with allowed_sync("one-per-round KD loss pull into the history record"):
+            losses = losses.cpu().numpy()
         if losses.ndim == 2:                    # multi-student: main model
             losses = losses[0]
         return {"kd_loss_first": float(losses[0]) if losses.size else None,

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.fedckpt.checkpointer import spill_members
+from repro_torch.device import to_device
 from repro_torch.utils.pytree import tree_leaves, tree_map, tree_unstack
 
 PyTree = Any
@@ -118,7 +119,7 @@ class TeacherBank:
         order = self._slots_newest_first()
         if not order:
             return None
-        index = torch.tensor(order, device=tree_leaves(self._bank)[0].device)
+        index = to_device(torch.tensor(order), tree_leaves(self._bank)[0].device)
         return tree_map(lambda b: b.index_select(0, index).flatten(0, 1), self._bank)
 
     def members(self) -> list[PyTree]:

@@ -9,7 +9,8 @@ records (``core/step_graph.py``) runs again at every replay, with no
 wrapper running; so while a capture records it, ``count`` records beside
 it an increment of the wrapper's slot in the card's own counter, which
 every replay runs with the kernel.  ``counted()`` reads both: the eager
-launches and those the card ran from graphs.
+launches and those the card ran from graphs; a ``Snapshot`` takes them
+without a host wait, for a scope that must not sync.
 """
 from collections import Counter
 
@@ -41,7 +42,10 @@ def count(name: str, device) -> None:
             slots[slot].add_(1)
             return
         if dev not in _on_card:
-            _on_card[dev] = torch.zeros(len(NAMES), dtype=torch.int64, device=dev)
+            # a normal tensor even when the first launch is a server's under
+            # inference_mode: captures outside it add to the counter in place
+            with torch.inference_mode(False):
+                _on_card[dev] = torch.zeros(len(NAMES), dtype=torch.int64, device=dev)
     launches[name] += 1
 
 
@@ -57,6 +61,31 @@ def replayed() -> Counter:
 def counted() -> Counter:
     """Every launch so far by wrapper: the eager ones and the replayed ones."""
     return launches + replayed()
+
+
+class Snapshot:
+    """``counted()`` as of its making, taken without a host wait: the eager
+    launches then, and a copy of each card's counter made on a side stream
+    once ``streams`` (each card's current stream if none) have run what was
+    issued to them before.  ``read()`` waits for the copies."""
+
+    def __init__(self, *streams):
+        self.host = Counter(launches)
+        self.card = {}
+        for dev, slots in _on_card.items():
+            waits = [s for s in streams if s.device == dev] or [torch.cuda.current_stream(dev)]
+            side = torch.cuda.Stream(dev)
+            for s in waits:
+                side.wait_stream(s)
+            with torch.cuda.stream(side):
+                self.card[dev] = slots.clone()
+            self.card[dev].record_stream(torch.cuda.current_stream(dev))
+
+    def read(self) -> Counter:
+        out = Counter(self.host)
+        for slots in self.card.values():
+            out.update(dict(zip(NAMES, slots.tolist())))
+        return +out
 
 
 def reset() -> None:

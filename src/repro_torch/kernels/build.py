@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import time
+from collections import Counter
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -25,6 +26,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+builds: Counter = Counter()     # nvcc runs by source (analysis.TraceGuard reads both)
+loads: Counter = Counter()      # libraries loaded into the process by source
 
 
 def build_dir() -> Path:
@@ -82,6 +85,7 @@ def build_all(names=None) -> dict[str, float]:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, todo[n])
+            builds[n] += 1
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return secs
@@ -105,6 +109,7 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         build_all([name])
         lib = _LIBS[name] = ctypes.CDLL(str(_target(name)))
+        loads[name] += 1
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         lib.cuda_error_string.restype = ctypes.c_char_p
     return lib

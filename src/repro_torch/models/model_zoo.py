@@ -377,7 +377,7 @@ class Model:
         if last is None:
             x_last = x[:, -1:]
         else:
-            last = torch.as_tensor(last, device=x.device).long()
+            last = device_lib.to_device(torch.as_tensor(last), x.device).long()
             x_last = x[torch.arange(x.shape[0], device=x.device), last][:, None]
         return self._logits_out(params, x_last)[:, 0], caches
 

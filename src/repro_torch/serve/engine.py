@@ -42,7 +42,9 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.analysis.sync import allowed_sync
 from repro_torch.core.step_graph import StepGraphs
+from repro_torch.device import to_device
 from repro_torch.serve import paged_cache as pc
 
 
@@ -142,6 +144,11 @@ class ContinuousEngine:
         self.steps = 0
         self.peak_utilization = 0.0
 
+    def jit_programs(self) -> dict:
+        """The decode chunk's step programs by label (see
+        ``analysis.TraceGuard``); the prefill runs eagerly."""
+        return self.graphs.jit_programs()
+
     # ---- queue ---------------------------------------------------------
     def submit(self, req: Request) -> None:
         L = len(req.tokens)
@@ -211,12 +218,14 @@ class ContinuousEngine:
                                t_submit=req.t_submit,
                                t_admit=time.perf_counter())
         logits, ctg = self.model.prefill(
-            self.params, {"tokens": torch.as_tensor(toks, device=self.device)},
+            self.params, {"tokens": to_device(toks, self.device)},
             last=[L - 1])
         pc.scatter_prefill(self.pool, ctg, blocks[:lpad // bs])
         tok = logits.argmax(-1).to(torch.int32)
-        first = int(tok[0])          # the one per-request sync: the first
-        result.t_first = time.perf_counter()   # token seeds the decode batch
+        with allowed_sync("the one per-request sync: first token out of "
+                          "prefill seeds the decode batch"):
+            first = int(tok[0])
+        result.t_first = time.perf_counter()
         result.tokens.append(first)
         self.block_tables[slot] = pc.build_table(blocks, self.nbmax)
         self.seq_lens[slot] = L
@@ -233,12 +242,14 @@ class ContinuousEngine:
         Rows past the lane's budget in its final chunk are the frozen-lane
         garbage and are not taken."""
         out, t = [], start
-        while len(out) < n:
-            if not isinstance(self._step_toks[t], np.ndarray):
-                self._step_toks[t] = self._step_toks[t].cpu().numpy()
-            take = min(len(self._step_toks[t]), n - len(out))
-            out.extend(int(x) for x in self._step_toks[t][:take, slot])
-            t += 1
+        with allowed_sync("token materialization at eviction: chunks "
+                          "convert to numpy once, after the lane is done"):
+            while len(out) < n:
+                if not isinstance(self._step_toks[t], np.ndarray):
+                    self._step_toks[t] = self._step_toks[t].cpu().numpy()
+                take = min(len(self._step_toks[t]), n - len(out))
+                out.extend(int(x) for x in self._step_toks[t][:take, slot])
+                t += 1
         return out
 
     def _evict(self, slot: int) -> RequestResult:
@@ -325,11 +336,13 @@ class ContinuousEngine:
                 finished.append(self._evict(grant[0]))
         if self.num_active:
             if self._dirty:
-                # copied into the static buffers: the host arrays keep changing
-                self._bt_dev.copy_(torch.from_numpy(self.block_tables))
-                self._sl_dev.copy_(torch.from_numpy(self.seq_lens))
-                self._rem_dev.copy_(torch.from_numpy(np.asarray(
-                    [0 if s is None else s.remaining for s in self.slots], np.int32)))
+                # copied into the static buffers (queued, no wait): the host
+                # arrays keep changing
+                dev = self.device
+                self._bt_dev.copy_(to_device(self.block_tables, dev))
+                self._sl_dev.copy_(to_device(self.seq_lens, dev))
+                self._rem_dev.copy_(to_device(np.asarray(
+                    [0 if s is None else s.remaining for s in self.slots], np.int32), dev))
                 self._dirty = False
             k = self.chunk_steps
             self._step_toks.append(self._decode_chunk(k))

@@ -18,6 +18,8 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.device import to_device
+
 NULL_BLOCK = 0
 
 
@@ -95,7 +97,7 @@ def scatter_prefill(pool, contiguous, block_ids) -> None:
     blocks.
     """
     for pool_leaf, ctg_leaf in zip(_leaves(pool), _leaves(contiguous)):
-        ids = torch.as_tensor(block_ids, dtype=torch.long, device=pool_leaf.device)
+        ids = to_device(torch.as_tensor(block_ids, dtype=torch.long), pool_leaf.device)
         bs = pool_leaf.shape[-3]
         if ctg_leaf.ndim == 5:          # (ns, 1, Lpad, Hkv, dh) stacked
             ns, _, lp, hk, dh = ctg_leaf.shape

@@ -1,2 +1,2 @@
-"""Tree algebra (port of ``repro.utils``)."""
-from repro_torch.utils import pytree  # noqa: F401
+"""Tree algebra and the H100 roofline (port of ``repro.utils``)."""
+from repro_torch.utils import hlo, pytree  # noqa: F401

@@ -13,6 +13,8 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch.device import to_device
+
 PyTree = Any
 
 
@@ -123,7 +125,7 @@ def _f32_weights(weights) -> torch.Tensor:
 def tree_weighted_sum(trees: Sequence[PyTree], weights) -> PyTree:
     """sum_i weights[i] * trees[i]: the leaves are stacked in list order and
     summed over the new axis, as ``repro.utils.pytree`` does."""
-    weights = torch.as_tensor(weights).to(tree_leaves(trees[0])[0].device)
+    weights = to_device(torch.as_tensor(weights), tree_leaves(trees[0])[0].device)
 
     def leaf(*leaves):
         stacked = torch.stack(leaves)
@@ -156,8 +158,8 @@ def tree_group_weighted_mean(stacked: PyTree, weights, group_ids,
     ``x · norm`` into a zero ``(num_groups, ...)`` leaf (``index_add_``).
     Ragged groups need no padding."""
     dev = tree_leaves(stacked)[0].device
-    w = torch.as_tensor(np.asarray(weights), dtype=torch.float32).to(dev)
-    gid = torch.as_tensor(np.asarray(group_ids), dtype=torch.int64).to(dev)
+    w = to_device(torch.as_tensor(np.asarray(weights), dtype=torch.float32), dev)
+    gid = to_device(torch.as_tensor(np.asarray(group_ids), dtype=torch.int64), dev)
     totals = torch.zeros((num_groups,), dtype=torch.float32, device=dev).index_add_(0, gid, w)
     norm = w / totals[gid]
 

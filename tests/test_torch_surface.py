@@ -23,12 +23,15 @@ REF, PORT = ROOT / "repro", ROOT / "repro_torch"
 
 JAX_PLUMBING = "JAX program plumbing: the port's programs are core/step_graph.py's StepGraphs"
 PALLAS = "the Pallas kernel; the port's kernel is CUDA under kernels/csrc/, its wrapper in ops.py"
-SHARD_MAP = "client_sharding='shard_map' and the mesh: ROADMAP.md §A, Tail (torch.distributed)"
+SHARD_MAP = "client_sharding='shard_map' and the mesh: ROADMAP.md §A, item 1 (torch.distributed)"
+HLO_COLLECTIVES = "parses XLA's HLO for collectives: the distributed slice, ROADMAP.md §A"
+NO_DONATION = ("no port program declares inputs it updates in place: a step program's body "
+               "writes its own static buffers (core/step_graph.py), so there is no request "
+               "to audit")
 
 NOT_PORTED = {
     "core/engine.py": {
         "resolve_step_mode": "the step-mode policy lives in core/step_graph.py",
-        "VectorizedClientEngine.jit_programs": JAX_PLUMBING,
         "VectorizedClientEngine.scan_fn": JAX_PLUMBING,
         "VectorizedClientEngine.finish_bucket": "trims shard_map's padding; " + SHARD_MAP,
     },
@@ -36,8 +39,22 @@ NOT_PORTED = {
         "FusedKDLocalProgram": JAX_PLUMBING + " (overlap='fused' is StepGraphs.pair)",
         "FusedKDLocalProgram.jit_programs": JAX_PLUMBING,
     },
-    "distill/pipeline.py": {"KDPipeline.jit_programs": JAX_PLUMBING},
-    "serve/engine.py": {"ContinuousEngine.jit_programs": JAX_PLUMBING},
+    "analysis/__init__.py": {
+        "CollectiveStats": HLO_COLLECTIVES, "collective_stats": HLO_COLLECTIVES,
+        "duplicate_fusion_count": JAX_PLUMBING,
+        "DonationReport": NO_DONATION, "donation_audit": NO_DONATION,
+    },
+    "analysis/passes.py": {
+        "COLLECTIVE_KINDS": HLO_COLLECTIVES, "CollectiveStats": HLO_COLLECTIVES,
+        "CollectiveStats.total_bytes": HLO_COLLECTIVES,
+        "CollectiveStats.total_count": HLO_COLLECTIVES,
+        "CollectiveStats.add": HLO_COLLECTIVES, "CollectiveStats.summary": HLO_COLLECTIVES,
+        "collective_stats": HLO_COLLECTIVES,
+        "duplicate_fusion_count": JAX_PLUMBING + " (counts XLA's fusion bodies)",
+        "DonationReport": NO_DONATION, "DonationReport.copied": NO_DONATION,
+        "DonationReport.ok": NO_DONATION, "donation_audit": NO_DONATION,
+    },
+    "utils/hlo.py": {"TPUv5eSpec": "the TPU's constants; the port's card is H100Spec's"},
     "kernels/kd_loss/flash.py": {
         "DEFAULT_BB": "the Pallas kernels' row block",
         "flash_kd_fwd": PALLAS, "flash_kd_bwd": PALLAS,
@@ -47,23 +64,15 @@ NOT_PORTED = {
     "kernels/kd_loss/__init__.py": {"kernel": PALLAS},
     "kernels/weight_avg/__init__.py": {"kernel": PALLAS},
     "kernels/flash_attention/__init__.py": {"kernel": PALLAS},
-    "utils/__init__.py": {"hlo": "utils/hlo.py's roofline: ROADMAP.md §A, Tail"},
 }
 
 MODULES_NOT_PORTED = {
-    "analysis/__init__.py": "program contracts: ROADMAP.md §A, Tail",
-    "analysis/lint.py": "program contracts: ROADMAP.md §A, Tail",
-    "analysis/passes.py": "program contracts: ROADMAP.md §A, Tail",
-    "analysis/sync.py": "program contracts: ROADMAP.md §A, Tail",
-    "analysis/trace_guard.py": "program contracts: ROADMAP.md §A, Tail",
     "core/distributed.py": SHARD_MAP,
     "launch/mesh.py": SHARD_MAP,
     "sharding/__init__.py": SHARD_MAP,
     "sharding/specs.py": SHARD_MAP,
-    "launch/dryrun.py": "an H100 roofline and a meta-device dry run: ROADMAP.md §A, Tail",
-    "launch/perf.py": "an H100 roofline and a meta-device dry run: ROADMAP.md §A, Tail",
-    "launch/steps.py": "an H100 roofline and a meta-device dry run: ROADMAP.md §A, Tail",
-    "utils/hlo.py": "an H100 roofline and a meta-device dry run: ROADMAP.md §A, Tail",
+    "launch/dryrun.py": "the meta-device dry run over the mesh: " + SHARD_MAP,
+    "launch/perf.py": "the meta-device dry run over the mesh: " + SHARD_MAP,
     "kernels/flash_attention/kernel.py": PALLAS,
     "kernels/kd_loss/kernel.py": PALLAS,
     "kernels/weight_avg/kernel.py": PALLAS,
