@@ -21,8 +21,8 @@ replay runs (repro_torch.kernels.counted).  Each wrapper's eager count
 must be above 0 in the same run.  The serving phases 5 and 17 read the
 launches from a third batch.
 
-The program contracts (src/repro_torch/analysis): phases 5, 8, 11, 14 and
-18 each hold one steady-state scope under TraceGuard and sync_contract
+The program contracts (src/repro_torch/analysis): phases 5, 8, 11, 14, 18
+and 35 each hold one steady-state scope under TraceGuard and sync_contract
 (the card's sync debug mode "error" and the funnel over torch.Tensor's
 materialisations) and print a "contracts" line; the run fails unless the
 scope captured no graph, built or loaded no kernel, made no un-annotated
@@ -30,7 +30,8 @@ device->host sync and launched each kernel of its path: phase 5 the
 third batch's first step (8 admissions and a decode chunk, kernel 1),
 phases 8 and 11 round 2 (kernels 2-4, and 5 on the vectorized engine),
 phase 14 round 2 (kernels 9-10), phase 18 round 3 of each async and
-fused run (kernels 2-4, and 5 vectorized).  The launches are
+fused run (kernels 2-4, and 5 vectorized), phase 35 round 2 of the vmap
+and the shard_map run (kernels 2-5).  The launches are
 kernels.Snapshot copies on either side of the scope (no host wait; in
 phase 18 they also wait for the KD lane on the card, not on the host).
 Before phase 5 two planted violations must raise: a .item() inside a
@@ -361,7 +362,36 @@ Phases, each of which fails the run if it fails:
                client of 3,072 tokens, client batch 2, one doc a server
                batch (1,536 spliced patch embeddings a doc; the loss scores
                positions 2,880-3,071, so the client loss is above 0)
- 35. kernels   one JSON line per the port's kernel contract; kernel 12's
+ 35. shard_map ResNet-20 FedSDD (phase 8's 20 clients at participation 0.4,
+               K=4 R=2, 200 KD steps), execution="vectorized", 2 rounds from
+               the same weights made on the card, cuDNN deterministic, with
+               client_sharding="vmap" and "shard_map" over a one-rank NCCL
+               group (a FileStore in a temporary directory: no network):
+               models k>0 bit for bit, the main model within 2e-4 (the
+               sharded teacher pass sums the members before kernel 2, on an
+               M = 1 stack), launches 2 / 400 / 400 and kernel 5 2 in both;
+               round 2 of each under the contracts; a "collectives" line a
+               round (collective_stats: the engine's all-gathers, and the
+               teacher all-reduce of the server set's 8 x 256 x 10 f32 logit
+               sum, 81,920 bytes); t_local and t_kd of both runs
+ 36. round fn  core/distributed.py at gemma-2b's full width, 2 of 18 layers,
+               f32: make_fedsdd_round_fn with K=2 groups of N=2 clients (a 1 x
+               512-token batch each, one local step) and a 4 x 512-token
+               server batch (kernels 2/3/4 over 2,048 rows x V 256,000), then
+               make_distill_step_fn over M = 4 teachers, each with the kernels
+               and with the three wrappers patched to their plain versions,
+               deterministic algorithms: models k>0 bit for bit, the main
+               model (and the distilled student) within 2e-4, and each
+               step's update (new - old parameters) the same in both runs
+               within 1e-5 of its largest value beyond one ulp of the new
+               parameter, where a step that moved nothing would show at
+               least 1e-3 (the update's size printed); kernels 2/3/4 against their plain versions on the
+               path's own tensors (the M = 2 and M = 4 teachers' logits and
+               the student's over the 2,048 server rows, phase 6's
+               tolerances); kernels 2/3/4 launched 1/1/1 a call; CUDA-event
+               ms of each call (after one warm-up call of each) and its peak
+               beside the peak reckoned before the run (under 76 GB)
+ 37. kernels   one JSON line per the port's kernel contract; kernel 12's
                entry is its bf16 row at qwen2.5-14b's width (the configs'
                dtype), with the f32 row beside it under "f32"; kernel 1's
                also gives "starcoder2_ms", its times in the two starcoder2-3b
@@ -383,9 +413,12 @@ Phases, each of which fails the run if it fails:
                kernels 9 and 10's "llama4", "hubert" and "llava" their rows at
                those heads (phase 12) and their launches in phase 34 (llama4:
                its reduced rounds); kernel 5's "hubert" its row over hubert's
-               tree and its launch in that vectorized round; every entry's
-               "host_ms" is its wrapper's host time a call
- 36. ok        {"ok": true, "device": {...}} as the last line
+               tree and its launch in that vectorized round; kernel 5's
+               "shard_map_launches" and kernels 2-4's "shard_map_launches",
+               "round_fn_launches" and "distill_step_launches" their launches
+               on phases 35 and 36's paths; every entry's "host_ms" is its
+               wrapper's host time a call
+ 38. ok        {"ok": true, "device": {...}} as the last line
 
 Static decode (phases 22-29).  The static path's default on a card is
 "scan": the prefill eager, then each decode step one replay of a captured
@@ -4697,6 +4730,315 @@ def frontends_fedsdd_phase(fed, wa_ops, wa_ref, kd_ops, flash, seed: int, card: 
     return line
 
 
+# ---------------------------------------------------------------- phase 35
+SHARD_ROUNDS = 2
+TEACHER_ALL_REDUCE_BYTES = 8 * 256 * 10 * 4     # the server set's (nB, B, V) f32 logit sum
+
+
+def shard_map_phase(fed, seed: int, card: str) -> dict:
+    """FedSDD on the vectorized engine with client_sharding="shard_map" over
+    a one-rank NCCL group, against "vmap" from the same weights: models k>0
+    bit for bit, the main model within 2e-4 (the teacher pass sums its
+    members before kernel 2, on an M = 1 stack), the same launches; round 2
+    of each under the contracts; the collectives of every round."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.analysis import collective_stats
+    from repro_torch.utils.pytree import tree_map
+    torch.cuda.set_device(0)
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-store-")
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                            rank=0, world_size=1)
+    torch.backends.cudnn.deterministic = True
+    try:
+        check(dist.get_backend() == "nccl", f"shard_map: backend {dist.get_backend()}")
+        task = resnet_task(seed, "resnet20")
+        init = fed.make_runner("fedsdd", task, device=DEV, seed=seed,
+                               **RESNET56_RUN).init_state().global_models
+        runs = {}
+        for sharding in ("vmap", "shard_map"):
+            gc.collect()
+            runner = fed.make_runner("fedsdd", task, device=DEV, seed=seed,
+                                     execution="vectorized", client_sharding=sharding,
+                                     **RESNET56_RUN)
+            eng = runner._make_engine()
+            check(eng._use_shard_map() == (sharding == "shard_map")
+                  and runner._kd_pipeline()._shard_teachers() == (sharding == "shard_map")
+                  and eng.mesh.size == 1 and eng.mesh.group is not None,
+                  f"shard_map: the {sharding} runner's mesh {eng.mesh}")
+            state = fed.FedState(round=0, global_models=[tree_map(torch.clone, m) for m in init],
+                                 ensemble=fed.TeacherBank(4, 2))
+            torch.cuda.synchronize()
+            kernels.launches.clear()
+            rounds = []
+            with card_launches() as ran:
+                for i in range(SHARD_ROUNDS):
+                    with collective_stats() as coll:
+                        if i == 0:
+                            state = runner.run_round(state)
+                        else:
+                            with contracts(f"ResNet-20 round 2, vectorized {sharding}",
+                                           run_owners(runner),
+                                           (*KD_PATH, "multi_weighted_average")) as held:
+                                state = runner.run_round(state)
+                    rec = state.history[-1]
+                    rounds.append({"round": rec["round"], "t_local_s": rec["t_local"],
+                                   "t_kd_s": rec["t_kd"], "kd_loss_last": rec["kd_loss_last"],
+                                   "collective_count": dict(coll.count_by_kind),
+                                   "collective_bytes": dict(coll.bytes_by_kind)})
+            contracts_line(held, card)
+            runs[sharding] = {"state": state, "rounds": rounds, "launches": dict(ran),
+                              "wrapper_launches": dict(kernels.launches)}
+            del runner, eng
+        for sharding, r in runs.items():
+            for rd in r["rounds"]:
+                print(json.dumps({"phase": f"collectives: ResNet-20 round {rd['round']}, "
+                                           f"vectorized {sharding}", "card": card,
+                                  "backend": "nccl", "ranks": 1,
+                                  "count": rd["collective_count"],
+                                  "bytes": rd["collective_bytes"]}), flush=True)
+        a, b = runs["vmap"]["state"], runs["shard_map"]["state"]
+        rest_same = all(torch.equal(x, y) for k in range(1, 4) for x, y in
+                        zip(_leaves(a.global_models[k]), _leaves(b.global_models[k])))
+        main_err = _tree_err(a.global_models[0], b.global_models[0])
+        print(json.dumps({"phase": "ResNet-20 FedSDD, vectorized: shard_map (one NCCL rank) "
+                                   "vs vmap", "card": card, "main_max_abs_err": main_err,
+                          "tol": ROUND_TOL, "models_k>0_bit_identical": rest_same,
+                          **{f"{k}_rounds": [{x: rd[x] for x in ("round", "t_local_s", "t_kd_s",
+                                                                  "kd_loss_last")}
+                                             for rd in r["rounds"]]
+                             for k, r in runs.items()},
+                          "launches": {k: r["launches"] for k, r in runs.items()},
+                          "wrapper_launches": {k: r["wrapper_launches"]
+                                               for k, r in runs.items()}}), flush=True)
+        steps_kd = RESNET56_RUN["distill_steps"]
+        want = {"ensemble_softmax": SHARD_ROUNDS, "kd_loss_fwd": SHARD_ROUNDS * steps_kd,
+                "kd_loss_bwd": SHARD_ROUNDS * steps_kd, "multi_weighted_average": SHARD_ROUNDS}
+        check(rest_same, "shard_map: models k>0 differ from vmap's")
+        check(all(torch.allclose(x, y, rtol=ROUND_TOL, atol=ROUND_TOL) for x, y in
+                  zip(_leaves(a.global_models[0]), _leaves(b.global_models[0]))),
+              f"shard_map: the main model is {main_err} from vmap's, beyond 2e-4")
+        check(all(r["launches"] == want and all(r["wrapper_launches"].get(k) for k in want)
+                  for r in runs.values()),
+              f"shard_map: launches {[r['launches'] for r in runs.values()]}, want {want}")
+        check(all(not rd["collective_count"] for rd in runs["vmap"]["rounds"]),
+              "shard_map: the vmap run issued a collective")
+        check(all(rd["collective_count"].get("all-reduce") == 1
+                  and rd["collective_bytes"].get("all-reduce") == TEACHER_ALL_REDUCE_BYTES
+                  and rd["collective_count"].get("all-gather", 0) >= 1
+                  for rd in runs["shard_map"]["rounds"]),
+              f"shard_map: collectives {[rd['collective_bytes'] for rd in runs['shard_map']['rounds']]}")
+        check(all(bool(x.isfinite().all()) for m in b.global_models for x in _leaves(m)),
+              "shard_map: non-finite weights")
+        return {k: r["launches"] for k, r in runs.items()}
+    finally:
+        torch.backends.cudnn.deterministic = False
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------- phase 36
+GEMMA_ROUND = dict(K=2, N=2, client_rows=1, server_rows=4, seq=512, teachers=4)
+# reckoned before the run (PERF.md §6): the round's client step holds the two
+# globals, four clients' gradients and new params (2.98 GB a model) and the
+# clients' 512-row logits, their log-softmax and gradient (2.1 GB each);
+# the distill step its four teachers, the round's outputs and the 2,048-row
+# logits of four teachers, the probabilities and the student's
+GEMMA_ROUND_PEAK_GB = (30.0, 56.0)
+# kernels vs plain on a step's update (new - old): its disagreement beyond
+# one ulp of the new parameter (the f32 subtraction's own rounding, half an
+# ulp in each run), over the update's largest value; phase 6's f32 row
+# tolerance of kernels 2-4, which the backward carries through linearly
+UPDATE_TOL = KD_F32_ROW_TOL
+# the gap_rel that a step leaving the parameters as they were would show
+# must stand this far above the tolerance, so that the check could fail
+UPDATE_MIN_MISSING = 100 * UPDATE_TOL
+
+
+def _update_gap(new_k, new_p, old) -> dict:
+    """A step's update, kernels against plain, over the leaves: ``gap_rel``
+    the largest |Δ_k - Δ_p| beyond one ulp of the larger new value, over
+    ``size``, the largest |Δ_p|; ``missing_rel`` the largest |Δ_p| beyond
+    that ulp, over ``size``: the gap_rel of a step that moved nothing."""
+    gap = size = miss = 0.0
+    for a, b, o in zip(_leaves(new_k), _leaves(new_p), _leaves(old)):
+        a, b, o = a.float(), b.float(), o.float()
+        top = torch.maximum(a.abs(), b.abs())
+        ulp = torch.nextafter(top, torch.full_like(top, float("inf"))) - top
+        d = (b - o).abs()
+        size = max(size, float(d.max()))
+        miss = max(miss, float((d - ulp).clamp_min(0).max()))
+        gap = max(gap, float(((a - b).abs() - ulp).clamp_min(0).max()))
+        del a, b, o, top, ulp, d
+    inf = float("inf")
+    return {"gap_rel": gap / size if size else inf, "size": size,
+            "missing_rel": miss / size if size else 0.0}
+
+
+def _member_logits(logits_fn, stacked, server) -> torch.Tensor:
+    """(M, rows, V) f32 logits of a stacked model tree on the server batch,
+    one member at a time (the tensors kernel 2 takes on the path)."""
+    from repro_torch.utils.pytree import tree_map
+    M = _leaves(stacked)[0].shape[0]
+    out = None
+    with torch.no_grad():
+        for m in range(M):
+            lg = logits_fn(tree_map(lambda x: x[m], stacked), server)
+            lg = lg.reshape(-1, lg.shape[-1])
+            if out is None:
+                out = torch.empty((M,) + tuple(lg.shape), dtype=lg.dtype, device=lg.device)
+            out[m] = lg
+            del lg
+    return out
+
+
+def gemma_round_fn_phase(kd_ops, kd_ref, seed: int, card: str) -> dict:
+    """core/distributed.py at gemma-2b's full width, 2 of 18 layers, f32:
+    make_fedsdd_round_fn (K=2 groups of N=2 clients, a 1 x 512-token batch
+    a client, one local step; the server batch 4 x 512: kernels 2/3/4 over
+    2,048 rows x V 256,000), then make_distill_step_fn over M = 4 teachers,
+    each with the kernels and with the three wrappers patched to their
+    plain versions, deterministic algorithms on (the embedding's backward
+    accumulates with atomics unless asked not to); each timed call warm."""
+    import dataclasses
+    from contextlib import nullcontext
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.distributed import make_distill_step_fn, make_fedsdd_round_fn
+    from repro_torch.data.synthetic import make_model_batch
+    from repro_torch.device import to_device
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.utils.pytree import tree_map
+    g = GEMMA_ROUND
+    cfg = dataclasses.replace(get_config("gemma-2b"), num_layers=2, param_dtype="float32",
+                              compute_dtype="float32")
+    model = build_model(cfg)
+    K, N, S = g["K"], g["N"], g["seq"]
+    stacked = tree_map(lambda *xs: torch.stack(xs),
+                       *[model.init(seed + k, device=DEV) for k in range(K)])
+    n_params = sum(x[0].numel() for x in _leaves(stacked))
+    docs = make_model_batch(cfg, K * N * g["client_rows"], S, seed=seed)
+    client_batches = {k: to_device(v.reshape((K, N, g["client_rows"], S)), torch.device(DEV))
+                      for k, v in docs.items() if k in ("tokens", "labels")}
+    server = {"tokens": to_device(make_model_batch(cfg, g["server_rows"], S,
+                                                   seed=seed + 1)["tokens"], torch.device(DEV))}
+    weights = torch.tensor([[3.0, 1.0], [2.0, 2.0]], device=DEV)
+    V, rows = cfg.vocab_size, g["server_rows"] * S
+    print(json.dumps({"phase": "gemma-2b round fn: the peak reckoned before the run",
+                      "parameters": n_params, "model_gb": n_params * 4 / 1e9,
+                      "peak_reckoned_gb": GEMMA_ROUND_PEAK_GB, "kd_rows": rows, "V": V,
+                      "logits_gb_a_teacher": rows * V * 4 / 1e9}), flush=True)
+    round_fn = make_fedsdd_round_fn(lambda p, b: model.loss(p, b)[0],
+                                    lambda p, b: model.logits(p, b)[0], client_lr=0.01,
+                                    server_lr=0.01, temperature=4.0, local_steps=1)
+    distill_fn = make_distill_step_fn(lambda p, b: model.logits(p, b)[0], server_lr=0.01,
+                                      temperature=4.0)
+    out = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        # a warm-up call of each (cuBLAS handles, the kernels' first launches)
+        distill_fn(tree_map(lambda x: x[0], stacked), round_fn(stacked, client_batches, weights,
+                                                                server), server)
+        for mode in ("kernels", "plain"):
+            for name in ("round", "distill"):
+                gc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                kernels.launches.clear()
+                if name == "round":
+                    args = (stacked, client_batches, weights, server)
+                    fn = round_fn
+                else:   # M = 4 teachers: the round's two outputs and its two inputs
+                    teachers = tree_map(lambda a, b: torch.cat([a, b]), out["kernels", "round"][0],
+                                        stacked)
+                    args = (tree_map(lambda x: x[0], stacked), teachers, server)
+                    fn = distill_fn
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                with plain_kd(kd_ops, kd_ref) if mode == "plain" else nullcontext(), \
+                        card_launches() as ran:
+                    start.record()
+                    res = fn(*args)
+                    end.record()
+                    torch.cuda.synchronize()
+                out[mode, name] = (res, dict(ran), dict(kernels.launches),
+                                   start.elapsed_time(end),
+                                   torch.cuda.max_memory_allocated() / 1e9, base / 1e9)
+                del args, fn
+                if name == "distill":
+                    del teachers
+    finally:
+        torch.use_deterministic_algorithms(False)
+    rnd_k, rnd_p = out["kernels", "round"][0], out["plain", "round"][0]
+    dst_k, dst_p = out["kernels", "distill"][0], out["plain", "distill"][0]
+    rest_same = all(torch.equal(x[1:], y[1:]) for x, y in zip(_leaves(rnd_k), _leaves(rnd_p)))
+    main_err = max(float((x[0] - y[0]).abs().max()) for x, y in
+                   zip(_leaves(rnd_k), _leaves(rnd_p)))
+    distill_err = _tree_err(dst_k, dst_p)
+    moved = max(float((x[0] - y[0]).abs().max()) for x, y in zip(_leaves(rnd_k), _leaves(stacked)))
+    student = tree_map(lambda x: x[0], stacked)
+    upd = {"round": _update_gap(tree_map(lambda x: x[0], rnd_k),
+                                tree_map(lambda x: x[0], rnd_p), student),
+           "distill": _update_gap(dst_k, dst_p, student)}
+    line = {"phase": "gemma-2b full width, 2 layers, f32: core/distributed.py, kernels vs plain",
+            "card": card, "tol": ROUND_TOL, "round_main_max_abs_err": main_err,
+            "round_models_k>0_bit_identical": rest_same, "round_main_moved": moved,
+            "distill_max_abs_err": distill_err, "update_tol": UPDATE_TOL,
+            "update_min_missing": UPDATE_MIN_MISSING, "round_main_update": upd["round"],
+            "distill_update": upd["distill"]}
+    for (mode, name), (_, ran, host, ms, peak, base) in out.items():
+        line[f"{name} {mode}"] = {"ms": ms, "peak_gb": peak, "held_before_gb": base,
+                                  "launches": ran, "wrapper_launches": host}
+    print(json.dumps(line), flush=True)
+    check(rest_same, "gemma round fn: models k>0 differ between the kernel and plain runs")
+    check(all(torch.allclose(x[0], y[0], rtol=ROUND_TOL, atol=ROUND_TOL)
+              for x, y in zip(_leaves(rnd_k), _leaves(rnd_p))),
+          f"gemma round fn: the main model, kernels vs plain, {main_err} beyond 2e-4")
+    check(all(torch.allclose(x, y, rtol=ROUND_TOL, atol=ROUND_TOL)
+              for x, y in zip(_leaves(dst_k), _leaves(dst_p))),
+          f"gemma distill step: kernels vs plain, {distill_err} beyond 2e-4")
+    one_each = {"ensemble_softmax": 1, "kd_loss_fwd": 1, "kd_loss_bwd": 1}
+    for (mode, name), (res, ran, host, _, peak, _) in out.items():
+        if mode == "kernels":
+            check(ran == one_each and all(host.get(k) for k in one_each),
+                  f"gemma {name}: launches {ran} on the card, {host} by the wrappers")
+        else:
+            check(not ran and not any(host.values()), f"gemma {name} plain launched {ran}")
+        check(peak < PEAK_LIMIT_GB, f"gemma {name} {mode}: peak {peak:.1f} GB")
+        check(all(bool(x.isfinite().all()) for x in _leaves(res)),
+              f"gemma {name} {mode}: non-finite weights")
+    check(moved > 0, "gemma round fn: the round left the main model as it was")
+    for name, u in upd.items():
+        check(u["missing_rel"] >= UPDATE_MIN_MISSING and u["gap_rel"] <= UPDATE_TOL,
+              f"gemma {name}: the update, kernels vs plain, {u} (tol {UPDATE_TOL}; a step "
+              f"that moved nothing must show at least {UPDATE_MIN_MISSING})")
+    # kernels 2/3/4 on the path's own tensors: the round's M = 2 and the
+    # distill step's M = 4 teachers' logits over the 2,048 server rows, the
+    # student's logits and dL/dloss = 1 (launches outside the counted runs)
+    teacher_stacks = {"round fn, M = 2": rnd_k,
+                      "distill step, M = 4": tree_map(lambda a, b: torch.cat([a, b]), rnd_k,
+                                                      stacked)}
+    runs = {name: out["kernels", name][1] for name in ("round", "distill")}
+    del out, rnd_p, dst_k, dst_p
+    gc.collect()
+    logits_fn = lambda p, b: model.logits(p, b)[0]  # noqa: E731
+    s_logits = _member_logits(logits_fn, tree_map(lambda x: x[:1], stacked), server)[0]
+    one = torch.tensor(1.0, device=DEV)
+    for label, stack in teacher_stacks.items():
+        x = _member_logits(logits_fn, stack, server)
+        t = kd_ref.ensemble_softmax_ref(x, 4.0)
+        kd_check(kd_ops, kd_ref, f"gemma-2b {label}, the path's tensors", x, s_logits, t,
+                 one, 4.0, False)
+        del x, t
+    del teacher_stacks, s_logits
+    torch.cuda.empty_cache()
+    return runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4924,7 +5266,19 @@ def main() -> int:
                                       for rd in round_launches[key])
                                   if key in round_launches else e[key]["reduced_launches"])
 
-    phase("35. kernels")
+    phase("35. shard_map on one card: the client axis over a one-rank NCCL group")
+    sharded = shard_map_phase(fed, args.seed, card)["shard_map"]
+    wa_entry["shard_map_launches"] = sharded.get("multi_weighted_average", 0)
+
+    phase("36. gemma-2b full width, 2 layers, f32: core/distributed.py's round and distill "
+          "step")
+    round_fn = gemma_round_fn_phase(kd_ops, kd_ref, args.seed, card)
+    for e in kd_entries:        # kernels 2-4 on the two new paths
+        e["shard_map_launches"] = sharded.get(e["name"], 0)
+        e["round_fn_launches"] = round_fn["round"].get(e["name"], 0)
+        e["distill_step_launches"] = round_fn["distill"].get(e["name"], 0)
+
+    phase("37. kernels")
     print(f"total {time.perf_counter() - T_START:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [entry, *kd_entries, wa_entry, single_entry,

@@ -19,7 +19,9 @@ per-client cost.  This package turns those invariants into contracts:
     are annotated in place with ``allowed_sync("reason")``.
 ``passes``
     walks of ``torch.fx`` programs: live intermediates (memory bounds) and
-    dtype drift (a bf16 teacher cache silently upcast to f32).
+    dtype drift (a bf16 teacher cache silently upcast to f32); and
+    ``collective_stats``, the bytes each collective kind moves in a scope
+    (the teacher all-reduce's must not grow with the client count).
 ``lint``
     the repo's AST linter (``python -m repro_torch.analysis.lint
     src/repro_torch``).
@@ -28,7 +30,10 @@ Contract tests live in ``tests/test_torch_analysis.py``; ``chip_smoke.py``
 holds the contracts around a steady-state round or decode chunk on a card.
 """
 from repro_torch.analysis.passes import (  # noqa: F401
+    COLLECTIVE_KINDS,
+    CollectiveStats,
     DtypeDrift,
+    collective_stats,
     dtype_drift,
     live_intermediate_shapes,
     live_intermediates,

@@ -19,16 +19,30 @@ reference's DCE-aware jaxpr walk.
     for is the bf16 teacher cache silently upcast to f32 in the KD
     program, doubling the O(server-set) cache residency.  Small per-tile
     upcasts sit below the threshold and stay legal.
+``collective_stats``
+    the bytes each collective kind moves in a scope, as the collectives
+    are issued (``launch/mesh.py``'s all-gather and all-reduce), where the
+    reference scans a compiled module's HLO: FedSDD's scalability claim
+    is that the cross-group bytes (the teacher all-reduce) do not grow
+    with the number of clients or teachers.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any, Callable
+from contextlib import contextmanager
+from dataclasses import dataclass, field
+from typing import Any, Callable, Iterator
 
 import torch
 
 __all__ = ["trace_program", "live_intermediates", "live_intermediate_shapes",
-           "max_live_intermediate_bytes", "DtypeDrift", "dtype_drift"]
+           "max_live_intermediate_bytes", "DtypeDrift", "dtype_drift", "COLLECTIVE_KINDS",
+           "CollectiveStats", "collective_stats", "record_collective"]
+
+# XLA's names for the collectives, which the port's records use too
+COLLECTIVE_KINDS = (
+    "all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+    "collective-permute", "collective-broadcast",
+)
 
 _CASTS = ("aten._to_copy", "aten.to", "prims.convert_element_type")
 
@@ -148,3 +162,59 @@ def dtype_drift(program, src="bfloat16", dst="float32",
 
     _walk(program, visit)
     return hits
+
+
+@dataclass
+class CollectiveStats:
+    """Bytes moved by each collective kind in one scope."""
+    bytes_by_kind: dict = field(default_factory=dict)
+    count_by_kind: dict = field(default_factory=dict)
+
+    @property
+    def total_bytes(self) -> int:
+        return sum(self.bytes_by_kind.values())
+
+    @property
+    def total_count(self) -> int:
+        return sum(self.count_by_kind.values())
+
+    def add(self, kind: str, nbytes: int) -> None:
+        self.bytes_by_kind[kind] = self.bytes_by_kind.get(kind, 0) + nbytes
+        self.count_by_kind[kind] = self.count_by_kind.get(kind, 0) + 1
+
+    def summary(self) -> str:
+        parts = [
+            f"{k}: {self.count_by_kind[k]} ops, "
+            f"{self.bytes_by_kind[k] / 1e9:.4f} GB"
+            for k in sorted(self.bytes_by_kind)
+        ]
+        return "; ".join(parts) if parts else "(no collectives)"
+
+
+_ACTIVE: list[CollectiveStats] = []      # the open collective_stats scopes
+
+
+@contextmanager
+def collective_stats() -> Iterator[CollectiveStats]:
+    """A scope whose collectives are counted: every collective the port
+    issues inside it (``launch/mesh.py``) adds its kind and its bytes to
+    the yielded ``CollectiveStats``.  Bytes follow the reference's
+    result-shape convention (the gathered tensor of an all-gather, the
+    reduced one of an all-reduce), counted from shapes: no host sync.  A
+    one-rank mesh with no process group issues no collective, so it
+    counts none.  Scopes nest; each counts what its body issued."""
+    stats = CollectiveStats()
+    _ACTIVE.append(stats)
+    try:
+        yield stats
+    finally:
+        _ACTIVE.remove(stats)
+
+
+def record_collective(kind: str, nbytes: int) -> None:
+    """One collective of ``kind`` whose result holds ``nbytes``, issued just
+    now: counted in every open ``collective_stats`` scope."""
+    if kind not in COLLECTIVE_KINDS:
+        raise ValueError(f"collective kind {kind!r} not in {COLLECTIVE_KINDS}")
+    for stats in _ACTIVE:
+        stats.add(kind, int(nbytes))

@@ -1,5 +1,5 @@
 """The client engines' shared planning and the vectorized client engine
-(port of ``repro/core/engine.py``, apart from ``shard_map``).
+(port of ``repro/core/engine.py``).
 
 The sequential runner trains sampled clients one at a time.  The
 vectorized engine stacks the clients of a bucket along a leading client
@@ -12,8 +12,18 @@ frozen on its padded steps.  ``step_mode="stepped"`` drives one step per
 Python iteration.  ``"scan"``, the reference's one program per bucket, makes
 one bucket step a step program (``core/step_graph.py``): a CUDA graph on a
 card, replayed S times, whose step index, gather and mask column live on the
-device; on the CPU the same body runs eagerly.  ``shard_map`` over several
-cards arrives with ``torch.distributed``.
+device; on the CPU the same body runs eagerly.
+
+``client_sharding="shard_map"`` (or ``"auto"`` over several ranks) splits
+the client axis over the ranks of a ``launch.mesh`` client mesh, as the
+reference's ``shard_map`` splits it over devices: ``prepare_bucket`` pads
+the bucket to a multiple of the rank count by repeating row 0 with an
+all-False step mask (exact no-ops) and keeps this rank's block of rows;
+the bucket's program trains those rows; ``finish_bucket`` all-gathers
+every rank's rows (params, optimiser state, losses) into the whole stack
+on every rank and trims the padding.  The gather runs after the
+program's steps, never inside a capture.  With one rank and no process
+group the gather is the identity, so the run is ``"vmap"``'s bit for bit.
 
 Exactness: ``build_round_entries`` draws the per-epoch permutations in
 the order the sequential loop draws them (group-major, then epoch), so
@@ -38,6 +48,7 @@ from repro_torch.core.grouping import group_major_order
 from repro_torch.core.step_graph import (StepGraphs, StepProgram, clone_tensors, copy_into,
                                          shape_key, static_like)
 from repro_torch.device import to_device
+from repro_torch.launch.mesh import all_gather_tree, mesh_size, use_shard_map
 from repro_torch.optim.optimizers import Optimizer, advance_steps, apply_updates
 from repro_torch.utils.pytree import (tree_leaves, tree_map, tree_stack, tree_unstack,
                                       tree_where)
@@ -199,20 +210,19 @@ class VectorizedClientEngine:
     so the per-step arithmetic is the same; only the execution differs.
     ``graphs`` holds the scan mode's step programs (the runner's, so its
     programs share one graph memory pool); the engine asks it under its own
-    ``step_mode``, whose ``"auto"`` is ``"stepped"`` off a card.
+    ``step_mode``, whose ``"auto"`` is ``"stepped"`` off a card.  ``mesh``
+    (``launch.mesh.make_client_mesh``) and ``client_sharding`` decide
+    whether the client axis is split over ranks (``launch.mesh.use_shard_map``).
     """
 
-    def __init__(self, loss_fn: Callable, optimizer: Optimizer,
+    def __init__(self, loss_fn: Callable, optimizer: Optimizer, mesh=None,
                  client_sharding: str = "auto", step_mode: str = "auto",
                  graphs: Optional[StepGraphs] = None):
         if client_sharding not in ("auto", "vmap", "shard_map"):
             raise ValueError(f"client_sharding={client_sharding!r} not in "
                              "('auto', 'vmap', 'shard_map')")
-        if client_sharding == "shard_map":
-            raise NotImplementedError(
-                "client_sharding='shard_map' (the client axis over several "
-                "cards) arrives with the torch.distributed slice; on one card "
-                "'auto' and 'vmap' run vmap")
+        self.mesh = mesh
+        self.client_sharding = client_sharding
         self.graphs = (graphs.with_mode(step_mode, "stepped") if graphs is not None
                        else StepGraphs(step_mode, "stepped"))
         self.loss_fn = loss_fn
@@ -251,13 +261,46 @@ class VectorizedClientEngine:
             new_state = tree_where(m, new_state, opt_state)
         return new_params, new_state, loss
 
-    # ---- bucket execution --------------------------------------------
+    # ---- bucket execution ----------------------------------------------
+    def _use_shard_map(self) -> bool:
+        return use_shard_map(self.mesh, self.client_sharding)
+
     def prepare_bucket(self, plan: ClientPlan, stacked_params: PyTree,
                        stacked_opt_state: PyTree) -> tuple:
-        """The positional args ``run_prepared`` consumes (on one card there
-        is no shard padding to add, nor to trim afterwards)."""
-        return (stacked_params, stacked_opt_state, plan.data, plan.indices,
+        """A bucket's args for ``run_prepared``, and its true client count C
+        for ``finish_bucket``.  Sharded over n ranks: the bucket padded to a
+        multiple of n by repeating row 0 with an all-False step mask (exact
+        no-ops), and of that this rank's block of rows."""
+        C = len(plan.cids)
+        args = (stacked_params, stacked_opt_state, plan.data, plan.indices,
                 plan.step_mask, plan.num_steps)
+        n = mesh_size(self.mesh) if self._use_shard_map() else 1
+        if n == 1:
+            return args, C
+        rows = -(-C // n)
+        lo = self.mesh.rank * rows
+        real = np.arange(lo, lo + rows) < C
+        idx = np.where(real, np.arange(lo, lo + rows), 0)    # padded rows: row 0's
+
+        def take(x):
+            return x[lo:lo + rows] if real.all() else x.index_select(0, keep)
+
+        keep = None if real.all() else to_device(idx, plan.indices.device)
+        p, s, data, indices, mask = _stacked_map(take, args[:5])
+        if not real.all():
+            mask = mask & to_device(real, mask.device)[:, None]
+        num_steps = np.where(real, plan.num_steps[idx], 0)
+        return (p, s, data, indices, mask, num_steps), C
+
+    def finish_bucket(self, out, C: int):
+        """``run_prepared``'s outputs as the whole bucket's stacks: sharded,
+        every rank's rows gathered in rank order and the padding trimmed."""
+        if not self._use_shard_map():
+            return out
+        p, s, losses = all_gather_tree(out, self.mesh)
+        if losses.shape[0] != C:
+            p, s, losses = _stacked_map(lambda x: x[:C], (p, s, losses))
+        return p, s, losses
 
     def run_prepared(self, args):
         """Every step of one bucket; returns the trained params, optimiser
@@ -357,7 +400,8 @@ class VectorizedClientEngine:
     def train_bucket(self, plan: ClientPlan, stacked_params: PyTree,
                      stacked_opt_state: PyTree):
         """(Cb, ...)-stacked params and optimiser state -> trained stacks."""
-        return self.run_prepared(self.prepare_bucket(plan, stacked_params, stacked_opt_state))
+        args, C = self.prepare_bucket(plan, stacked_params, stacked_opt_state)
+        return self.finish_bucket(self.run_prepared(args), C)
 
     def train_round(self, rplan: RoundPlan, init_params_for: Callable,
                     init_opt_state_for: Callable, run_buckets: Optional[Callable] = None):
@@ -369,7 +413,7 @@ class VectorizedClientEngine:
         ``run_buckets``, when given, replaces the per-bucket dispatch: it takes
         the list of prepared args (``prepare_bucket``) and returns their
         outputs, as ``run_prepared`` would (the overlap executor's paired
-        programs).
+        programs).  ``finish_bucket`` then gathers each bucket's rows.
 
         Returns ``(stacked_params, group_ids, sizes, buckets)``: leaves (C,
         ...) in group-major client order, and per bucket ``(plan,
@@ -379,12 +423,15 @@ class VectorizedClientEngine:
         prepared = []
         for plan in rplan.plans:
             w0 = init_params_for(plan)
-            prepared.append((plan, w0, self.prepare_bucket(plan, w0, init_opt_state_for(plan, w0))))
+            prepared.append((plan, w0, *self.prepare_bucket(plan, w0, init_opt_state_for(plan, w0))))
         if run_buckets is None:
-            outs = [self.run_prepared(args) for _, _, args in prepared]
+            outs = [self.run_prepared(args) for _, _, args, _ in prepared]
         else:
-            outs = run_buckets([args for _, _, args in prepared])
-        buckets = [(plan, p, s, w0) for (plan, w0, _), (p, s, _) in zip(prepared, outs)]
+            outs = run_buckets([args for _, _, args, _ in prepared])
+        # every bucket's collective after all of them ran: never inside a
+        # capture, nor between the paired programs of overlap="fused"
+        outs = [self.finish_bucket(out, C) for (*_, C), out in zip(prepared, outs)]
+        buckets = [(plan, p, s, w0) for (plan, w0, _, _), (p, s, _) in zip(prepared, outs)]
         # bucket rows are in sorted-cid order, not round order: the
         # permutation is needed even for a single bucket
         inv = np.argsort(np.concatenate([b[0].order for b in buckets]))
@@ -394,6 +441,13 @@ class VectorizedClientEngine:
         group_ids = np.concatenate([b[0].group_of for b in buckets])[inv]
         sizes = np.concatenate([b[0].sizes for b in buckets])[inv]
         return stacked, group_ids, sizes, buckets
+
+
+def _stacked_map(fn: Callable, tree: PyTree) -> PyTree:
+    """``fn`` over the stacked leaves of a tree (tensors with a leading
+    client axis); 0-d tensors and host values pass through."""
+    return tree_map(lambda x: fn(x) if isinstance(x, torch.Tensor) and x.ndim >= 1 else x,
+                    tree)
 
 
 def aggregate_groups(stacked_params: PyTree, sizes, group_ids,

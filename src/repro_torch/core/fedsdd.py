@@ -29,16 +29,18 @@ job included, so that a killed run resumes bit for bit.  FedBE
 clients' mean and the main aggregate to the client teachers;
 ``secure_aggregation`` averages masked uploads on the sequential engine
 (the reference's vectorized Eq. 2 never masks, and neither does the
-port's: there the flag runs plain Eq. 2).  An option the
-reference takes but this port does not run yet raises
-``NotImplementedError`` naming the slice that brings it, after the
-reference's own checks; nothing runs something else quietly.
+port's: there the flag runs plain Eq. 2).
 
-Everything runs on one device, ``cuda`` unless the caller passes
+Each process runs on one device, ``cuda`` unless the caller passes
 ``device="cpu"``: the task's tensors, the K global models, the teacher
 ring and the KD cache.  The round's rng is numpy, seeded as the
 reference's, so a round samples, groups and batches exactly as the JAX
-runner does.
+runner does.  Under ``torch.distributed`` (one process a rank, each
+running this runner from the same seed) ``client_sharding`` splits the
+vectorized engine's client axis and the KD pipeline's teacher members
+over the ranks of ``launch.mesh.make_client_mesh()``, as the reference's
+``shard_map`` splits them over devices (``"auto"``: over more than one
+rank); everything else every rank computes alike.
 """
 from __future__ import annotations
 
@@ -65,6 +67,7 @@ from repro_torch.core.robust_agg import AGGREGATORS, robust_aggregate_grouped
 from repro_torch.core.step_graph import StepGraphs, copy_into, shape_key, static_like
 from repro_torch.distill import KDPipeline, TeacherBank
 from repro_torch.fedckpt import checkpointer as fedckpt
+from repro_torch.launch.mesh import make_client_mesh
 from repro_torch.optim.optimizers import (Optimizer, advance_steps, apply_updates,
                                           scaffold_new_control, sgd, value_and_grad,
                                           with_fedprox, with_scaffold)
@@ -127,8 +130,7 @@ class FedConfig:
     seed: int = 0
 
     def validate(self) -> None:
-        """Reject inconsistent configs with the reference's ``ValueError``s,
-        then options this port does not run yet with ``NotImplementedError``."""
+        """Reject inconsistent configs with the reference's ``ValueError``s."""
         def _require(ok: bool, msg: str) -> None:
             if not ok:
                 raise ValueError(f"invalid FedConfig: {msg}")
@@ -227,25 +229,6 @@ class FedConfig:
                      "teacher_trust weights the KD ensemble, but "
                      "distill_target='none' never distills — enable KD or "
                      "drop teacher_trust")
-        for unported, slice_ in self._unported():
-            if unported:
-                raise NotImplementedError(
-                    f"FedConfig: {slice_}; this slice of the port runs the "
-                    f"sequential and vectorized engines with the fused KD "
-                    f"pipeline (dense or Flash-KD, overlapped or not) or the "
-                    f"legacy host loop, with FedBE, secure aggregation, faults, "
-                    f"robust aggregation, trust-weighted teachers and either "
-                    f"client store")
-
-    def _unported(self):
-        """(condition, what and which later slice brings it) for each valid
-        option the port does not run yet."""
-        return (
-            (self.client_sharding == "shard_map",
-             "client_sharding='shard_map' (the client axis over several cards) "
-             "arrives with the torch.distributed slice; on one card 'auto' and "
-             "'vmap' run vmap"),
-        )
 
 
 PRESETS: dict[str, dict] = {
@@ -474,7 +457,7 @@ class FederatedRunner:
     def _make_engine(self) -> VectorizedClientEngine:
         if self._engine is None:
             self._engine = VectorizedClientEngine(
-                self.task.loss_fn, self._make_optimizer(),
+                self.task.loss_fn, self._make_optimizer(), mesh=make_client_mesh(),
                 client_sharding=self.cfg.client_sharding, graphs=self.graphs)
         return self._engine
 
@@ -508,7 +491,8 @@ class FederatedRunner:
                 temperature=cfg.temperature, device=self.device,
                 kd_kernel=cfg.kd_kernel, cache_dtype=cfg.teacher_cache_dtype,
                 features_fn=self.task.features_fn, head_fn=self.task.head_fn,
-                head_fusion=cfg.kd_head_fusion,
+                head_fusion=cfg.kd_head_fusion, mesh=make_client_mesh(),
+                teacher_sharding=cfg.client_sharding,
                 graphs=self.graphs if cfg.overlap == "off" else self.graphs.separate())
         return self._kd_pipe
 

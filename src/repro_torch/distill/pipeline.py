@@ -58,8 +58,19 @@ One round's distillation phase:
      kernel 2 on an M = 1 stack of that sum, the flash cache as the sum
      itself and its normaliser.  Without weights the cache is built as
      before, bit for bit.
-
-The sharded precompute arrives with the torch.distributed slice.
+  6. **Sharded teacher pass** — with ``teacher_sharding="shard_map"`` (or
+     ``"auto"`` over several ranks, ``launch.mesh.use_shard_map``) the M
+     members are split over the client mesh's ranks, as the reference's
+     ``shard_map`` splits its member axis: padded to a multiple of the rank
+     count with zero-weight members, each rank forwards its own block and
+     makes a masked f32 logit sum (the normalised trust weights ride the
+     mask), ONE all-reduce adds the ranks' sums (the only collective of
+     the KD phase: nB·B·V·4 bytes whatever M and the client count), then a
+     division by M when the pass is unweighted.  The dense cache is kernel
+     2 on an M = 1 stack of that mean, as the reference's; the flash cache
+     is the mean in ``cache_dtype`` and its normaliser.  The all-reduce
+     runs in the eager teacher pass, never inside a step program.  A padded
+     member weighs exactly zero, so it is not forwarded at all.
 """
 from __future__ import annotations
 
@@ -75,6 +86,7 @@ from repro_torch.core.robust_agg import median
 from repro_torch.core.step_graph import (StepGraphs, StepProgram, copy_into, on_lane,
                                          shape_key, static_like)
 from repro_torch.kernels.kd_loss import ops as kd_ops
+from repro_torch.launch.mesh import all_reduce_sum, mesh_size, use_shard_map
 from repro_torch.optim.optimizers import apply_updates, sgd, value_and_grad
 from repro_torch.utils.pytree import (tree_cast, tree_leaves, tree_map, tree_stack,
                                       tree_unstack)
@@ -112,7 +124,11 @@ class KDPipeline:
                  kd_kernel: str = "dense", cache_dtype: str | None = None,
                  features_fn: Callable | None = None, head_fn: Callable | None = None,
                  head_fusion: bool = False, step_mode: str = "auto",
-                 graphs: StepGraphs | None = None):
+                 graphs: StepGraphs | None = None, mesh=None,
+                 teacher_sharding: str = "auto"):
+        if teacher_sharding not in ("auto", "vmap", "shard_map"):
+            raise ValueError(f"teacher_sharding={teacher_sharding!r} not in "
+                             "('auto', 'vmap', 'shard_map')")
         if kd_kernel not in ("dense", "flash"):
             raise ValueError(f"kd_kernel={kd_kernel!r} not in ('dense', 'flash')")
         if head_fusion and kd_kernel != "flash":
@@ -142,6 +158,8 @@ class KDPipeline:
         self.temperature = float(temperature)
         self.optimizer = sgd(lr, momentum=momentum)
         self.device = device_lib.resolve(device)
+        self.mesh = mesh
+        self.teacher_sharding = teacher_sharding
         # the KD loop's "auto" is "scan" on the CPU too, as in the reference
         self.graphs = (graphs.with_mode(step_mode, "scan") if graphs is not None
                        else StepGraphs(step_mode, "scan"))
@@ -182,11 +200,49 @@ class KDPipeline:
             for b in range(nB):
                 yield m, b, self.logits_fn(member, tree_map(lambda x: x[b], batches)).float()
 
+    def _shard_teachers(self) -> bool:
+        """Shard decision for the teacher pass: the same shared policy the
+        client engine resolves (``launch.mesh.use_shard_map``)."""
+        return use_shard_map(self.mesh, self.teacher_sharding)
+
+    @torch.no_grad()
+    def _logit_sum(self, teachers: Sequence[PyTree], batches: PyTree,
+                   weights: torch.Tensor | None) -> torch.Tensor:
+        """(n_batches, B, V) f32 Σ_m mask_m z_m, the members summed in order.
+        The mask is 1 (unweighted) or the trust weight normalised to sum 1.
+        Sharded, the members are padded to a multiple of the rank count with
+        zero-mask ones (not forwarded), each rank sums its own block and ONE
+        all-reduce adds the ranks' sums; unsharded, this process is rank 0
+        of 1 and sums every member."""
+        shard = self._shard_teachers()
+        M = len(teachers)
+        rows = -(-M // mesh_size(self.mesh)) if shard else M
+        lo = self.mesh.rank * rows if shard else 0
+        w = None
+        if weights is not None:
+            w = weights.to(device=self.device, dtype=torch.float32)
+            w = w / w.sum().clamp_min(1e-12)
+        mine = range(lo, min(lo + rows, M))
+        total = None
+        for m, b, lg in self._teacher_logits([teachers[i] for i in mine], batches):
+            if total is None:
+                total = torch.zeros((tree_leaves(batches)[0].shape[0],) + tuple(lg.shape),
+                                    dtype=torch.float32, device=lg.device)
+            total[b] += lg if w is None else w[lo + m] * lg
+        if total is None:       # every member of this rank's block is padding
+            shape = tree_leaves(self.cache_like(teachers, batches))[0].shape
+            total = torch.zeros(shape, dtype=torch.float32, device=self.device)
+        return all_reduce_sum(total, self.mesh) if shard else total
+
     @torch.no_grad()
     def precompute_teacher_probs(self, teachers: Sequence[PyTree],
                                  batches: PyTree) -> torch.Tensor:
         """M teachers × (n_batches, B, ...) batches -> (n_batches, B, V) f32
-        ensemble probabilities, in one ``ensemble_softmax`` launch."""
+        ensemble probabilities, in one ``ensemble_softmax`` launch (sharded:
+        on an M = 1 stack of the mean logit)."""
+        if self._shard_teachers():
+            return kd_ops.ensemble_softmax_many(
+                self.precompute_mean_logits(teachers, batches)[None], self.temperature)
         M = len(teachers)
         nB = tree_leaves(batches)[0].shape[0]
         logits = None
@@ -201,15 +257,7 @@ class KDPipeline:
     def precompute_mean_logits(self, teachers: Sequence[PyTree], batches: PyTree) -> torch.Tensor:
         """(n_batches, B, V) f32 mean teacher logit (Eq. 3's ensemble in the
         logit-sum form), the members summed in order and divided by M."""
-        nB = tree_leaves(batches)[0].shape[0]
-        total, M = None, 0
-        for m, b, lg in self._teacher_logits(teachers, batches):
-            if total is None:
-                total = torch.zeros((nB,) + tuple(lg.shape), dtype=torch.float32,
-                                    device=lg.device)
-            total[b] += lg
-            M = m + 1
-        return total.div_(M)
+        return self._logit_sum(teachers, batches, None).div_(len(teachers))
 
     @torch.no_grad()
     def precompute_weighted_logits(self, teachers: Sequence[PyTree], batches: PyTree,
@@ -217,16 +265,7 @@ class KDPipeline:
         """(n_batches, B, V) f32 Σ_m w_m z_m, the weights normalised to sum
         1 (the trust-weighted form of Eq. 3's mean logit), summed in member
         order on the device."""
-        w = weights.to(device=self.device, dtype=torch.float32)
-        w = w / w.sum().clamp_min(1e-12)
-        nB = tree_leaves(batches)[0].shape[0]
-        total = None
-        for m, b, lg in self._teacher_logits(teachers, batches):
-            if total is None:
-                total = torch.zeros((nB,) + tuple(lg.shape), dtype=torch.float32,
-                                    device=lg.device)
-            total[b] += w[m] * lg
-        return total
+        return self._logit_sum(teachers, batches, weights)
 
     def precompute_cache(self, teachers: Sequence[PyTree], batches: PyTree, out=None,
                          weights: torch.Tensor | None = None):

@@ -31,6 +31,21 @@ architecture, the audio and VLM frontends included (their batches carry
 frame or patch embeddings).  The LM task's ``seq`` (32) is a multiple of
 the reduced SSM chunk (16), as the recurrent families' full forward
 needs.
+
+Several ranks, one process a card, through ``torchrun``:
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --execution vectorized
+  python -m torch.distributed.run --standalone --nproc-per-node 2 \
+      -m repro_torch.launch.train --device cpu --execution vectorized
+
+With ``WORLD_SIZE`` above 1 the default process group is initialised
+before the runner is built (NCCL on ``cuda:LOCAL_RANK``, gloo with
+``--device cpu``); every rank runs the whole runner from the same seed, and the runner's
+``client_sharding="auto"`` splits the vectorized engine's clients and the
+KD teachers over the ranks.  Rank
+0 alone prints the history and writes ``--out`` and ``--ckpt-dir``; each
+rank spills its client store under ``--client-store-dir``'s ``rank<r>``.
+Run as one process, nothing of this happens.
 """
 from __future__ import annotations
 
@@ -59,6 +74,25 @@ def _fault_plan(args) -> FaultPlan | None:
                      attack=args.attack, attack_rate=args.attack_rate,
                      attack_scale=args.attack_scale, spill_fail=args.spill_fail_rate,
                      zero_fill=args.zero_fill)
+
+
+def _init_ranks(args) -> tuple[int, int]:
+    """(rank, world size); under ``torchrun`` (``WORLD_SIZE`` > 1) the
+    default process group, initialised from its environment, and
+    ``args.device`` made this rank's card."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1:
+        return 0, 1
+    import torch
+    import torch.distributed as dist
+    if torch.device(args.device).type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        torch.cuda.set_device(local)
+        args.device = f"cuda:{local}"
+        dist.init_process_group("nccl")
+    else:
+        dist.init_process_group("gloo")
+    return dist.get_rank(), world
 
 
 def main() -> None:
@@ -119,7 +153,18 @@ def main() -> None:
     ap.add_argument("--teacher-trust", action="store_true")
     ap.add_argument("--out", default=None, help="write history JSON here")
     args = ap.parse_args()
+    rank, world = _init_ranks(args)
+    if world > 1 and args.client_store_dir:
+        args.client_store_dir = os.path.join(args.client_store_dir, f"rank{rank}")
+    try:
+        _train(args, rank, world)
+    finally:
+        if world > 1:
+            import torch.distributed as dist
+            dist.destroy_process_group()
 
+
+def _train(args, rank: int, world: int) -> None:
     if args.arch:
         cfg = get_config(args.arch).reduced()
         task = lm_task(cfg, num_clients=args.clients, seed=args.seed, device=args.device)
@@ -145,15 +190,24 @@ def main() -> None:
         **overrides)
 
     # two checkpoint families share --ckpt-dir: ckpt_* model snapshots and
-    # state_* full-state resume checkpoints (save_state / restore_state)
-    ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
-    state_ckpt = Checkpointer(args.ckpt_dir, prefix="state") if args.ckpt_dir else None
+    # state_* full-state resume checkpoints (save_state / restore_state);
+    # rank 0 writes them, every rank resumes from them
+    lead = rank == 0
+    ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir and lead else None
+    state_ckpt = (Checkpointer(args.ckpt_dir, prefix="state")
+                  if args.ckpt_dir and (lead or args.resume) else None)
     t0 = time.perf_counter()
     state = runner.restore_state(state_ckpt) if (args.resume and state_ckpt) else None
     if state is not None:
-        print(f"resumed from round {state.round}", flush=True)
+        if lead:
+            print(f"resumed from round {state.round}", flush=True)
     else:
         state = runner.init_state()
+    if world > 1:
+        import torch.distributed as dist
+        dist.barrier()      # every rank has read the checkpoints before rank 0 writes
+    if not lead:
+        state_ckpt = None
     for _ in range(state.round, args.rounds):
         state = runner.run_round(state)
         rec = state.history[-1]
@@ -175,7 +229,8 @@ def main() -> None:
             tw = rec["teacher_trust"]
             msg += (f" trust=[{', '.join(f'{w:.2f}' for w in tw)}]"
                     f" filtered={sum(1 for w in tw if w == 0.0)}")
-        print(msg, flush=True)
+        if lead:
+            print(msg, flush=True)
         if ckpt:
             if state.pending_kd is None:
                 ckpt.save(state.round, state.global_models[0], meta={"round": state.round})
@@ -194,6 +249,8 @@ def main() -> None:
                   meta={"round": state.round, "drained": True})
     if state_ckpt:
         runner.save_state(state_ckpt, state)     # drained: no pending spill left
+    if not lead:
+        return
     print(f"done in {time.perf_counter() - t0:.1f}s")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -23,8 +23,10 @@
       side under a reordered sum and move the gradients upstream of it.
       With ``default_rng(5)`` one input is 2.2e-8 and the gradients differ
       by 3.6e-4; batches 0-4, 6 and 7 agree within 4.8e-7 (ROADMAP §C).
-  (d) ``FedConfig(execution="vectorized")`` validates; ``shard_map`` raises
-      ``NotImplementedError`` naming its slice; a ``"scan"`` step mode,
+  (d) ``FedConfig(execution="vectorized")`` validates, with
+      ``client_sharding="shard_map"`` too (the engine then splits its
+      client axis over the client mesh, ``tests/test_torch_shard_map.py``);
+      a ``"scan"`` step mode,
       given or through ``REPRO_ENGINE_STEP_MODE``, builds and resolves to
       scan (its parity is ``tests/test_torch_step_mode.py``'s).
 """
@@ -54,6 +56,7 @@ from repro_torch.core.fedsdd import FedConfig, FedState, make_config, make_runne
 from repro_torch.core.tasks import classification_task  # noqa: E402
 from repro_torch.distill import TeacherBank  # noqa: E402
 from repro_torch.kernels.weight_avg import ops as wops  # noqa: E402
+from repro_torch.launch.mesh import make_client_mesh  # noqa: E402
 from repro_torch.models import resnet  # noqa: E402
 from repro_torch.optim.optimizers import sgd  # noqa: E402
 from repro_torch.utils.pytree import tree_leaves, tree_zeros_like  # noqa: E402
@@ -275,10 +278,13 @@ def test_vmapped_grad_matches_jax_vmap_grad(monkeypatch):
 def test_vectorized_validates_and_unported_modes_raise(monkeypatch):
     FedConfig(execution="vectorized").validate()
     FedConfig(execution="vectorized", client_sharding="vmap").validate()
-    with pytest.raises(NotImplementedError, match="torch.distributed slice"):
-        FedConfig(execution="vectorized", client_sharding="shard_map").validate()
-    with pytest.raises(NotImplementedError, match="torch.distributed slice"):
-        engine.VectorizedClientEngine(lambda p, b: 0, sgd(0.1), client_sharding="shard_map")
+    FedConfig(execution="vectorized", client_sharding="shard_map").validate()
+    sharded = engine.VectorizedClientEngine(lambda p, b: 0, sgd(0.1), mesh=make_client_mesh(),
+                                            client_sharding="shard_map")
+    assert sharded._use_shard_map() and not engine.VectorizedClientEngine(
+        lambda p, b: 0, sgd(0.1), mesh=make_client_mesh())._use_shard_map()
+    with pytest.raises(ValueError, match="client_sharding"):
+        engine.VectorizedClientEngine(lambda p, b: 0, sgd(0.1), client_sharding="x")
     eng = engine.VectorizedClientEngine(lambda p, b: 0, sgd(0.1), step_mode="scan")
     assert eng.graphs.scan("cpu")
     with pytest.raises(ValueError, match="step_mode"):

@@ -2,8 +2,9 @@
 
   (a) ``FedConfig.validate``: every preset validates; each ``ValueError``
       of the reference is raised by the port with the same message (a
-      fault plan as the port's own ``FaultPlan``); the option the port
-      does not run yet (shard_map) raises ``NotImplementedError``; FedBE
+      fault plan as the port's own ``FaultPlan``); ``client_sharding=
+      "shard_map"``, the last option the port once refused, validates
+      in both packages and no option raises ``NotImplementedError``; FedBE
       and secure aggregation validate and run a round (their parity is in
       ``test_torch_fedbe_secagg.py``); the robustness options validate and run a
       round (their parity is in ``test_torch_faults.py``,
@@ -121,9 +122,11 @@ UNPORTED = [
 
 @pytest.mark.parametrize("kw", UNPORTED, ids=lambda kw: ",".join(kw))
 def test_unported_options_raise_not_implemented(kw):
+    """Nothing is left unported: the options the port once refused with
+    ``NotImplementedError`` validate as in the reference."""
     JaxFedConfig(**kw).validate()            # valid in the reference
-    with pytest.raises(NotImplementedError, match="slice"):
-        FedConfig(**kw).validate()
+    FedConfig(**kw).validate()
+    assert not hasattr(FedConfig, "_unported")
 
 
 ROBUSTNESS = [

@@ -23,8 +23,7 @@ REF, PORT = ROOT / "repro", ROOT / "repro_torch"
 
 JAX_PLUMBING = "JAX program plumbing: the port's programs are core/step_graph.py's StepGraphs"
 PALLAS = "the Pallas kernel; the port's kernel is CUDA under kernels/csrc/, its wrapper in ops.py"
-SHARD_MAP = "client_sharding='shard_map' and the mesh: ROADMAP.md §A, item 1 (torch.distributed)"
-HLO_COLLECTIVES = "parses XLA's HLO for collectives: the distributed slice, ROADMAP.md §A"
+DRY_RUN = "the meta-device dry run: ROADMAP.md §A, the next slice"
 NO_DONATION = ("no port program declares inputs it updates in place: a step program's body "
                "writes its own static buffers (core/step_graph.py), so there is no request "
                "to audit")
@@ -33,23 +32,16 @@ NOT_PORTED = {
     "core/engine.py": {
         "resolve_step_mode": "the step-mode policy lives in core/step_graph.py",
         "VectorizedClientEngine.scan_fn": JAX_PLUMBING,
-        "VectorizedClientEngine.finish_bucket": "trims shard_map's padding; " + SHARD_MAP,
     },
     "core/round_plan.py": {
         "FusedKDLocalProgram": JAX_PLUMBING + " (overlap='fused' is StepGraphs.pair)",
         "FusedKDLocalProgram.jit_programs": JAX_PLUMBING,
     },
     "analysis/__init__.py": {
-        "CollectiveStats": HLO_COLLECTIVES, "collective_stats": HLO_COLLECTIVES,
         "duplicate_fusion_count": JAX_PLUMBING,
         "DonationReport": NO_DONATION, "donation_audit": NO_DONATION,
     },
     "analysis/passes.py": {
-        "COLLECTIVE_KINDS": HLO_COLLECTIVES, "CollectiveStats": HLO_COLLECTIVES,
-        "CollectiveStats.total_bytes": HLO_COLLECTIVES,
-        "CollectiveStats.total_count": HLO_COLLECTIVES,
-        "CollectiveStats.add": HLO_COLLECTIVES, "CollectiveStats.summary": HLO_COLLECTIVES,
-        "collective_stats": HLO_COLLECTIVES,
         "duplicate_fusion_count": JAX_PLUMBING + " (counts XLA's fusion bodies)",
         "DonationReport": NO_DONATION, "DonationReport.copied": NO_DONATION,
         "DonationReport.ok": NO_DONATION, "donation_audit": NO_DONATION,
@@ -67,12 +59,8 @@ NOT_PORTED = {
 }
 
 MODULES_NOT_PORTED = {
-    "core/distributed.py": SHARD_MAP,
-    "launch/mesh.py": SHARD_MAP,
-    "sharding/__init__.py": SHARD_MAP,
-    "sharding/specs.py": SHARD_MAP,
-    "launch/dryrun.py": "the meta-device dry run over the mesh: " + SHARD_MAP,
-    "launch/perf.py": "the meta-device dry run over the mesh: " + SHARD_MAP,
+    "launch/dryrun.py": DRY_RUN,
+    "launch/perf.py": DRY_RUN,
     "kernels/flash_attention/kernel.py": PALLAS,
     "kernels/kd_loss/kernel.py": PALLAS,
     "kernels/weight_avg/kernel.py": PALLAS,
