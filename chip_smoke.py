@@ -391,7 +391,17 @@ Phases, each of which fails the run if it fails:
                tolerances); kernels 2/3/4 launched 1/1/1 a call; CUDA-event
                ms of each call (after one warm-up call of each) and its peak
                beside the peak reckoned before the run (under 76 GB)
- 37. kernels   one JSON line per the port's kernel contract; kernel 12's
+ 37. dry run   (b) gemma-2b at full width, 2 layers, f32: the train step of
+               launch/steps.py (remat=True) at 2 x 4,096 tokens counted by
+               launch/dryrun.py on a one-rank fake world, then run on the
+               card from random weights: the counted FLOPs, bytes and peak,
+               the bound (H100Spec, f32), the warm CUDA-event ms and the
+               bound's share of it, max_memory_allocated against the
+               counted peak; (a) python -m repro_torch.launch.dryrun --arch
+               gemma-2b --shape train_4k in a subprocess with no card
+               visible (300 s limit): the pod1 record's FLOPs, bytes,
+               collective bytes, peak and seconds under this machine's torch
+ 38. kernels   one JSON line per the port's kernel contract; kernel 12's
                entry is its bf16 row at qwen2.5-14b's width (the configs'
                dtype), with the f32 row beside it under "f32"; kernel 1's
                also gives "starcoder2_ms", its times in the two starcoder2-3b
@@ -418,7 +428,7 @@ Phases, each of which fails the run if it fails:
                "round_fn_launches" and "distill_step_launches" their launches
                on phases 35 and 36's paths; every entry's "host_ms" is its
                wrapper's host time a call
- 38. ok        {"ok": true, "device": {...}} as the last line
+ 39. ok        {"ok": true, "device": {...}} as the last line
 
 Static decode (phases 22-29).  The static path's default on a card is
 "scan": the prefill eager, then each decode step one replay of a captured
@@ -5039,6 +5049,117 @@ def gemma_round_fn_phase(kd_ops, kd_ref, seed: int, card: str) -> dict:
     return runs
 
 
+# ---------------------------------------------------------------- phase 37
+DRYRUN_TIMEOUT_S = 300           # (a): the whole gemma-2b train_4k dry run on the CPU
+DRYRUN_BATCH = (2, 4096)         # (b): the counted and measured step's (rows, tokens)
+DRYRUN_REPS = 3
+
+
+def dryrun_phase(seed: int, card: str) -> dict:
+    """launch/dryrun.py on the card's machine (its torch), and its count of
+    one train step held against the card.
+
+    (b) In this process, on a one-rank (1, 1) fake world (destroyed before
+    (a)): gemma-2b at full width, 2 layers, f32, the train step of
+    launch/steps.py (remat=True) at 2 x 4,096 tokens, counted; then the
+    same step on the card from random weights: warm CUDA-event ms against
+    the count's bound (utils/hlo.roofline over H100Spec, f32 on the CUDA
+    cores: TF32 is off), and max_memory_allocated over the step against
+    the counted peak.  On a one-rank world the model takes the DTensor
+    branches of sharding/local.py (the cross-entropy as max, exp-sum and
+    gather), the card its plain ops.
+    (a) python -m repro_torch.launch.dryrun --arch gemma-2b --shape
+    train_4k in a subprocess with no card visible, to a temporary --out:
+    the pod1 record's FLOPs, bytes, collective bytes and peak a rank."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.data.synthetic import make_model_batch
+    from repro_torch.device import to_device
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.utils.hlo import roofline
+    check(not torch.distributed.is_initialized(), "a process group is live before the dry run")
+    cfg = dataclasses.replace(get_config("gemma-2b"), num_layers=2, param_dtype="float32",
+                              compute_dtype="float32")
+    rows, seq = DRYRUN_BATCH
+    t0 = time.perf_counter()
+    rec = dryrun.lower_one("gemma-2b", "train_4k", cfg_override=lambda c: cfg,
+                           mesh_shape={"data": 1, "model": 1},
+                           shape_override=InputShape("train_4k", seq, rows, "train"))
+    count_s = time.perf_counter() - t0
+    check(not torch.distributed.is_initialized(), "the fake world outlived its count")
+    mem = rec["memory_analysis"]
+    terms = roofline(rec["flops_per_chip"], rec["hbm_bytes_per_chip"], 0.0, 1, spec=SPEC,
+                     dtype="float32")
+    model = build_model(cfg)
+    params = model.init(seed, device=DEV)
+    batch = {k: to_device(v, torch.device(DEV))
+             for k, v in make_model_batch(cfg, rows, seq, seed=seed).items()}
+    step = steps.make_train_step(model)
+    loss, new = step(params, batch)
+    del new
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(DRYRUN_REPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss, new = step(params, batch)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        check(bool(torch.isfinite(loss)) and all(bool(x.isfinite().all()) for x in _leaves(new)),
+              "dry run (b): the card's train step gave non-finite values")
+        del new
+    peak = torch.cuda.max_memory_allocated()
+    measured = statistics.median(ms)
+    b = {"phase": "dry run (b): gemma-2b 2 layers f32, train step at 2 x 4,096 tokens, "
+                  "counted on a (1, 1) fake world vs the card",
+         "counted": {"flops": rec["flops_per_chip"], "hbm_bytes": rec["hbm_bytes_per_chip"],
+                     "peak_gb": mem["peak_size_in_bytes"] / 1e9,
+                     "argument_gb": mem["argument_size_in_bytes"] / 1e9, "seconds": count_s},
+         "bound_ms": terms.bound_s * 1e3,
+         "bound_by": "operations" if terms.compute_s >= terms.memory_s else "bytes",
+         "measured_ms": measured, "measured_ms_each": ms,
+         "bound_share": terms.bound_s * 1e3 / measured,
+         "card_peak_gb": peak / 1e9, "card_held_before_gb": base / 1e9,
+         "loss": float(loss), "card": card}
+    print(json.dumps(b), flush=True)
+    del params, batch, step, model, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    src = str(Path(__file__).resolve().parent / "src")
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "gemma-2b",
+             "--shape", "train_4k", "--out", out],
+            env={**os.environ, "PYTHONPATH": src, "CUDA_VISIBLE_DEVICES": ""},
+            capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        check(run.returncode == 0, f"dry run (a) exited {run.returncode}: {run.stderr[-3000:]}")
+        with open(Path(out) / "gemma-2b__train_4k__pod1.json") as f:
+            full = json.load(f)
+    check(full["supported"] and full["chips"] == 256 and full["flops_per_chip"] > 0
+          and full["counted"] == "plain ops", f"dry run (a): record {full}")
+    a = {"phase": "dry run (a): python -m repro_torch.launch.dryrun --arch gemma-2b "
+                  "--shape train_4k (pod1, 256 fake ranks, on the CPU)",
+         "torch": torch.__version__, "seconds": wall,
+         "flops_per_chip": full["flops_per_chip"],
+         "hbm_bytes_per_chip": full["hbm_bytes_per_chip"],
+         "collective_bytes_per_chip": full["collective_bytes_per_chip"],
+         "collectives": full["collectives"],
+         "peak_gb_per_chip": full["memory_analysis"]["peak_size_in_bytes"] / 1e9,
+         "terms_s": [full["compute_s"], full["memory_s"], full["collective_s"]],
+         "dominant": full["dominant"], "useful_flops_ratio": full["useful_flops_ratio"]}
+    print(json.dumps(a), flush=True)
+    return {"a": a, "b": b}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5278,7 +5399,11 @@ def main() -> int:
         e["round_fn_launches"] = round_fn["round"].get(e["name"], 0)
         e["distill_step_launches"] = round_fn["distill"].get(e["name"], 0)
 
-    phase("37. kernels")
+    phase("37. the dry run: launch/dryrun.py on this machine's torch; its count of a "
+          "gemma-2b train step vs the card")
+    dryrun_phase(args.seed, card)
+
+    phase("38. kernels")
     print(f"total {time.perf_counter() - T_START:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [entry, *kd_entries, wa_entry, single_entry,

@@ -109,8 +109,9 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """The reference's production mesh, ``(16, 16)`` over ``("data",
     "model")`` or ``(2, 16, 16)`` over ``("pod", "data", "model")``, as a
     shape-only stand-in: ``.shape`` maps each axis to its size, which is
-    all ``sharding.specs`` reads.  The dry run over it (the full-size
-    programs partitioned over placeholder ranks) is the next slice."""
+    all ``sharding.specs`` reads.  ``launch/dryrun.py`` pairs it with a
+    ``DeviceMesh`` of the same shape over a fake process group
+    (``fake_world``) to partition the full-size programs."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return Mesh(dict(zip(axes, shape)))

@@ -49,9 +49,11 @@ def supported(cfg: ModelConfig, shape: InputShape) -> tuple[bool, str]:
 
 
 # ---------------------------------------------------------------- steps
-def make_train_step(model: Model, lr: float = 0.1):
-    """Client local-training step: loss → grad → plain SGD (paper §4.1)."""
-    grad_fn = value_and_grad(lambda p, b: model.loss(p, b)[0])
+def make_train_step(model: Model, lr: float = 0.1, remat: bool | str = True):
+    """Client local-training step: loss → grad → plain SGD (paper §4.1),
+    each superblock recomputed in the backward by default (``remat``), as
+    the reference's step does."""
+    grad_fn = value_and_grad(lambda p, b: model.loss(p, b, remat=remat)[0])
 
     def train_step(params, batch):
         loss, grads = grad_fn(params, batch)

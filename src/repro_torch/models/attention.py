@@ -20,6 +20,8 @@ import math
 import torch
 
 from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.sharding.local import (ROWS, decode_local, heads_local, is_dtensor,
+                                        merge_heads, split_heads, write_row)
 
 NEG_INF = -1e30
 
@@ -63,6 +65,7 @@ def _band_mask(q_pos, k_pos, *, causal: bool, window: int):
     return ok
 
 
+@heads_local(2, 2, 2)
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
               q_offset: int = 0, kv_block: int = 1024, kv_valid_start: int = 0):
     """Chunked online-softmax attention.
@@ -117,6 +120,7 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, dv).to(q.dtype)
 
 
+@heads_local(2, 2, 2)
 def sliding_attention(q, k, v, *, window: int, q_block: int = 512):
     """Causal sliding-window attention with O(S·window) FLOPs.
 
@@ -149,6 +153,7 @@ def sliding_attention(q, k, v, *, window: int, q_block: int = 512):
     return torch.cat(outs, dim=1)
 
 
+@decode_local
 def decode_attention(q1, k_cache, v_cache, cache_len=None, *, window: int = 0):
     """One-token attention.  q1 (B,1,H,dh); caches (B,S,Hkv,dh).
 
@@ -188,8 +193,8 @@ def _project_qkv(p, x, cfg):
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    return (q.reshape(B, S, H, dh), k.reshape(B, S, Hkv, dh),
-            v.reshape(B, S, Hkv, dh))
+    return (split_heads(q, B, S, H, dh), split_heads(k, B, S, Hkv, dh),
+            split_heads(v, B, S, Hkv, dh))
 
 
 def gqa_forward(p, x, cfg):
@@ -205,7 +210,7 @@ def gqa_forward(p, x, cfg):
         out = sliding_attention(q, k, v, window=window)
     else:
         out = attention(q, k, v, causal=cfg.causal, window=window)
-    return out.reshape(B, S, -1) @ p["wo"].to(x.dtype), (k, v)
+    return merge_heads(out, B, S, -1) @ p["wo"].to(x.dtype), (k, v)
 
 
 def device_position(pos, device) -> torch.Tensor:
@@ -243,6 +248,9 @@ def gqa_decode(p, x1, cache, cfg, pos):
 def _write_row(cache, slot, row) -> None:
     """``cache[:, slot] = row[:, 0]`` in place, the 0-d ``slot`` kept on the
     device (``index_copy_`` along the sequence axis)."""
+    if is_dtensor(cache):       # the dry run's placed cache
+        write_row(cache, slot, row)
+        return
     cache.index_copy_(1, slot.reshape(1).long(), row)
 
 
@@ -314,7 +322,7 @@ def init_mla(gen, cfg, *, stack: tuple = ()):
 def _mla_q(p, x, cfg):
     B, S, _ = x.shape
     m, H = cfg.mla, cfg.num_heads
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, H, m.nope_head_dim + m.rope_head_dim)
+    q = split_heads(x @ p["wq"].to(x.dtype), B, S, H, m.nope_head_dim + m.rope_head_dim)
     return q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]      # q_nope, q_rope
 
 
@@ -341,12 +349,25 @@ def mla_forward(p, x, cfg):
     positions = torch.arange(S, device=x.device)[None, :]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     k_rope = apply_rope(k_rope[..., None, :], positions, cfg.rope_theta)   # (B,S,1,rd)
-    k_nope = (c_kv @ p["w_uk"].to(x.dtype)).reshape(B, S, H, m.nope_head_dim)
-    v = (c_kv @ p["w_uv"].to(x.dtype)).reshape(B, S, H, m.v_head_dim)
+    k_nope = split_heads(c_kv @ p["w_uk"].to(x.dtype), B, S, H, m.nope_head_dim)
+    v = split_heads(c_kv @ p["w_uv"].to(x.dtype), B, S, H, m.v_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope.expand(B, S, H, m.rope_head_dim)], dim=-1)
     out = attention(q, k, v, causal=cfg.causal)
-    return out.reshape(B, S, -1) @ p["wo"].to(x.dtype), (c_kv, k_rope[..., 0, :])
+    return merge_heads(out, B, S, -1) @ p["wo"].to(x.dtype), (c_kv, k_rope[..., 0, :])
+
+
+@heads_local(1, 1, ROWS, ROWS, None, out=1)
+def _latent_attention(q_abs, q_rope, c_kv, k_rope, pos, scale: float):
+    """MLA decode's attention in the latent space: the context (B, H, rank)
+    over the first ``pos + 1`` cache rows; per batch row and head."""
+    S = c_kv.shape[1]
+    scores = (torch.einsum("bhr,bsr->bhs", q_abs.float(), c_kv.float())
+              + torch.einsum("bhd,bsd->bhs", q_rope.float(), k_rope.float())) * scale
+    valid = torch.arange(S, device=q_abs.device) < pos + 1
+    scores = torch.where(valid[None, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q_abs.dtype)
+    return torch.einsum("bhs,bsr->bhr", probs, c_kv)    # latent-space context
 
 
 def mla_decode(p, x1, cache, cfg, pos):
@@ -366,18 +387,11 @@ def mla_decode(p, x1, cache, cfg, pos):
     kr_new = apply_rope(kr_new[..., None, :], abs_pos, cfg.rope_theta)[..., 0, :]
     _write_row(cache["c_kv"], pos, c_new)
     _write_row(cache["k_rope"], pos, kr_new)
-    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
-    S = c_kv.shape[1]
-    w_uk = p["w_uk"].to(x1.dtype).reshape(m.kv_lora_rank, H, m.nope_head_dim)
+    w_uk = split_heads(p["w_uk"].to(x1.dtype), m.kv_lora_rank, H, m.nope_head_dim)
     q_abs = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], w_uk)
     scale = (m.nope_head_dim + m.rope_head_dim) ** -0.5
-    scores = (torch.einsum("bhr,bsr->bhs", q_abs.float(), c_kv.float())
-              + torch.einsum("bhd,bsd->bhs", q_rope[:, 0].float(), k_rope.float())) * scale
-    valid = torch.arange(S, device=x1.device) < pos + 1
-    scores = torch.where(valid[None, None], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(x1.dtype)
-    ctx = torch.einsum("bhs,bsr->bhr", probs, c_kv)      # latent-space context
-    w_uv = p["w_uv"].to(x1.dtype).reshape(m.kv_lora_rank, H, m.v_head_dim)
+    ctx = _latent_attention(q_abs, q_rope[:, 0], cache["c_kv"], cache["k_rope"], pos, scale)
+    w_uv = split_heads(p["w_uv"].to(x1.dtype), m.kv_lora_rank, H, m.v_head_dim)
     o = torch.einsum("bhr,rhd->bhd", ctx, w_uv).reshape(B, 1, H * m.v_head_dim)
     return o @ p["wo"].to(x1.dtype), cache
 

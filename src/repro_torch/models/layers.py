@@ -12,6 +12,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.local import is_dtensor, vocab_nll
+
 
 # -------------------------------------------------------------- initializers
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype,
@@ -110,9 +112,12 @@ def cross_entropy(logits, labels, mask=None):
     """Mean token cross-entropy in f32.  logits (..., V), labels (...); with
     ``mask`` the mean over the masked-in positions (at least one)."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
-    nll = lse - ll
+    if is_dtensor(logits):      # the dry run's vocab-sharded logits
+        nll = vocab_nll(logits, labels)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+        nll = lse - ll
     if mask is not None:
         mask = mask.float()
         return (nll * mask).sum() / mask.sum().clamp(min=1.0)

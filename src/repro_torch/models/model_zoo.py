@@ -41,12 +41,15 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_lib
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.sharding.local import (embed_rows, fsdp_gather, is_dtensor, rows_only,
+                                        vocab_product)
 from repro_torch.models.layers import (apply_mlp, apply_norm, cross_entropy, dense_init,
                                        embed_init, init_mlp, init_norm)
 
@@ -99,11 +102,40 @@ def split_schedule(kinds: list[BlockKind]) -> tuple[int, int]:
     return 0, L
 
 
-def _layer(tree, i: int):
-    """Layer ``i`` of a stacked tree (views, no copies)."""
+# products with no batch dims: what the reference's
+# ``dots_with_no_batch_dims_saveable`` policy saves under ``remat="dots"``
+_SAVED_DOTS = ("mm", "addmm")
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op.overloadpacket.__name__ in _SAVED_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_context(remat: bool | str):
+    """``checkpoint``'s ``context_fn`` for a ``remat`` setting: the default
+    (save nothing inside) for ``True``, the selective policy for
+    ``"dots"``."""
+    from torch.utils.checkpoint import (create_selective_checkpoint_contexts,
+                                        noop_context_fn)
+    if remat == "dots":
+        return lambda: create_selective_checkpoint_contexts(_save_dots)
+    if remat is True:
+        return noop_context_fn
+    raise ValueError(f"remat={remat!r}: False, True or 'dots'")
+
+
+def _layers(tree, n: int) -> list:
+    """The ``n`` layers of a stacked tree (views, no copies), split by one
+    ``unbind`` a leaf: its backward stacks the layers' gradients once,
+    where indexing layer by layer would give each layer's gradient as a
+    zero tensor of the whole stack and sum ``n`` of them."""
     if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+        per_key = {k: _layers(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 def _stack(trees: list):
@@ -138,6 +170,7 @@ def apply_block(p, x, cfg: ModelConfig, kind: BlockKind, *, mode: str,
     updated) decode cache, or None in ``train`` mode; the router's aux loss
     (0 for a dense FFN)."""
     aux = torch.zeros((), device=x.device)
+    x, p = rows_only(x), fsdp_gather(p)
     h = apply_norm(p["norm1"], x, cfg)
     if kind.mixer in ("mamba", "mlstm", "slstm"):
         # looked up at call time, so a caller can wrap a mixer's function
@@ -163,7 +196,7 @@ def apply_block(p, x, cfg: ModelConfig, kind: BlockKind, *, mode: str,
         if mode == "prefill":
             new_cache = ({"c_kv": kv[0], "k_rope": kv[1]} if kind.mixer == "mla"
                          else {"k": kv[0], "v": kv[1]})
-    x = x + a
+    x = x + rows_only(a)
     if kind.ffn != "none":
         h = apply_norm(p["norm2"], x, cfg)
         if kind.ffn == "moe":
@@ -171,7 +204,7 @@ def apply_block(p, x, cfg: ModelConfig, kind: BlockKind, *, mode: str,
             out = out.reshape(h.shape)
         else:
             out = apply_mlp(p["mlp"], h, cfg)
-        x = x + out
+        x = x + rows_only(out)
     return x, new_cache, aux
 
 
@@ -262,19 +295,21 @@ class Model:
     def _frontend(self, params, embeds):
         """``gelu(embeds @ proj1) @ proj2`` in the compute dtype (the tanh
         gelu, ``jax.nn.gelu``'s)."""
-        cd, fe = self.cfg.cdtype, params["frontend"]
+        cd, fe = self.cfg.cdtype, fsdp_gather(params["frontend"])
         x = embeds.to(cd) @ fe["proj1"].to(cd)
-        return F.gelu(x, approximate="tanh") @ fe["proj2"].to(cd)
+        return rows_only(F.gelu(x, approximate="tanh") @ fe["proj2"].to(cd))
 
     def _embed_in(self, params, batch):
         cfg = self.cfg
         if cfg.family == "audio":
             x = self._frontend(params, batch["embeds"])
             if "mask" in batch:
-                me = params["frontend"]["mask_embed"].to(cfg.cdtype)
+                me = fsdp_gather(params["frontend"]["mask_embed"]).to(cfg.cdtype)
                 x = torch.where(batch["mask"][..., None], me, x)
             return x
-        x = params["embed"][batch["tokens"].long()].to(cfg.cdtype)
+        table = fsdp_gather(params["embed"])
+        x = (rows_only(embed_rows(table, batch["tokens"])) if is_dtensor(table)
+             else table[batch["tokens"].long()]).to(cfg.cdtype)
         if cfg.tie_embeddings:
             x = x * torch.full((), float(np.sqrt(cfg.d_model)), dtype=cfg.cdtype,
                                device=x.device)
@@ -285,24 +320,32 @@ class Model:
 
     def head(self, params):
         """(D, V) LM-head matrix: the tied-embedding transpose or ``lm_head``."""
-        return (params["embed"].T if self.cfg.tie_embeddings
-                else params["lm_head"])
+        return fsdp_gather(params["embed"].T if self.cfg.tie_embeddings
+                           else params["lm_head"])
 
     def _logits_out(self, params, x):
-        x = apply_norm(params["final_norm"], x, self.cfg)
-        return x @ self.head(params).to(x.dtype)
+        x = apply_norm(params["final_norm"], rows_only(x), self.cfg)
+        head = self.head(params).to(x.dtype)
+        return vocab_product(x, head) if is_dtensor(x) else x @ head
 
-    def features(self, params, batch):
+    def features(self, params, batch, *, remat: bool | str = False):
         """(B, S, D) post-final-norm hidden states, the LM-head input:
         ``logits == features @ head``.  The head-fused KD path consumes this
         instead of ``logits``, so the (B·S, V) student row never exists."""
         x = self._embed_in(params, batch)
-        x, _, _ = self._stack_forward(params, x, mode="train")
-        return apply_norm(params["final_norm"], x, self.cfg)
+        x, _, _ = self._stack_forward(params, x, mode="train", remat=remat)
+        return apply_norm(params["final_norm"], rows_only(x), self.cfg)
 
     # ---- the layer stack ----------------------------------------------
-    def _stack_forward(self, params, x, *, mode: str, caches=None, pos=None):
-        """Returns (x, caches, aux summed over the layers)."""
+    def _stack_forward(self, params, x, *, mode: str, caches=None, pos=None,
+                       remat: bool | str = False):
+        """Returns (x, caches, aux summed over the layers).
+
+        ``remat`` (the reference's ``jax.checkpoint`` of its scan body) wraps
+        each superblock, in ``train`` mode: ``True`` keeps only its input and
+        recomputes the rest in the backward; ``"dots"`` also keeps the
+        outputs of products with no batch dims (``_save_dots``).  The
+        prefix layers and the head stay outside, as in the reference."""
         cfg = self.cfg
         q, _ = self.prefix_period
         aux_total = torch.zeros((), device=x.device)
@@ -316,9 +359,16 @@ class Model:
         new_blocks = None
         if self.n_super:
             per_layer = []
+            layer_params = _layers(params["blocks"], self.n_super)
+            layer_caches = _layers(caches["blocks"], self.n_super) if caches else None
             for i in range(self.n_super):
-                bp = _layer(params["blocks"], i)
-                bc = _layer(caches["blocks"], i) if caches else None
+                bp = layer_params[i]
+                if remat and mode == "train":
+                    x, aux_total = checkpoint(self._superblock_train, bp, x, aux_total,
+                                              use_reentrant=False,
+                                              context_fn=remat_context(remat))
+                    continue
+                bc = layer_caches[i] if caches else None
                 ncs = {}
                 for j, kind in enumerate(self.superblock):
                     x, ncs[f"b{j}"], aux = apply_block(
@@ -335,15 +385,23 @@ class Model:
             out_caches = {"prefix": new_prefix, "blocks": new_blocks}
         return x, out_caches, aux_total
 
+    def _superblock_train(self, bp, x, aux_total):
+        """One superblock's layers in ``train`` mode (the unit ``remat``
+        recomputes): (x, aux_total)."""
+        for j, kind in enumerate(self.superblock):
+            x, _, aux = apply_block(bp[f"b{j}"], x, self.cfg, kind, mode="train")
+            aux_total = aux_total + aux
+        return x, aux_total
+
     # ---- public API ------------------------------------------------------
-    def logits(self, params, batch):
+    def logits(self, params, batch, *, remat: bool | str = False):
         """Full-sequence forward: (logits (B,S,V), the router aux loss
         summed over the MoE layers; 0 with dense FFNs)."""
         x = self._embed_in(params, batch)
-        x, _, aux = self._stack_forward(params, x, mode="train")
+        x, _, aux = self._stack_forward(params, x, mode="train", remat=remat)
         return self._logits_out(params, x), aux
 
-    def loss(self, params, batch):
+    def loss(self, params, batch, *, remat: bool | str = False):
         """Next-token cross-entropy over the batch, masked by the optional
         ``loss_mask`` (a VLM's default: the positions from
         ``num_prefix_embeds`` on), or for audio the cross-entropy at the
@@ -351,7 +409,7 @@ class Model:
         layers`` for a MoE config; returns (loss, {"ce", "moe_aux"}) — "ce"
         is the total, as in the reference."""
         cfg = self.cfg
-        logits, aux = self.logits(params, batch)
+        logits, aux = self.logits(params, batch, remat=remat)
         labels = batch["labels"]
         if cfg.family == "audio":
             mask = batch.get("mask")

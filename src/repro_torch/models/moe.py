@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import apply_mlp, dense_init, init_mlp
+from repro_torch.sharding.local import experts_local, is_dtensor
 
 # tokens per routing group: capacity and overflow drops are per group
 GROUP_SIZE = 4096
@@ -68,6 +69,20 @@ def _capacity(tokens: int, cfg) -> int:
 
 def moe_ffn(p, x, cfg, group_size: int = GROUP_SIZE):
     """x (T, D) -> (out (T, D), aux_loss scalar)."""
+    bank = {k: p[k] for k in ("router", "w_in", "w_gate", "w_out") if k in p}
+    if is_dtensor(x):           # the dry run: expert-parallel over "model"
+        out, aux = experts_local(_routed, bank, x, cfg, group_size)
+    else:
+        out, aux = _routed(bank, x, cfg, group_size)
+    if "shared" in p:
+        out = out + apply_mlp(p["shared"], x, cfg)
+    return out, aux
+
+
+def _routed(p, x, cfg, group_size: int, expert0: int = 0):
+    """The routed experts of ``moe_ffn``: (out (T, D), aux).  ``p``'s bank
+    may hold the experts from ``expert0`` on only (one rank's under the dry
+    run): the tokens routed elsewhere get 0 here."""
     m = cfg.moe
     T, D = x.shape
     E, K = m.num_experts, m.top_k
@@ -108,6 +123,9 @@ def moe_ffn(p, x, cfg, group_size: int = GROUP_SIZE):
     buf = torch.gather(xg, 1, tok[..., None].expand(G, E * C, D))
     buf = torch.where(filled.reshape(G, E * C, 1), buf, 0).reshape(G, E, C, D)
 
+    local = p["w_in"].shape[0]
+    if local != E:
+        buf = buf[:, expert0:expert0 + local]
     h = torch.einsum("gecd,edf->gecf", buf, p["w_in"].to(x.dtype))
     if "w_gate" in p:
         g = torch.einsum("gecd,edf->gecf", buf, p["w_gate"].to(x.dtype))
@@ -116,14 +134,12 @@ def moe_ffn(p, x, cfg, group_size: int = GROUP_SIZE):
     else:
         h = F.gelu(h, approximate="tanh")
     out_buf = torch.einsum("gecf,efd->gecd", h, p["w_out"].to(x.dtype))
+    if local != E:
+        out_buf = F.pad(out_buf, (0, 0, 0, 0, expert0, E - expert0 - local))
 
     slot = torch.where(keep, flat_e * C + pos, 0)               # (G, n)
     tok_out = torch.gather(out_buf.reshape(G, E * C, D), 1,
                            slot[..., None].expand(G, n, D))
     tok_out = torch.where(keep[..., None], tok_out, 0)
     tok_out = tok_out.reshape(G * gs, K, D) * gate.reshape(-1, K, 1).to(x.dtype)
-    out = tok_out.sum(1)[:T]
-
-    if "shared" in p:
-        out = out + apply_mlp(p["shared"], x[:T], cfg)
-    return out, aux
+    return tok_out.sum(1)[:T], aux

@@ -42,6 +42,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init
+from repro_torch.sharding.local import (ROWS, column_blocks, heads_local, is_dtensor, rows_only,
+                                        split_heads)
 
 
 def _check_chunks(S: int, chunk_size: int) -> int:
@@ -81,6 +83,7 @@ def init_mamba(gen, cfg, *, stack: tuple = ()):
     }
 
 
+@heads_local(2, (None, 1), (None, 0), out=2)
 def _causal_conv(x, w, b):
     """Depthwise causal conv.  x (B,S,di), w (dc,di) -> (B,S,di)."""
     dc, S = w.shape[0], x.shape[1]
@@ -94,10 +97,14 @@ def _causal_conv(x, w, b):
 def _mamba_gates(p, x, cfg):
     """Common pre-scan computation.  x (B,S,D) -> (a, b, Cc, x_conv, z, x_in)."""
     di, ds, dt_rank = _mamba_dims(cfg)
-    xz = x @ p["in_proj"].to(x.dtype)
-    x_in, z = xz[..., :di], xz[..., di:]
+    w = p["in_proj"].to(x.dtype)
+    if is_dtensor(w):           # the dry run: each half split over "model"
+        x_in, z = (x @ h for h in column_blocks(w, di, di))
+    else:
+        xz = x @ w
+        x_in, z = xz[..., :di], xz[..., di:]
     x_conv = F.silu(_causal_conv(x_in, p["conv_w"].to(x.dtype), p["conv_b"].to(x.dtype)))
-    dbc = x_conv @ p["x_proj"].to(x.dtype)
+    dbc = rows_only(x_conv @ p["x_proj"].to(x.dtype))     # whole over "model"
     dt, Bc, Cc = dbc[..., :dt_rank], dbc[..., dt_rank:dt_rank + ds], dbc[..., dt_rank + ds:]
     dt = F.softplus(dt.float() @ p["dt_proj"].float() + p["dt_bias"].float())    # (B,S,di)
     A = -torch.exp(p["A_log"].float())                                           # (di,ds)
@@ -119,6 +126,21 @@ def _prefix_scan(a, b):
     return a, b
 
 
+@heads_local(2, 2, ROWS, 1, out=(2, 1))
+def _mamba_chunks(a, b, Cf, h, ch: int):
+    """The chunked scan over (B, S, di, ds) gates from the state h (B, di,
+    ds): (y (B, S, di) f32, the last h); per batch row and channel."""
+    ys = []
+    for c in range(a.shape[1] // ch):
+        sl = slice(c * ch, (c + 1) * ch)
+        Ac, Bc_ = _prefix_scan(a[:, sl], b[:, sl])
+        hs = Ac * h[:, None] + Bc_                                  # prefix states
+        h = hs[:, -1]
+        # y_t = Σ_n h_t[..., n] · C_t[..., n]
+        ys.append(torch.einsum("bsdn,bsn->bsd", hs, Cf[:, sl]))
+    return torch.cat(ys, dim=1), h
+
+
 def mamba_forward(p, x, cfg, state=None):
     """x (B,S,D) -> (out (B,S,D), final state {'h': (B,di,ds) f32,
     'conv': (B,dc-1,di) the last pre-conv inputs, x's dtype})."""
@@ -128,16 +150,7 @@ def mamba_forward(p, x, cfg, state=None):
     a, b, Cc, x_conv, z, x_in = _mamba_gates(p, x, cfg)
     h = (torch.zeros((B, di, ds), dtype=torch.float32, device=x.device)
          if state is None else state["h"])
-    Cf = Cc.float()
-    ys = []
-    for c in range(S // ch):
-        sl = slice(c * ch, (c + 1) * ch)
-        Ac, Bc_ = _prefix_scan(a[:, sl], b[:, sl])
-        hs = Ac * h[:, None] + Bc_                                  # prefix states
-        h = hs[:, -1]
-        # y_t = Σ_n h_t[..., n] · C_t[..., n]
-        ys.append(torch.einsum("bsdn,bsn->bsd", hs, Cf[:, sl]))
-    y = torch.cat(ys, dim=1)
+    y, h = _mamba_chunks(a, b, Cc.float(), h, ch)
     y = y + p["D_skip"].float() * x_conv.float()
     y = (y * F.silu(z.float())).to(x.dtype)
     out = y @ p["out_proj"].to(x.dtype)
@@ -145,6 +158,13 @@ def mamba_forward(p, x, cfg, state=None):
     # copied, as views they would pin the last chunk's (B, ch, di, ds)
     # states and the whole (B, S, 2·di) projection as long as the cache
     return out, {"h": h.clone(), "conv": x_in[:, -(cfg.ssm.d_conv - 1):].clone()}
+
+
+@heads_local(2, (None, 1), (None, 0), out=1)
+def _conv_step(hist, w, b):
+    """The conv's one step over the last dc inputs hist (B, dc, di):
+    silu(Σ_c hist·w + b), (B, di)."""
+    return F.silu(torch.einsum("bcd,cd->bd", hist, w) + b)
 
 
 def mamba_decode(p, x1, state, cfg):
@@ -158,10 +178,9 @@ def mamba_decode(p, x1, state, cfg):
     x_in, z = xz[..., :di], xz[..., di:]                                 # (B,1,di)
     hd = torch.promote_types(state["conv"].dtype, x1.dtype)
     hist = torch.cat([state["conv"].to(hd), x_in.to(hd)], dim=1)         # (B,dc,di)
-    w = p["conv_w"].to(x1.dtype).to(hd)
-    x_conv = F.silu(torch.einsum("bcd,cd->bd", hist[:, -dc:], w)
-                    + p["conv_b"].to(x1.dtype).to(hd))[:, None]         # (B,1,di)
-    dbc = x_conv @ p["x_proj"].to(x1.dtype).to(hd)
+    x_conv = _conv_step(hist[:, -dc:], p["conv_w"].to(x1.dtype).to(hd),
+                        p["conv_b"].to(x1.dtype).to(hd))[:, None]        # (B,1,di)
+    dbc = rows_only(x_conv @ p["x_proj"].to(x1.dtype).to(hd))
     dt, Bc, Cc = dbc[..., :dt_rank], dbc[..., dt_rank:dt_rank + ds], dbc[..., dt_rank + ds:]
     dt = F.softplus(dt.float() @ p["dt_proj"].float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
@@ -201,29 +220,22 @@ def _mlstm_qkvif(p, x, cfg):
     B, S, D = x.shape
     nh = cfg.num_heads
     dh = D // nh
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, nh, dh)
-    k = (x @ p["wk"].to(x.dtype)).reshape(B, S, nh, dh) * (dh ** -0.5)
-    v = (x @ p["wv"].to(x.dtype)).reshape(B, S, nh, dh)
+    q = split_heads(x @ p["wq"].to(x.dtype), B, S, nh, dh)
+    k = split_heads(x @ p["wk"].to(x.dtype), B, S, nh, dh) * (dh ** -0.5)
+    v = split_heads(x @ p["wv"].to(x.dtype), B, S, nh, dh)
     i = torch.sigmoid((x @ p["w_i"].to(x.dtype)).float())
     logf = F.logsigmoid((x @ p["w_f"].to(x.dtype)).float() + p["b_f"].float())
     return q, k, v, i, logf
 
 
-def mlstm_forward(p, x, cfg, state=None):
-    """x (B,S,D) -> (out, final state {'C': (B,nh,dh,dh), 'n': (B,nh,dh)})."""
-    B, S, D = x.shape
-    nh = cfg.num_heads
-    dh = D // nh
-    ch = _check_chunks(S, cfg.ssm.chunk_size)
-    q, k, v, i, logf = _mlstm_qkvif(p, x, cfg)
-    if state is None:
-        C = torch.zeros((B, nh, dh, dh), dtype=torch.float32, device=x.device)
-        n = torch.zeros((B, nh, dh), dtype=torch.float32, device=x.device)
-    else:
-        C, n = state["C"], state["n"]
-    mask = torch.ones((ch, ch), dtype=torch.bool, device=x.device).tril()
+@heads_local(2, 2, 2, 2, 2, 1, 1, out=(2, 1, 1))
+def _mlstm_chunks(q, k, v, i, logf, C, n, ch: int):
+    """The chunkwise recurrence over (B, S, nh, ·) gates and projections
+    from the state (C, n): (h (B, S, nh·dh) f32, C, n); per batch row and
+    head."""
+    mask = torch.ones((ch, ch), dtype=torch.bool, device=q.device).tril()
     hs = []
-    for c in range(S // ch):
+    for c in range(q.shape[1] // ch):
         sl = slice(c * ch, (c + 1) * ch)
         qf, kf, vf = q[:, sl].float(), k[:, sl].float(), v[:, sl].float()
         ib = i[:, sl]
@@ -248,24 +260,48 @@ def mlstm_forward(p, x, cfg, state=None):
         f_last = torch.exp(Fc[:, -1])                                # (B,nh)
         C = C * f_last[:, :, None, None] + torch.einsum("bshd,bshe,bsh->bhde", kf, vf, w_s)
         n = n * f_last[..., None] + torch.einsum("bshd,bsh->bhd", kf, w_s)
-    h = torch.cat(hs, dim=1).reshape(B, S, D).to(x.dtype)
+    h = torch.cat(hs, dim=1)
+    return h.reshape(*h.shape[:2], -1), C, n
+
+
+def mlstm_forward(p, x, cfg, state=None):
+    """x (B,S,D) -> (out, final state {'C': (B,nh,dh,dh), 'n': (B,nh,dh)})."""
+    B, S, D = x.shape
+    nh = cfg.num_heads
+    dh = D // nh
+    ch = _check_chunks(S, cfg.ssm.chunk_size)
+    q, k, v, i, logf = _mlstm_qkvif(p, x, cfg)
+    if state is None:
+        C = torch.zeros((B, nh, dh, dh), dtype=torch.float32, device=x.device)
+        n = torch.zeros((B, nh, dh), dtype=torch.float32, device=x.device)
+    else:
+        C, n = state["C"], state["n"]
+    h, C, n = _mlstm_chunks(q, k, v, i, logf, C, n, ch)
+    h = h.reshape(B, S, D).to(x.dtype)
     z = x @ p["w_z"].to(x.dtype)
     out = (h * F.silu(z)) @ p["out_proj"].to(x.dtype)
     return out, {"C": C, "n": n}
 
 
+@heads_local(1, 1, 1, 1, 1, 1, 1, out=(1, 1, 1))
+def _mlstm_step(q, k, v, i0, logf, C, n):
+    """One token's recurrence over (B, nh, ·): (h (B, nh, dh) f32, C, n);
+    per batch row and head."""
+    f = torch.exp(logf)                                              # (B,nh)
+    kf, vf, qf = k.float(), v.float(), q.float()
+    C = C * f[..., None, None] + i0[..., None, None] * torch.einsum("bhd,bhe->bhde", kf, vf)
+    n = n * f[..., None] + i0[..., None] * kf
+    num = torch.einsum("bhd,bhde->bhe", qf, C)
+    den = torch.einsum("bhd,bhd->bh", qf, n).abs().clamp(min=1.0)
+    return num / den[..., None], C, n
+
+
 def mlstm_decode(p, x1, state, cfg):
     B = x1.shape[0]
     q, k, v, i, logf = _mlstm_qkvif(p, x1, cfg)                      # (B,1,...)
-    f = torch.exp(logf[:, 0])                                        # (B,nh)
-    i0 = i[:, 0]
-    kf, vf, qf = k[:, 0].float(), v[:, 0].float(), q[:, 0].float()
-    C = state["C"] * f[..., None, None] + i0[..., None, None] * \
-        torch.einsum("bhd,bhe->bhde", kf, vf)
-    n = state["n"] * f[..., None] + i0[..., None] * kf
-    num = torch.einsum("bhd,bhde->bhe", qf, C)
-    den = torch.einsum("bhd,bhd->bh", qf, n).abs().clamp(min=1.0)
-    h = (num / den[..., None]).reshape(B, 1, cfg.d_model).to(x1.dtype)
+    h, C, n = _mlstm_step(q[:, 0], k[:, 0], v[:, 0], i[:, 0], logf[:, 0],
+                          state["C"], state["n"])
+    h = h.reshape(B, 1, cfg.d_model).to(x1.dtype)
     z = x1 @ p["w_z"].to(x1.dtype)
     out = (h * F.silu(z)) @ p["out_proj"].to(x1.dtype)
     return out, {"C": C, "n": n}
@@ -314,6 +350,19 @@ def _slstm_step(p, xw, carry, cfg):
     return c_new, n_new, h_new, m_new
 
 
+@heads_local(None, 0, 0, 0, 0, 0, out=(0, 0, 0, 0, 0), keep_heads=True)
+def _slstm_scan(r, xw, c, n, h, m, cfg):
+    """The time loop over xw (B, S, 4D) from the carry (c, n, h, m): (h
+    (B, S, D) of every step, the last carry); per batch row."""
+    hs = []
+    carry = (c, n, h, m)
+    for t in range(xw.shape[1]):
+        carry = _slstm_step({"r": r}, xw[:, t], carry, cfg)
+        hs.append(carry[2])
+    h = torch.stack(hs, dim=1)
+    return (h.reshape(*h.shape[:2], -1), *carry)
+
+
 def slstm_forward(p, x, cfg, state=None):
     B, S, D = x.shape
     nh = cfg.num_heads
@@ -325,19 +374,23 @@ def slstm_forward(p, x, cfg, state=None):
         carry = (zeros, zeros, zeros, zeros)
     else:
         carry = (state["c"], state["n"], state["h"], state["m"])
-    hs = []
-    for t in range(S):
-        carry = _slstm_step(p, xw[:, t], carry, cfg)
-        hs.append(carry[2])
-    h = torch.stack(hs, dim=1).reshape(B, S, D).to(x.dtype)
+    h, c, n, hh, m = _slstm_scan(p["r"], xw, *carry, cfg)
+    h = h.reshape(B, S, D).to(x.dtype)
     out = h @ p["out_proj"].to(x.dtype)
-    c, n, hh, m = carry
     return out, {"c": c, "n": n, "h": hh, "m": m}
+
+
+@heads_local(None, 0, 0, 0, 0, 0, out=(0, 0, 0, 0), keep_heads=True)
+def _slstm_decode_step(r, xw, c, n, h, m, cfg):
+    """One time step of the recurrence: the new (c, n, h, m); per batch
+    row."""
+    return _slstm_step({"r": r}, xw, (c, n, h, m), cfg)
 
 
 def slstm_decode(p, x1, state, cfg):
     xw = (x1 @ p["w_in"].to(x1.dtype) + p["b"].to(x1.dtype))[:, 0]
-    c, n, h, m = _slstm_step(p, xw, (state["c"], state["n"], state["h"], state["m"]), cfg)
+    c, n, h, m = _slstm_decode_step(p["r"], xw, state["c"], state["n"], state["h"],
+                                    state["m"], cfg)
     B = x1.shape[0]
     out = h.reshape(B, 1, cfg.d_model).to(x1.dtype) @ p["out_proj"].to(x1.dtype)
     return out, {"c": c, "n": n, "h": h, "m": m}

@@ -23,7 +23,6 @@ REF, PORT = ROOT / "repro", ROOT / "repro_torch"
 
 JAX_PLUMBING = "JAX program plumbing: the port's programs are core/step_graph.py's StepGraphs"
 PALLAS = "the Pallas kernel; the port's kernel is CUDA under kernels/csrc/, its wrapper in ops.py"
-DRY_RUN = "the meta-device dry run: ROADMAP.md §A, the next slice"
 NO_DONATION = ("no port program declares inputs it updates in place: a step program's body "
                "writes its own static buffers (core/step_graph.py), so there is no request "
                "to audit")
@@ -59,8 +58,6 @@ NOT_PORTED = {
 }
 
 MODULES_NOT_PORTED = {
-    "launch/dryrun.py": DRY_RUN,
-    "launch/perf.py": DRY_RUN,
     "kernels/flash_attention/kernel.py": PALLAS,
     "kernels/kd_loss/kernel.py": PALLAS,
     "kernels/weight_avg/kernel.py": PALLAS,
